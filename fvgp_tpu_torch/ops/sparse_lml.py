@@ -1,0 +1,504 @@
+"""Differentiable block-sparse marginal likelihood and the committed-state
+wide solver — the gp2Scale engine, single device (counterpart of
+``fvgp_tpu/ops/sparse_lml.py``).
+
+* Covariance tiles are assembled chunk by chunk from the block structure;
+  the gradient reaches the hyperparameters through a per-chunk recompute in
+  the backward, so no full (T, B, B) autograd graph is ever held.
+* The LML is the fused mBCG estimator (Gardner et al. 2018): one
+  preconditioned CG over ``[y-m | L_M·probes]`` gives the solve and a
+  Lanczos quadrature of the log-determinant; its backward is one
+  matvec-VJP and no extra solve.
+* The SpMM of every CG iteration is the hand-written K1 kernel on the card
+  (``ops/hopper_kernels.chunked_spmm``); the committed posterior solver's
+  wide SpMM is K2 (``row_chunk_sums``).
+
+Single device only: the mesh and halo SpMMs, ``solver="slq"`` and the
+two-level preconditioner of the JAX module are not ported yet (ROADMAP).
+"""
+
+import math
+import warnings
+
+import torch
+
+from .hopper_kernels import chunked_spmm, chunked_spmm_vjp, row_chunk_sums
+
+__all__ = ["make_sparse_lml", "make_committed_solver", "make_padded_inputs"]
+
+# flat-SpMM budget for the committed solver's per-tile product (bytes)
+_SPMV_FLAT_BUDGET = 2 << 30
+
+
+def _assembly_chunk(T_pad, target=2048):
+    """Largest divisor of T_pad that is <= target (assembly chunk size)."""
+    best = 1
+    d = 1
+    while d * d <= T_pad:
+        if T_pad % d == 0:
+            if d <= target:
+                best = max(best, d)
+            q = T_pad // d
+            if q <= target:
+                best = max(best, q)
+        d += 1
+    return best
+
+
+def _spmv_for(nb, B, mv_dtype=None):
+    """The single-device SpMM: K1 on a float32/bfloat16 CUDA operand, the
+    plain formulation (the JAX ``_spmv``, here
+    ``hopper_kernels.chunked_spmm_reference``) on the CPU and for float64 —
+    decided inside ``chunked_spmm``."""
+    def spmv(rows, cols, tiles, X):
+        return chunked_spmm(rows, cols, tiles, X, nb, B, mv_dtype=mv_dtype)
+
+    return spmv
+
+
+def _spmv_scan(rows, cols, tiles, X, nb, B, mv_dtype=None):
+    """Tile-chunked SpMM for wide right-hand sides: the flat product would
+    be a (T, B, c) array, so tile slices stream through a (nb, B, c)
+    accumulator instead.  Rows == nb (sentinels) are dropped; columns are
+    clamped (their tiles are zero)."""
+    acc_dt = X.dtype if X.dtype == torch.float64 else torch.float32
+    Xc = X.to(mv_dtype) if mv_dtype is not None else X
+    c = X.shape[1]
+    Xb = Xc.reshape(nb, B, c)
+    T = tiles.shape[0]
+    # chunk sized so the per-slice product stays ~256 MB
+    item = torch.finfo(acc_dt).bits // 8
+    target = max(64, (256 << 20) // max(B * c * item, 1))
+    chunk = _assembly_chunk(T, target=min(target, 8192))
+    r = rows.long().clamp(max=nb)
+    cc = cols.long().clamp(max=nb - 1)
+    acc = torch.zeros((nb + 1, B, c), dtype=acc_dt, device=X.device)
+    for s in range(0, T, chunk):
+        t = tiles[s:s + chunk]
+        if mv_dtype is not None:
+            t = t.to(mv_dtype)
+        acc.index_add_(0, r[s:s + chunk],
+                       torch.bmm(t.to(acc_dt), Xb[cc[s:s + chunk]].to(acc_dt)))
+    return acc[:nb].reshape(nb * B, c).to(X.dtype)
+
+
+def _spmv_scan_fused(rowsc, cols_p, tiles, X, nb, B, C=8, mv_dtype=None):
+    """Row-aligned fused SpMM for wide right-hand sides: per schedule slice,
+    ``row_chunk_sums`` (K2 on the card) reduces each C-tile chunk to ONE
+    (B, c) float32 partial, reading the X blocks through ``cols_p`` — the
+    (T, B, c) product never exists — and the C×-fewer partials are added
+    into their rows.
+
+    ``rowsc`` (n_chunks,) per-chunk output rows (sentinel == nb, dropped
+    through a dummy row block); ``cols_p`` (n_chunks*C,) per-tile column
+    blocks (sentinel == nb — their tiles are zero, the clamp is harmless).
+    float32/bfloat16 only (the kernel accumulates float32)."""
+    Xc = X.to(mv_dtype) if mv_dtype is not None else X
+    c = X.shape[1]
+    Xb = Xc.reshape(nb, B, c)
+    n_chunks = rowsc.shape[0]
+    # slice so each slice's partial sums stay ~256 MB
+    per_chunk = B * c * 4
+    target = max(32, (256 << 20) // max(per_chunk, 1))
+    M = _assembly_chunk(n_chunks, target=min(target, 4096))
+    rc = rowsc.long().clamp(max=nb)
+    acc = torch.zeros((nb + 1, B, c), dtype=torch.float32, device=X.device)
+    for s in range(0, n_chunks, M):
+        sums = row_chunk_sums(tiles[s * C:(s + M) * C],
+                              cols_p[s * C:(s + M) * C], Xb, B, C=C)
+        acc.index_add_(0, rc[s:s + M], sums)
+    return acc[:nb].reshape(nb * B, c).to(X.dtype)
+
+
+def _assemble_chunk(kernel_fn, hps, r, c, live, xb, mask, out_dtype):
+    """Tiles k(xb[r[t]], xb[c[t]]) with padding masked and dead (sentinel)
+    tiles zeroed, cast per chunk to ``out_dtype``."""
+    Kt = kernel_fn(xb[r], xb[c], hps)
+    Kt = Kt * (mask[r][:, :, None] * mask[c][:, None, :])
+    Kt = torch.where(live[:, None, None], Kt, torch.zeros((), dtype=Kt.dtype,
+                                                          device=Kt.device))
+    return Kt.to(out_dtype)
+
+
+class _AssembleTiles(torch.autograd.Function):
+    """Chunked tile assembly with a recompute-per-chunk backward (the
+    counterpart of ``jax.checkpoint`` over ``_assembly_chunk`` slices):
+    neither pass holds more than one chunk of kernel intermediates, and a
+    ``solver_dtype=bfloat16`` tile set never exists in float32."""
+
+    @staticmethod
+    def forward(ctx, hps, kernel_fn, B, out_dtype, rows_c, cols_c, live, xb,
+                mask):
+        T = rows_c.shape[0]
+        chunk = _assembly_chunk(T)
+        tiles = torch.empty((T, B, B), dtype=out_dtype, device=xb.device)
+        for s in range(0, T, chunk):
+            sl = slice(s, s + chunk)
+            tiles[sl] = _assemble_chunk(kernel_fn, hps, rows_c[sl],
+                                        cols_c[sl], live[sl], xb, mask,
+                                        out_dtype)
+        ctx.save_for_backward(hps, rows_c, cols_c, live, xb, mask)
+        ctx.kernel_fn, ctx.out_dtype, ctx.chunk = kernel_fn, out_dtype, chunk
+        return tiles
+
+    @staticmethod
+    def backward(ctx, tiles_bar):
+        hps, rows_c, cols_c, live, xb, mask = ctx.saved_tensors
+        grad = torch.zeros_like(hps)
+        for s in range(0, rows_c.shape[0], ctx.chunk):
+            sl = slice(s, s + ctx.chunk)
+            with torch.enable_grad():
+                h = hps.detach().requires_grad_(True)
+                Kt = _assemble_chunk(ctx.kernel_fn, h, rows_c[sl],
+                                     cols_c[sl], live[sl], xb, mask,
+                                     ctx.out_dtype)
+                g, = torch.autograd.grad(Kt, h, grad_outputs=tiles_bar[sl])
+            grad += g
+        return grad, None, None, None, None, None, None, None, None
+
+
+def _assemble_chunked_tiles(kernel_fn, B, solver_dtype, hps, rows_c, cols_c,
+                            live, xb, mask):
+    """Chunked tile assembly (shared by the LML and the committed solver);
+    differentiable in ``hps``.  Tiles come out in ``solver_dtype`` (or the
+    points' dtype)."""
+    out_dtype = solver_dtype if solver_dtype is not None else xb.dtype
+    return _AssembleTiles.apply(hps, kernel_fn, B, out_dtype, rows_c, cols_c,
+                                live, xb, mask)
+
+
+def _diag_precond_blocks(kernel_fn, B, precond_width, hps, xb, mask,
+                         noise_local, i0=0):
+    """Block-diagonal preconditioner from exact kernel blocks of
+    ``precond_width`` adjacent point blocks each: one batched Cholesky and
+    an explicit block inverse, so each CG iteration applies it with one
+    batched matmul.  No gradient: it steers the iteration, not the
+    solution."""
+    nb_loc = noise_local.shape[0] // B
+    if nb_loc % precond_width == 0:
+        w = precond_width
+    else:
+        warnings.warn(
+            f"gp2Scale_precond_width={precond_width} does not divide the "
+            f"local block count {nb_loc}; falling back to width-1 "
+            "block-Jacobi (choose a width dividing n_blocks)", stacklevel=2)
+        w = 1
+    P = w * B
+    ng = nb_loc // w
+    with torch.no_grad():
+        hps = hps.detach()
+        xg = xb[i0:i0 + nb_loc].reshape(ng, P, xb.shape[-1])
+        mg = mask[i0:i0 + nb_loc].reshape(ng, P)
+        blocks = kernel_fn(xg, xg, hps) * (mg[:, :, None] * mg[:, None, :])
+        blocks = blocks + torch.diag_embed(noise_local.reshape(ng, P))
+        Lb = torch.linalg.cholesky(blocks)
+        eye = torch.eye(P, dtype=Lb.dtype, device=Lb.device)
+        Linv = torch.linalg.solve_triangular(Lb, eye.expand(ng, P, P),
+                                             upper=False)
+        Minv = torch.bmm(Linv.transpose(1, 2), Linv)
+    return Minv, Lb
+
+
+def _freeze_tol_sq(tol, mv_dtype, res_dtype):
+    """Squared relative exit tolerance on rz = Rᵀ M⁻¹ R: the user's
+    ``sparse_cg_tol`` squared, else the per-dtype floor of the JAX package
+    (bf16 streaming 2.5e-3, float32 1e-8, float64 1e-14 — the bf16 value
+    was tuned on a TPU and is kept until it is re-measured on the card)."""
+    if tol is not None:
+        return float(tol) ** 2
+    if mv_dtype is not None and torch.finfo(mv_dtype).bits < 32:
+        return 2.5e-3
+    if res_dtype == torch.float64:
+        return 1e-14
+    return 1e-8
+
+
+def _tight_floor_sq(res_dtype):
+    """Per-column freeze floor (numerical safety only: keeps 1/rz finite
+    once a column has collapsed)."""
+    return 1e-14 if res_dtype == torch.float64 else 1e-10
+
+
+def _cg_fixed(matvec, Bmat, iters, M=None, tol=None, mv_dtype=None,
+              with_iters=False):
+    """(Preconditioned) multi-RHS CG, at most ``iters`` trips, exiting as
+    soon as every column's preconditioned residual is below the exit
+    floor.  ``with_iters=True`` also returns the executed trip count."""
+    if M is None:
+        M = lambda X: X                       # noqa: E731
+    X = torch.zeros_like(Bmat)
+    R = Bmat.clone()
+    Zp = M(R)
+    P = Zp
+    rz = torch.sum(R * Zp, dim=0)
+    # once the residual has collapsed, further updates must be EXACT no-ops
+    rz0 = torch.clamp(rz, min=torch.finfo(Bmat.dtype).tiny)
+    floor = rz0 * _tight_floor_sq(Bmat.dtype)
+    exit_floor = rz0 * _freeze_tol_sq(tol, mv_dtype, Bmat.dtype)
+    one = torch.ones((), dtype=Bmat.dtype, device=Bmat.device)
+    zero = torch.zeros((), dtype=Bmat.dtype, device=Bmat.device)
+    it = 0
+    while it < iters and bool((rz > exit_floor).any()):
+        active = rz > floor
+        Ap = matvec(P)
+        pAp = torch.sum(P * Ap, dim=0)
+        alpha = torch.where(active, rz / torch.where(active, pAp, one), zero)
+        X.add_(alpha * P)
+        R.sub_(alpha * Ap)
+        Zn = M(R)
+        rz_new = torch.sum(R * Zn, dim=0)
+        beta = torch.where(active, rz_new / torch.where(active, rz, one),
+                           zero)
+        P = torch.where(active[None, :], Zn + beta * P, P)
+        rz = rz_new
+        it += 1
+    return (X, it) if with_iters else X
+
+
+def _block_apply(mats, X):
+    """Batched block-diagonal apply: (nb', w, w) blocks on a flat
+    (nb'*w, k) X — one batched matmul."""
+    Xb = X.reshape(mats.shape[0], mats.shape[1], -1)
+    return torch.bmm(mats, Xb).reshape(mats.shape[0] * mats.shape[1], -1)
+
+
+def _pcg_coeffs(mv, Minv, RHS, iters, tol, mv_dtype):
+    """PCG over all RHS columns, recording the CG coefficients (the mBCG
+    forward).  Two thresholds: the global EXIT floor (loose, matched to the
+    matvec dtype) and the per-column FREEZE floor (numerical safety) —
+    columns keep iterating until the global exit, so every probe's
+    quadrature degree equals the exit iteration.  Coefficient buffers are
+    pre-filled with the frozen-identity values (alpha=1, beta=0), so an
+    early exit gives the quadrature inputs of a static run of that length."""
+    X = torch.zeros_like(RHS)
+    R = RHS
+    Zp = _block_apply(Minv, R)
+    D = Zp
+    rz = torch.sum(R * Zp, dim=0)
+    floor = rz * _tight_floor_sq(RHS.dtype)
+    exit_floor = rz * _freeze_tol_sq(tol, mv_dtype, RHS.dtype)
+    n_cols = RHS.shape[1]
+    alphas = torch.ones((iters, n_cols), dtype=RHS.dtype, device=RHS.device)
+    betas = torch.zeros((iters, n_cols), dtype=RHS.dtype, device=RHS.device)
+    one = torch.ones((), dtype=RHS.dtype, device=RHS.device)
+    zero = torch.zeros((), dtype=RHS.dtype, device=RHS.device)
+    i = 0
+    while i < iters and bool((rz > exit_floor).any()):
+        active = rz > floor
+        AD = mv(D)
+        dAd = torch.sum(D * AD, dim=0)
+        alpha = torch.where(active, rz / torch.where(active, dAd, one), zero)
+        X = X + D * alpha
+        R = R - AD * alpha
+        Z2 = _block_apply(Minv, R)
+        rz2 = torch.sum(R * Z2, dim=0)
+        beta = torch.where(active, rz2 / torch.where(active, rz, one), zero)
+        D = Z2 + D * beta
+        alphas[i] = torch.where(active, alpha, one)
+        betas[i] = torch.where(active, beta, zero)
+        rz = rz2
+        i += 1
+    return X, alphas, betas
+
+
+def _t_quadrature(alphas, betas, u_norm2):
+    """Per-probe e1-quadrature of log on the CG-coefficient tridiagonals
+    (T(i,i) = 1/α_i + β_{i-1}/α_{i-1}, T(i,i+1) = √β_i/α_i).
+    alphas/betas: (iters, P).  Returns (mean, variance / P)."""
+    a = alphas.T
+    b = betas.T
+    P = a.shape[0]
+    prev = torch.cat([torch.zeros((P, 1), dtype=a.dtype, device=a.device),
+                      b[:, :-1] / a[:, :-1]], dim=1)
+    diag = 1.0 / a + prev
+    off = torch.sqrt(torch.clamp(b[:, :-1], min=0.0)) / a[:, :-1]
+    T = (torch.diag_embed(diag) + torch.diag_embed(off, offset=1)
+         + torch.diag_embed(off, offset=-1))
+    theta, Uq = torch.linalg.eigh(T)
+    theta = torch.clamp(theta, min=1e-30)
+    vals = u_norm2 * torch.sum(Uq[:, 0, :] ** 2 * torch.log(theta), dim=1)
+    return torch.mean(vals), torch.var(vals, unbiased=False) / P
+
+
+class _QuadLogdet(torch.autograd.Function):
+    """Fused quadratic term + log-determinant (the mBCG recipe).
+
+    Forward: ONE preconditioned CG over ``[ym | L_M·U]`` gives the solve x
+    (column 0) and, from the CG coefficients, a degree-``iters`` Lanczos
+    quadrature of log|M⁻¹(K+V)| with probes z = L_M u; log|M| is exact from
+    the block Cholesky diagonals.
+
+    Backward (no extra solve):
+      d quad   = -xᵀ d(K+V) x
+      d logdet ≈ (1/P) Σ_j s_jᵀ d(K+V) (M⁻¹z_j)     (s_j = (K+V)⁻¹z_j)
+    both as ONE matvec-VJP over the stacked primal/cotangent, giving the
+    tile cotangent (a batched outer product) and the noise cotangent.
+    ``Minv``/``Lm`` get no cotangent (they only steer the iteration)."""
+
+    @staticmethod
+    def forward(ctx, tiles, noise, Minv, Lm, ym, U, rows, cols_c, nb, B,
+                iters, mv_dtype, tol):
+        if Lm.shape != Minv.shape:
+            raise ValueError("mBCG: the preconditioner factor and its "
+                             "inverse must share a shape")
+        spmv = _spmv_for(nb, B, mv_dtype)
+
+        def mv(X):
+            return spmv(rows, cols_c, tiles, X) + noise[:, None] * X
+
+        Z = _block_apply(Lm, U)
+        RHS = torch.cat([ym[:, None], Z], dim=1)
+        X, alphas, betas = _pcg_coeffs(mv, Minv, RHS, iters, tol, mv_dtype)
+        x = X[:, 0]
+        S = X[:, 1:]
+        quad = torch.dot(ym, x)
+        u2 = torch.sum(U * U, dim=0)
+        ld_C, ld_var = _t_quadrature(alphas[:, 1:], betas[:, 1:], u2)
+        ld_M = 2.0 * torch.sum(torch.log(torch.diagonal(Lm, dim1=1, dim2=2)))
+        ctx.save_for_backward(tiles, Minv, x, S, Z, rows, cols_c)
+        ctx.nb, ctx.B, ctx.mv_dtype = nb, B, mv_dtype
+        return quad, ld_M + ld_C, ld_var
+
+    @staticmethod
+    def backward(ctx, qb, lb, _):
+        tiles, Minv, x, S, Z, rows, cols_c = ctx.saved_tensors
+        P = S.shape[1]
+        Xp = torch.cat([x[:, None], _block_apply(Minv, Z)], dim=1)
+        Cot = torch.cat([(-qb) * x[:, None], (lb / P) * S], dim=1)
+        tiles_bar = None
+        if ctx.needs_input_grad[0]:
+            tiles_bar, _ = chunked_spmm_vjp(rows, cols_c, tiles, Xp, Cot,
+                                            ctx.nb, ctx.B, ctx.mv_dtype,
+                                            need_x=False)
+        noise_bar = torch.sum(Cot * Xp, dim=1) \
+            if ctx.needs_input_grad[1] else None
+        ym_bar = (2.0 * qb) * x
+        return (tiles_bar, noise_bar, None, None, ym_bar, None, None, None,
+                None, None, None, None, None)
+
+
+def make_sparse_lml(kernel_fn, nb, B, *, cg_iters=64, with_variance=False,
+                    solver_dtype=None, precond_width=1, cg_tol=None):
+    """The sparse LML as a differentiable function (fused mBCG solver)
+
+        lml(hps, rows, cols, xb, mask, y_pad, ypad_mask, noise_diag_pad, Z)
+
+    ``hps`` is a tensor (``requires_grad`` for the gradient).  ``rows`` /
+    ``cols`` are the tile schedule with sentinel entries (index == nb) for
+    bucket padding; on the card the schedule must be ROW-SORTED (the K1
+    kernel owns one output row block per thread block) — sort it once per
+    structure on the host, sentinels at the tail.  The SpMM gets the
+    sentinel rows unclamped, so it skips them: clamped into the last row
+    block they would serialize that block's work.  y/noise arrive padded
+    to nb*B with a validity mask (padded noise is 1.0; probes ``Z`` are
+    zero on padded rows, so padding adds log(1) = 0).
+
+    ``cg_iters`` is a maximum: the solve exits once every column's relative
+    preconditioned residual is below ``cg_tol`` (per-dtype defaults in
+    ``_freeze_tol_sq``); the quadrature degree follows the exit point."""
+
+    def lml(hps, rows, cols, xb, mask, y_pad, ypad_mask, noise_diag_pad, Z):
+        rows_c = torch.clamp(rows, max=nb - 1)
+        cols_c = torch.clamp(cols, max=nb - 1)
+        tiles = _assemble_chunked_tiles(kernel_fn, B, solver_dtype, hps,
+                                        rows_c, cols_c, rows < nb, xb, mask)
+        Minv, Lb = _diag_precond_blocks(kernel_fn, B, precond_width, hps, xb,
+                                        mask, noise_diag_pad)
+        n = torch.sum(ypad_mask)
+        m = torch.sum(y_pad) / n
+        ym = (y_pad - m) * ypad_mask
+        quad, logdet, logdet_var = _QuadLogdet.apply(
+            tiles, noise_diag_pad, Minv, Lb, ym, Z, rows, cols_c, nb, B,
+            cg_iters, solver_dtype, cg_tol)
+        value = -0.5 * (quad + logdet + n * math.log(2.0 * math.pi))
+        if with_variance:
+            return value, logdet_var
+        return value
+
+    return lml
+
+
+def make_committed_solver(kernel_fn, nb, B, *, cg_iters=96, solver_dtype=None,
+                          precond_width=1, cg_tol=None, row_chunk=None):
+    """Committed-state WIDE solve (K+V)⁻¹ RHS, block-Jacobi, one device:
+
+        assemble(hps, rows, cols, xb, mask, noise_diag_pad) -> (tiles, Minv)
+        solve(tiles, Minv, rows, cols, noise_diag_pad, RHS) -> (X, iters)
+
+    ``assemble`` runs once per committed state; ``solve`` once per column
+    chunk.  ``rows``/``cols`` arrive UNCLAMPED (sentinel == nb) and
+    ROW-SORTED.  With ``row_chunk`` set, ``solve``'s ``rows`` is the
+    per-chunk row index of ``row_aligned_schedule`` and the SpMM is the
+    fused K2 path (float32/bfloat16 only); otherwise wide right-hand sides
+    stream the tiles through ``_spmv_scan`` and narrow ones take the flat
+    SpMM (K1 on the card).  Padded rows carry unit noise and zero RHS, so
+    their solution is exactly zero."""
+    flat_spmv = _spmv_for(nb, B, solver_dtype)
+
+    def assemble(hps, rows, cols, xb, mask, noise_diag_pad):
+        with torch.no_grad():
+            rows_c = torch.clamp(rows, max=nb - 1)
+            cols_c = torch.clamp(cols, max=nb - 1)
+            # row-aligned schedules pad WITHIN rows using a column sentinel
+            # (row real, col == nb) — zero those tiles too
+            live = (rows < nb) & (cols < nb)
+            tiles = _assemble_chunked_tiles(kernel_fn, B, solver_dtype, hps,
+                                            rows_c, cols_c, live, xb, mask)
+            Minv, _ = _diag_precond_blocks(kernel_fn, B, precond_width, hps,
+                                           xb, mask, noise_diag_pad)
+        return tiles, Minv
+
+    def solve(tiles, Minv, rows, cols, noise_diag_pad, RHS):
+        if row_chunk is not None and RHS.dtype == torch.float64:
+            raise ValueError(
+                "make_committed_solver(row_chunk=...): the fused row-aligned "
+                "SpMM accumulates in float32 — float64 solves must keep "
+                "row_chunk=None")
+        cols_c = torch.clamp(cols, max=nb - 1)
+        c = RHS.shape[1]
+        acc_bytes = 8 if RHS.dtype == torch.float64 else 4
+        wide = cols.shape[0] * B * c * acc_bytes * 2 > _SPMV_FLAT_BUDGET
+
+        def matvec(X):
+            if row_chunk is not None:
+                out = _spmv_scan_fused(rows, cols, tiles, X, nb, B,
+                                       C=row_chunk, mv_dtype=solver_dtype)
+            elif wide:
+                out = _spmv_scan(rows, cols_c, tiles, X, nb, B,
+                                 mv_dtype=solver_dtype)
+            else:
+                out = flat_spmv(rows, cols_c, tiles, X)
+            return out + noise_diag_pad[:, None] * X
+
+        with torch.no_grad():
+            return _cg_fixed(matvec, RHS, cg_iters,
+                             M=lambda X: _block_apply(Minv, X), tol=cg_tol,
+                             mv_dtype=solver_dtype, with_iters=True)
+
+    return assemble, solve
+
+
+def make_padded_inputs(x, y, noise_diag, block_size, dtype, device,
+                       row_multiple=1):
+    """Host helper: pad (x, y, noise) to full blocks and build masks, as
+    tensors on ``device``.  Padded noise is 1.0 (keeps K+V PD on padded
+    rows).  ``row_multiple`` rounds the block count up."""
+    import numpy as np
+    n, d = x.shape
+    nb = -(-n // block_size)
+    nb = -(-nb // row_multiple) * row_multiple
+    n_pad = nb * block_size
+    xb = np.zeros((n_pad, d))
+    xb[:n] = x
+    mask = np.zeros(n_pad)
+    mask[:n] = 1.0
+    y_pad = np.zeros(n_pad)
+    y_pad[:n] = y
+    noise_pad = np.ones(n_pad)
+    noise_pad[:n] = noise_diag
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype).to(device)
+
+    return (t(xb.reshape(nb, block_size, d)), t(mask.reshape(nb, block_size)),
+            t(y_pad), t(mask), t(noise_pad))
