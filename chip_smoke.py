@@ -1,5 +1,7 @@
 #!/usr/bin/env python3
-"""Chip smoke for fvgp_tpu_torch: the gp2Scale journey on one CUDA card.
+"""Chip smoke for fvgp_tpu_torch on one CUDA card: the gp2Scale journey
+and the dense exact GP, with every hand-written kernel held against its
+plain PyTorch version.
 
 Run from the root of the repository, with no arguments:
 
@@ -9,22 +11,39 @@ Phases (any failure raises, so the script exits non-zero and the final
 line is never printed):
 
 1. the card's name and power limit (nvidia-smi); TF32 off;
-2. build the Hopper kernels (nvcc) and the native host runtime (g++);
-3. kernel phase: K1 ``chunked_spmm`` at the N=50k training structure
-   (B=256, k=17, bfloat16 and float32 tiles from the real assembly) and K2
-   ``row_chunk_sums`` at committed-solver shapes (B=128, C=8, c=128), each
-   against its plain PyTorch version, with errors and times;
-4. cross-check: the public journey at N=10,000 on CUDA (float32, and
-   float32 with bfloat16 tile streaming) against the CPU in float64, with
-   the same probes;
-5. the journey at full size through the public GP: N=1,000,000, D=3,
-   bfloat16 solver, 16 probes — construction, LML+gradient (1 + 3 timed),
-   train(method="local", max_iter=2), posterior_mean and
-   posterior_covariance(variance_only=True) on 500 points — with the
-   kernels' launch counters reset before it and read after it.
+2. build the Hopper kernels (nvcc) and the native host runtime (g++), both
+   started together;
+3. kernel phase: K1 ``chunked_spmm`` and K4 ``block_spmv`` at the N=50k
+   training structure (B=256, k=17, bfloat16 and float32 tiles from the
+   real assembly), K2 ``row_chunk_sums`` at committed-solver shapes (B=128,
+   C=8, c=128), and K3 ``dense_covariance`` at the dense cell's shapes
+   (N=10,000 x 10,000 and 10,000 x 500, D=3; Matérn-3/2 and Wendland;
+   float32 and float64) — each against its plain PyTorch version, with
+   errors, times, the bound and, where one exists, one library call's time;
+   then K4's own path, its ops entry point ``block_spmv`` as a user calls
+   it (its only caller, as in the JAX package);
+4. gp2Scale cross-check: the public journey at N=10,000 on CUDA (float32,
+   and float32 with bfloat16 tile streaming) against the CPU in float64,
+   with the same probes;
+5. dense cross-check: the dense GP at N=2,000 on CUDA float32 against the
+   CPU in float64 (LML, gradient, posterior mean and variance), then
+   train(method="global", max_iter=2) and train(method="mcmc",
+   max_iter=200) on the card;
+6. the dense journey at the bench's dense cell through the public GP:
+   N=10,000, D=3, linalg_mode="Chol", float32 — construction, LML+gradient
+   (1 + 5 timed), train(method="local", max_iter=5), posterior_mean and
+   posterior_covariance(variance_only=True) on 500 points, cold and warm;
+7. the gp2Scale journey at full size through the public GP: N=1,000,000,
+   D=3, bfloat16 solver, 16 probes — construction, LML+gradient (1 + 3
+   timed), train(method="local", max_iter=2), posterior_mean and
+   posterior_covariance(variance_only=True) on 500 points.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device.
+K4's entry point and phases 6 and 7 are the paths: every kernel's launch
+counter is reset just before each and read just after it, and the
+``launches`` of a kernel is its sum over the three.  The line before the
+last is
+``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
+Exits non-zero without a CUDA device.
 """
 
 import json
@@ -32,15 +51,30 @@ import subprocess
 import sys
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-K1_SOURCE = "fvgp_tpu_torch/csrc/hopper_kernels.cu"
-K1_REPLACES = "fvgp_tpu/ops/pallas_kernels.py:180"
-K2_REPLACES = "fvgp_tpu/ops/pallas_kernels.py:354"
+SOURCE = "fvgp_tpu_torch/csrc/hopper_kernels.cu"
+REPLACES = {"chunked_spmm": "fvgp_tpu/ops/pallas_kernels.py:180",
+            "row_chunk_sums": "fvgp_tpu/ops/pallas_kernels.py:354",
+            "dense_covariance": "fvgp_tpu/ops/pallas_kernels.py:437",
+            "block_spmv": "fvgp_tpu/ops/pallas_kernels.py:84"}
 # kernel vs plain version: both read identical (bf16-rounded) inputs and
 # accumulate in float32, only in another order — 1e-4 of the output scale
 KERNEL_RTOL = 1e-4
+# K4 writes bfloat16: the two float32 sums may round to neighbouring
+# bfloat16 values (one ulp is 2^-8 relative) — 1e-2 of the output scale
+K4_BF16_RTOL = 1e-2
+# K3: the same exact differences in the same order; expf/exp and sqrt
+# differ from torch's by a few ulp — of the output scale (the signal
+# variance), 1e-5 in float32 and 1e-12 in float64
+K3_RTOL = {"float32": 1e-5, "float64": 1e-12}
+# published dense peaks of one H100 SXM (NVIDIA data sheet): tensor-core
+# bf16, float32 outside the tensor cores, float64 outside the tensor
+# cores; HBM3 bandwidth
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "float64": 34e12}
+HBM_BYTES_PER_S = 3.35e12
 # journey on CUDA vs the CPU in float64, same probes (relative for the LML,
 # relative 2-norm for the gradient, absolute for posteriors of O(1) scale)
 BOUNDS = {"float32": {"lml": 1e-4, "grad": 1e-3, "mean": 1e-3, "var": 1e-3},
@@ -73,6 +107,52 @@ def cuda_ms(fn, reps=10, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(n_bytes, n_ops, dtype):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the operations over the peak rate of their type."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def record(err, ms, plain_ms, n_bytes, n_ops, dtype, library_ms):
+    bound_ms, bound_by = bound(n_bytes, n_ops, dtype)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def launch_counts():
+    """Every kernel's launch counter, read now."""
+    from fvgp_tpu_torch.ops import hopper_kernels as hk
+    return {name: getattr(hk, name).launches for name in REPLACES}
+
+
+def bsr_library_ms(rows, cols, tiles, X, nb, B):
+    """Time of one ``torch.sparse.mm`` of a ``sparse_bsr_tensor`` built
+    once (build excluded) from the live tiles — the library call that
+    computes K1's and K4's product — or None where the library refuses the
+    dtype.  Timed here only; the port never calls it."""
+    import torch
+    live = (rows < nb) & (cols < nb)
+    r, c, t = rows[live], cols[live], tiles[live]
+    order = torch.argsort(r.long() * (nb + 1) + c.long())
+    r, c, t = r[order], c[order], t[order]
+    crow = torch.searchsorted(r, torch.arange(nb + 1, device=r.device,
+                                              dtype=r.dtype))
+    try:
+        A = torch.sparse_bsr_tensor(crow.to(torch.int64), c.to(torch.int64),
+                                    t.contiguous(), size=(nb * B, nb * B))
+        Xc = X.to(t.dtype)
+        torch.sparse.mm(A, Xc)
+        torch.cuda.synchronize()
+        return cuda_ms(lambda: torch.sparse.mm(A, Xc))
+    except (RuntimeError, NotImplementedError) as exc:
+        log(f"  library torch.sparse.mm (BSR, {t.dtype}) refused: "
+            f"{str(exc).splitlines()[0][:160]}")
+        return None
 
 
 def bench_structure(N, B, hps, seed=0):
@@ -137,6 +217,7 @@ def kernel_phase(device):
     gen = torch.Generator().manual_seed(3)
     X = torch.randn((nb * B, k), generator=gen,
                     dtype=torch.float32).to(device)
+    live = int((rows_p < nb).sum())
     for name, tdt in (("float32", torch.float32),
                       ("bfloat16", torch.bfloat16)):
         tiles, r, c = assemble(x, nb, B, rows_p, cols_p, hps, tdt,
@@ -154,16 +235,51 @@ def kernel_phase(device):
                                              mv_dtype=mvd))
         plain_ms = cuda_ms(lambda: hk.chunked_spmm_reference(
             r, cc, tiles, X, nb, B, mv_dtype=mvd))
+        lib_ms = bsr_library_ms(r, c, tiles, X, nb, B)
         log(f"K1 chunked_spmm [{name} tiles, B={B}, k={k}, T={len(rows_p)}]"
             f": max_abs_err {err:.3e} (tol {tol:.3e} = {KERNEL_RTOL:g} x "
             f"max|ref| {scale:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f}"
-            f" ms")
+            f" ms, library {lib_ms} ms")
         if not (err <= tol):
             raise AssertionError(f"K1 ({name}) disagrees with its plain "
                                  f"version: {err} > {tol}")
+        item = tiles.element_size()
         if name == "bfloat16":     # the path's dtype
-            records["chunked_spmm"] = {"max_abs_err": err, "ms": ms,
-                                       "plain_ms": plain_ms}
+            # live tiles, X (float32) and the float32 output, once each
+            records["chunked_spmm"] = record(
+                err, ms, plain_ms,
+                live * B * B * item + 2 * nb * B * k * 4 + 8 * live,
+                2 * live * B * B * k, name, lib_ms)
+        # ---- K4 block_spmv on the same structure: X in the tile dtype,
+        # ragged n = N, sentinel rows clamped into the last row block
+        Xk = X[:N].to(tdt)
+        got = hk.block_spmv(r, c, tiles, Xk, nb, B)
+        ref = hk.block_spmv_reference(r, c, tiles, Xk, nb, B)
+        torch.cuda.synchronize()
+        if got.shape != (N, k) or got.dtype != tdt:
+            raise AssertionError(f"K4 shape/dtype {tuple(got.shape)} "
+                                 f"{got.dtype}")
+        err = float((got.float() - ref.float()).abs().max())
+        scale = float(ref.float().abs().max())
+        rtol = KERNEL_RTOL if tdt == torch.float32 else K4_BF16_RTOL
+        tol = rtol * scale
+        ms = cuda_ms(lambda: hk.block_spmv(r, c, tiles, Xk, nb, B))
+        plain_ms = cuda_ms(lambda: hk.block_spmv_reference(r, c, tiles, Xk,
+                                                           nb, B))
+        lib_ms = bsr_library_ms(r, c, tiles, X, nb, B)
+        log(f"K4 block_spmv [{name}, B={B}, k={k}, n={N}, T={len(rows_p)}]: "
+            f"max_abs_err {err:.3e} (tol {tol:.3e} = {rtol:g} x max|ref| "
+            f"{scale:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"library {lib_ms} ms")
+        if not (err <= tol):
+            raise AssertionError(f"K4 ({name}) disagrees with its plain "
+                                 f"version: {err} > {tol}")
+        if name == "float32":
+            records["block_spmv"] = record(
+                err, ms, plain_ms,
+                live * B * B * item + 2 * N * k * item + 8 * live,
+                2 * live * B * B * k, name, lib_ms)
+            spmv_launches = spmv_entry_path(r, c, tiles, Xk, nb, B)
         del tiles
     # ---- K2 at committed-solver shapes --------------------------------
     B, C, c_w = 128, 8, 128
@@ -185,14 +301,112 @@ def kernel_phase(device):
     ms = cuda_ms(lambda: hk.row_chunk_sums(tiles, cc, Xb, B, C=C))
     plain_ms = cuda_ms(lambda: hk.row_chunk_sums_reference(tiles, cc, Xb, B,
                                                            C=C))
+    # the library yardstick: one einsum over the tiles and the X blocks
+    # gathered through cols beforehand (the gather excluded, as the BSR
+    # build is for K1); cuBLAS writes bfloat16
+    Xg = Xb[cc.long().clamp(max=nb - 1)].view(n_chunks, C, B, c_w)
+    tv = tiles.view(n_chunks, C, B, B)
+    lib = torch.einsum("ncij,ncjk->nik", tv, Xg)
+    torch.cuda.synchronize()
+    lib_err = float((lib.float() - ref).abs().max())
+    lib_ms = cuda_ms(lambda: torch.einsum("ncij,ncjk->nik", tv, Xg))
+    del lib, Xg
     log(f"K2 row_chunk_sums [bfloat16, B={B}, C={C}, c={c_w}, "
         f"n_chunks={n_chunks}]: max_abs_err {err:.3e} (tol {tol:.3e}); "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f}"
+        f" ms (einsum over gathered X, max_abs_err {lib_err:.3e})")
     if not (err <= tol):
         raise AssertionError(f"K2 disagrees with its plain version: "
                              f"{err} > {tol}")
-    records["row_chunk_sums"] = {"max_abs_err": err, "ms": ms,
-                                 "plain_ms": plain_ms}
+    if not (lib_err <= K4_BF16_RTOL * scale):
+        raise AssertionError(f"the K2 library yardstick computes another "
+                             f"function: {lib_err}")
+    live = int((cols_a < nb).sum())
+    records["row_chunk_sums"] = record(
+        err, ms, plain_ms,
+        live * B * B * 2 + 4 * len(cols_a) + nb * B * c_w * 2
+        + n_chunks * B * c_w * 4, 2 * live * B * B * c_w, "bfloat16", lib_ms)
+    return records, spmv_launches
+
+
+def spmv_entry_path(rows, cols, tiles, X, nb, B):
+    """K4's own path: its ops entry point ``block_spmv``, its only caller
+    (as in the JAX package), called as a user calls it — a 2-D X and a 1-D
+    X, ragged n.  The counters are reset just before and read just after."""
+    import torch
+
+    from fvgp_tpu_torch.ops import hopper_kernels as hk
+    hk.reset_launch_counts()
+    Y = hk.block_spmv(rows, cols, tiles, X, nb, B)
+    y = hk.block_spmv(rows, cols, tiles, X[:, 0], nb, B)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    err = float((y - Y[:, 0]).abs().max())
+    tol = KERNEL_RTOL * float(Y.abs().max())
+    log(f"K4 ops entry: Y {tuple(Y.shape)}, y {tuple(y.shape)}, "
+        f"|y - Y[:, 0]| {err:.3e} (tol {tol:.3e}); launches: "
+        f"{json.dumps(launches)}")
+    if not (Y.shape == X.shape and y.shape == X.shape[:1]
+            and bool(torch.isfinite(Y).all()) and err <= tol):
+        raise AssertionError("block_spmv's entry point gave a wrong result")
+    if launches["block_spmv"] < 1:
+        raise AssertionError("block_spmv never launched on its entry path")
+    return launches
+
+
+def dense_cell_data(N, seed=7):
+    """The bench's dense cell data (bench.py:182-185)."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0.0, 10.0, (N, 3))
+    y = np.sin(x[:, 0]) + 0.25 * x[:, 1] + 0.05 * rng.standard_normal(N)
+    xp = rng.uniform(0.0, 10.0, (500, 3))
+    return x, y, xp
+
+
+def dense_kernel_phase(device):
+    """K3 at the dense cell's shapes: k(X, X) at N=10,000 and k(X, x*) at
+    10,000 x 500, Matérn-3/2 and Wendland, float32 and float64."""
+    import torch
+
+    from fvgp_tpu_torch.ops import hopper_kernels as hk
+    x, _, xp = dense_cell_data(10_000)
+    records = {}
+    for dname, dt in (("float32", torch.float32), ("float64", torch.float64)):
+        X = torch.as_tensor(x, dtype=dt).to(device)
+        XP = torch.as_tensor(xp, dtype=dt).to(device)
+        hps = torch.as_tensor([1.0, 1.5, 1.5, 1.5], dtype=dt).to(device)
+        for kind in ("matern32", "wendland"):
+            for shape, x2 in (("N x N", X), ("N x 500", XP)):
+                got = hk.dense_covariance(X, x2, hps, kind=kind)
+                ref = hk.dense_covariance_reference(X, x2, hps, kind=kind)
+                torch.cuda.synchronize()
+                err = float((got - ref).abs().max())
+                tol = K3_RTOL[dname] * float(hps[0])
+                if x2 is X and not bool(torch.all(
+                        torch.diagonal(got) == hps[0])):
+                    raise AssertionError("K3 diagonal is not exactly the "
+                                         "signal variance")
+                ms = cuda_ms(lambda: hk.dense_covariance(X, x2, hps,
+                                                         kind=kind))
+                plain_ms = cuda_ms(lambda: hk.dense_covariance_reference(
+                    X, x2, hps, kind=kind), reps=3)
+                log(f"K3 dense_covariance [{kind}, {dname}, {shape}, D=3]: "
+                    f"max_abs_err {err:.3e} (tol {tol:.3e}); kernel "
+                    f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+                if not (err <= tol):
+                    raise AssertionError(f"K3 ({kind}, {dname}, {shape}) "
+                                         f"disagrees with its plain version"
+                                         f": {err} > {tol}")
+                if (kind, dname, shape) == ("matern32", "float32", "N x N"):
+                    n1, n2, item = len(x), len(x), 4
+                    # inputs once, the output once; ~3D + 7 operations per
+                    # element (differences, squares, sums, sqrt, the
+                    # polynomial, exp, the variance)
+                    records["dense_covariance"] = record(
+                        err, ms, plain_ms,
+                        (n1 + n2) * 3 * item + 4 * item + n1 * n2 * item,
+                        n1 * n2 * (3 * 3 + 7), dname, None)
+                del got, ref
     return records
 
 
@@ -250,6 +464,124 @@ def cross_check():
             raise AssertionError(f"cross-check {name} out of bounds: {bad}")
 
 
+DENSE_BOUNDS = {"lml": 1e-4, "grad": 1e-3, "mean": 1e-3, "var": 1e-3}
+
+
+def dense_model(x, y, hps, device):
+    from fvgp_tpu_torch import GP
+    return GP(x, y, init_hyperparameters=hps,
+              noise_variances=np.full(len(x), 1e-2), compute_device=device,
+              linalg_mode="Chol")
+
+
+def dense_cross_check():
+    """The dense GP at N=2,000: CUDA float32 against the CPU in float64,
+    then the population and sampling trainers on the card."""
+    x, y, xp = dense_cell_data(2_000, seed=8)
+    hps = np.array([1.0, 1.5, 1.5, 1.5])
+    out = {}
+    for device in ("cpu", "cuda"):
+        t0 = time.time()
+        gp = dense_model(x, y, hps, device)
+        val, grad = gp.marginal_likelihood.log_likelihood_value_and_gradient(
+            hps)
+        out[device] = (val, grad, gp.posterior_mean(xp)["m(x)"],
+                       gp.posterior_covariance(xp, variance_only=True)["v(x)"])
+        log(f"dense cross-check N=2000 {device}: lml {val:.6f} "
+            f"({time.time() - t0:.2f} s)")
+    ref, got = out["cpu"], out["cuda"]
+    errs = {"lml": abs(got[0] - ref[0]) / abs(ref[0]),
+            "grad": float(np.linalg.norm(got[1] - ref[1])
+                          / np.linalg.norm(ref[1])),
+            "mean": float(np.abs(got[2] - ref[2]).max()),
+            "var": float(np.abs(got[3] - ref[3]).max())}
+    log("dense cross-check N=2000 CUDA float32 vs CPU float64: "
+        + ", ".join(f"{k} {errs[k]:.3e} (bound {DENSE_BOUNDS[k]:g})"
+                    for k in errs))
+    bad = [k for k in errs if not errs[k] <= DENSE_BOUNDS[k]]
+    if bad:
+        raise AssertionError(f"dense cross-check out of bounds: {bad}")
+    bounds = np.array([[0.1, 10.0]] + [[0.5, 5.0]] * 3)
+    for method, max_iter in (("global", 2), ("mcmc", 200)):
+        t0 = time.time()
+        trained = gp.train(hyperparameter_bounds=bounds, method=method,
+                           max_iter=max_iter)
+        lml = gp.log_likelihood()
+        log(f"dense N=2000 CUDA train(method={method!r}, max_iter="
+            f"{max_iter}): {time.time() - t0:.2f} s, hps "
+            f"{np.array2string(trained, precision=4)}, lml {lml:.4f}")
+        if not (np.all(np.isfinite(trained)) and np.isfinite(lml)):
+            raise AssertionError(f"train({method}) gave non-finite results")
+
+
+def dense_journey(N):
+    """The bench's dense cell through the public GP (main path of K3)."""
+    import torch
+
+    from fvgp_tpu_torch.ops import hopper_kernels as hk
+    x, y, xp = dense_cell_data(N)
+    hps = np.array([1.0, 1.5, 1.5, 1.5])
+    times = {}
+    torch.cuda.reset_peak_memory_stats()
+    hk.reset_launch_counts()
+    t0 = time.time()
+    gp = dense_model(x, y, hps, "cuda")
+    torch.cuda.synchronize()
+    times["construction_s"] = time.time() - t0
+    ml = gp.marginal_likelihood
+    t0 = time.time()
+    val, grad = ml.log_likelihood_value_and_gradient(hps)
+    torch.cuda.synchronize()
+    times["first_lml_grad_s"] = time.time() - t0
+    if not (np.isfinite(val) and np.all(np.isfinite(grad))):
+        raise AssertionError(f"non-finite dense LML/grad: {val} {grad}")
+    t0 = time.time()
+    for i in range(5):
+        val, grad = ml.log_likelihood_value_and_gradient(
+            hps * (1.0 + 1e-4 * (i + 1)))
+    torch.cuda.synchronize()
+    times["lml_grad_s_per_eval"] = (time.time() - t0) / 5
+    log(f"dense N={N}: lml {val:.4f}, grad "
+        f"{np.array2string(grad, precision=4)}")
+    bounds = np.array([[0.1, 10.0]] + [[0.5, 5.0]] * 3)
+    t0 = time.time()
+    trained = gp.train(hyperparameter_bounds=bounds, method="local",
+                       max_iter=5)
+    torch.cuda.synchronize()
+    times["train_local_5_s"] = time.time() - t0
+    if not np.all(np.isfinite(trained)):
+        raise AssertionError(f"non-finite trained hps {trained}")
+    for tag, q in (("cold", xp), ("warm", xp * (1 + 1e-9))):
+        t0 = time.time()
+        pm = gp.posterior_mean(q)["m(x)"]
+        times[f"posterior_mean_500_{tag}_s"] = time.time() - t0
+        t0 = time.time()
+        pv = gp.posterior_covariance(q, variance_only=True)["v(x)"]
+        times[f"posterior_variance_500_{tag}_s"] = time.time() - t0
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    if not (pm.shape == (500,) and pv.shape == (500,)
+            and np.all(np.isfinite(pm)) and np.all(np.isfinite(pv))
+            and np.all(pv >= 0.0)):
+        raise AssertionError("dense posterior mean/variance not finite or "
+                             "of the wrong shape")
+    log(f"dense N={N}: trained hps {np.array2string(trained, precision=4)}, "
+        f"lml {gp.log_likelihood():.4f}; mean range [{pm.min():.4f}, "
+        f"{pm.max():.4f}], variance range [{pv.min():.3e}, {pv.max():.3e}]")
+    log(f"dense N={N} phase times: " + json.dumps(
+        {k: round(v, 4) for k, v in times.items()}))
+    log(f"dense N={N} peak device memory: "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"launches in this phase: {json.dumps(launches)}")
+    if launches["dense_covariance"] < 1:
+        raise AssertionError("dense_covariance never launched on the dense "
+                             "path")
+    if launches["block_spmv"] != 0:
+        raise AssertionError("block_spmv launched on the dense journey, "
+                             "which has no call to it")
+    return launches
+
+
 def full_journey(N):
     import torch
 
@@ -300,8 +632,7 @@ def full_journey(N):
     pv = gp.posterior_covariance(xp, variance_only=True)["v(x)"]
     torch.cuda.synchronize()
     times["posterior_variance_500_s"] = time.time() - t0
-    launches = {"chunked_spmm": hk.chunked_spmm.launches,
-                "row_chunk_sums": hk.row_chunk_sums.launches}
+    launches = launch_counts()
     if not (pm.shape == (500,) and pv.shape == (500,)
             and np.all(np.isfinite(pm)) and np.all(np.isfinite(pv))
             and np.all(pv >= 0.0)):
@@ -316,9 +647,12 @@ def full_journey(N):
     log(f"N={N} peak device memory: "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"launches in this phase: {json.dumps(launches)}")
-    for name, n in launches.items():
-        if n < 1:
+    for name in ("chunked_spmm", "row_chunk_sums"):
+        if launches[name] < 1:
             raise AssertionError(f"{name} never launched on the main path")
+    if launches["block_spmv"] != 0:
+        raise AssertionError("block_spmv launched on the gp2Scale journey, "
+                             "which has no call to it")
     return launches
 
 
@@ -339,30 +673,42 @@ def main():
 
     from fvgp_tpu_torch.native import backend
     from fvgp_tpu_torch.ops import hopper_kernels as hk
-    secs, build_log = hk.build_kernels(verbose=True)
-    log(f"Hopper kernels built in {secs:.2f} s (nvcc, sm_90a)")
+    t0 = time.time()
+    with ThreadPoolExecutor(2) as pool:
+        kernels_built = pool.submit(hk.build_kernels, verbose=True)
+        native_built = pool.submit(backend)
+        secs, build_log = kernels_built.result()
+        native = native_built.result()
+    log(f"Hopper kernels built in {secs:.2f} s (nvcc, sm_90a); native host "
+        f"runtime: {native}; both in {time.time() - t0:.2f} s")
     for line in build_log.splitlines():
         if "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
-    t0 = time.time()
-    log(f"native host runtime: {backend()} ({time.time() - t0:.2f} s)")
 
     t0 = time.time()
-    records = kernel_phase("cuda")
+    records, spmv_launches = kernel_phase("cuda")
+    records.update(dense_kernel_phase("cuda"))
     log(f"kernel phase: {time.time() - t0:.1f} s")
     t0 = time.time()
     cross_check()
-    log(f"cross-check phase: {time.time() - t0:.1f} s")
+    log(f"gp2Scale cross-check phase: {time.time() - t0:.1f} s")
     t0 = time.time()
-    launches = full_journey(1_000_000)
-    log(f"full journey phase: {time.time() - t0:.1f} s")
+    dense_cross_check()
+    log(f"dense cross-check phase: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    dense_launches = dense_journey(10_000)
+    log(f"dense journey phase: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    sparse_launches = full_journey(1_000_000)
+    log(f"gp2Scale journey phase: {time.time() - t0:.1f} s")
+    # each kernel's launches on the three paths, each read just after its
+    # run: K4's ops entry, the dense journey, the gp2Scale journey
+    launches = {name: spmv_launches[name] + dense_launches[name]
+                + sparse_launches[name] for name in REPLACES}
 
-    kernels = []
-    for name, replaces in (("chunked_spmm", K1_REPLACES),
-                           ("row_chunk_sums", K2_REPLACES)):
-        kernels.append({"name": name, "route": "cuda", "source": K1_SOURCE,
-                        "replaces": replaces, "launches": launches[name],
-                        **records[name]})
+    kernels = [{"name": name, "route": "cuda", "source": SOURCE,
+                "replaces": REPLACES[name], "launches": launches[name],
+                **records[name]} for name in REPLACES]
     log(f"card: {smi}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

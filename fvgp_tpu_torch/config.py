@@ -1,9 +1,10 @@
 """Device and precision policy of fvgp_tpu_torch (counterpart of
 ``fvgp_tpu/config.py:65-101``).
 
-* The device comes from ``GP(compute_device=...)``: ``"cpu"``, or
-  ``"cuda"`` / ``"gpu"``.  Asking for a card on a machine without one
-  raises; nothing falls back to the CPU quietly.
+* The device comes from ``GP(compute_device=...)``: ``"cuda"`` / ``"gpu"``
+  (the default) or ``"cpu"``.  The CPU is taken only when asked for; asking
+  for a card — explicitly or by default — on a machine without one raises,
+  and nothing falls back to the CPU quietly.
 * Linear algebra runs in :func:`linalg_dtype`: ``args["dtype"]`` when set,
   else float64 on the CPU (the parity regime) and float32 on CUDA.
 * Float32 matrix products run in full float32: the port never turns TF32 on.
@@ -19,8 +20,9 @@ _DTYPES = {"float64": torch.float64, "float32": torch.float32,
            "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
-def resolve_device(compute_device="cpu"):
-    """The torch device for a ``compute_device`` string."""
+def resolve_device(compute_device="cuda"):
+    """The torch device for a ``compute_device`` string (default: the
+    card)."""
     name = str(compute_device).lower()
     if name == "cpu":
         return torch.device("cpu")

@@ -1,13 +1,16 @@
 """GP facade — the single-task user API on PyTorch (counterpart of
-``fvgp_tpu/models/gp.py``), gp2Scale path.
+``fvgp_tpu/models/gp.py``).
 
-``GP(x, y, gp2Scale=True, compute_device="cuda")`` runs the block-sparse
-engine on the card: the differentiable mBCG LML (K1 SpMM), ``train(method=
-"local")``, and posterior means and variances through the committed-state
+``GP(x, y)`` is the dense exact GP on the card: the default Matérn-3/2 ARD
+kernel (its covariances built by the K3 kernel), the ``Chol`` / ``CholInv``
+/ ``Inv`` factorizations, the autograd LML + gradient, ``train`` with
+``"global"``, ``"local"`` or ``"mcmc"`` (the default), posterior means,
+covariances and variances, and ``update_gp_data``.  ``GP(x, y,
+gp2Scale=True)`` runs the block-sparse engine: the differentiable mBCG LML
+(K1 SpMM) and posterior means and variances through the committed-state
 solver (K2 SpMM).  ``compute_device="cpu"`` runs the same code with the
-kernels' plain versions, in float64 by default.  The dense path
-(``gp2Scale=False``) and the methods below that raise
-``NotImplementedError`` arrive with the ROADMAP items they name.
+kernels' plain versions, in float64 by default.  The methods below that
+raise ``NotImplementedError`` arrive with the ROADMAP items they name.
 """
 
 import warnings
@@ -33,30 +36,28 @@ def out_of_bounds(x, bounds):
 
 
 class GP:
-    """Single-task Gaussian process, gp2Scale (block-sparse) path.
+    """Single-task Gaussian process.
 
     Parameters follow the JAX package's ``GP``.  ``compute_device`` is
-    ``"cpu"`` or ``"cuda"``/``"gpu"`` and decides where every tensor lives;
-    asking for a card that is not there raises.  ``args["dtype"]`` sets the
-    solve dtype (default float64 on the CPU, float32 on CUDA);
-    ``args["gp2Scale_solver_dtype"] = "bfloat16"`` streams the covariance
-    tiles in bfloat16 through the kernels.  Kernels are torch callables
-    ``k(x1, x2, hps)`` that broadcast over a leading batch dimension
-    (default: the anisotropic Wendland kernel).
+    ``"cuda"``/``"gpu"`` (the default) or ``"cpu"`` and decides where every
+    tensor lives; asking for a card that is not there raises.
+    ``args["dtype"]`` sets the solve dtype (default float64 on the CPU,
+    float32 on CUDA); ``args["gp2Scale_solver_dtype"] = "bfloat16"`` streams
+    the gp2Scale covariance tiles in bfloat16 through the kernels.  Kernels
+    are torch callables ``k(x1, x2, hps)`` (or ``k(x1, x2, hps, args)``)
+    that broadcast over a leading batch dimension (default: the anisotropic
+    Matérn-3/2, or the anisotropic Wendland kernel under gp2Scale); means
+    ``m(x, hps)`` and noise ``noise(x, hps)`` likewise.
     """
 
     def __init__(self, x_data, y_data, init_hyperparameters=None,
-                 noise_variances=None, compute_device="cpu",
+                 noise_variances=None, compute_device="cuda",
                  kernel_function=None, kernel_function_grad=None,
                  noise_function=None, noise_function_grad=None,
                  prior_mean_function=None, prior_mean_function_grad=None,
                  gp2Scale=False, dask_client=None, gp2Scale_batch_size=10000,
                  gp2Scale_distribution="blockwise", linalg_mode=None,
                  ram_economy=False, args=None):
-        if not gp2Scale:
-            raise NotImplementedError(
-                "fvgp_tpu_torch: the dense GP path (gp2Scale=False) is not "
-                "ported yet (ROADMAP item 1.2)")
         if not (isinstance(noise_variances, np.ndarray)
                 or noise_variances is None):
             raise AssertionError("wrong format in noise_variances")
@@ -65,6 +66,15 @@ class GP:
             raise AssertionError("wrong init_hyperparameters")
         if not isinstance(compute_device, str):
             raise AssertionError("wrong format in compute_device")
+        for fn, name in ((kernel_function, "kernel_function"),
+                         (kernel_function_grad, "kernel_function_grad"),
+                         (noise_function, "noise_function"),
+                         (noise_function_grad, "noise_function_grad"),
+                         (prior_mean_function, "prior_mean_function"),
+                         (prior_mean_function_grad,
+                          "prior_mean_function_grad")):
+            if not (callable(fn) or fn is None):
+                raise AssertionError(f"wrong format in {name}")
         if len(x_data) != len(y_data):
             raise AssertionError("x_data and y_data do not have the same "
                                  "lengths.")
@@ -77,7 +87,8 @@ class GP:
                            gp2Scale_batch_size=gp2Scale_batch_size)
         hyperparameters = init_hyperparameters
         if hyperparameters is None:
-            if callable(kernel_function):
+            if callable(kernel_function) or callable(prior_mean_function) \
+                    or callable(noise_function):
                 raise Exception(
                     "You have provided callables for kernel, mean, or noise "
                     "functions but no initial hyperparameters.")
@@ -155,6 +166,10 @@ class GP:
     def gp2Scale(self):
         return self.data.gp2Scale
 
+    @property
+    def mcmc_info(self):
+        return self.trainer.mcmc_info
+
     def set_args(self, new_args):
         """Change the advanced-settings dict (cached state is kept)."""
         self.args = new_args
@@ -164,13 +179,60 @@ class GP:
         if not (isinstance(hps, np.ndarray) and hps.ndim == 1):
             raise AssertionError("wrong format in hyperparameters")
         self.trainer.hyperparameters = np.asarray(hps, dtype=np.float64)
+        self.prior.update_state_hyperparameters()
         self.likelihood.update_state()
         self.kv.update_state_hyperparameters()
 
-    def update_gp_data(self, *args, **kwargs):
-        raise NotImplementedError(
-            "fvgp_tpu_torch: update_gp_data is not ported yet (ROADMAP item "
-            "1.3)")
+    def update_gp_data(self, x_new, y_new, noise_variances_new=None,
+                       append=True, rank_n_update=None):
+        """Replace or extend the training data without rebuilding the GP.
+
+        With ``append=True`` the new points are appended: the prior computes
+        only the new (old × new) and (new × new) covariance blocks, and the
+        factor (or inverse) is extended by a blocked rank-n update
+        (``rank_n_update``, default ``append``) unless the old-data block
+        moved.  ``append=False`` replaces the dataset."""
+        if self.gp2Scale:
+            raise NotImplementedError(
+                "fvgp_tpu_torch: update_gp_data under gp2Scale is not ported "
+                "yet (ROADMAP item 1.3)")
+        if not isinstance(x_new, (list, np.ndarray)):
+            raise AssertionError("wrong format in x_new")
+        if not (isinstance(y_new, np.ndarray) and y_new.ndim in (1, 2)):
+            raise AssertionError("wrong format in y_new")
+        if not (isinstance(noise_variances_new, np.ndarray)
+                or noise_variances_new is None):
+            raise AssertionError("wrong format in noise_variances_new")
+        if len(x_new) != len(y_new):
+            raise AssertionError("updated x and y do not have the same "
+                                 "lengths.")
+        if (isinstance(noise_variances_new, np.ndarray)
+                and len(noise_variances_new) != len(y_new)):
+            raise AssertionError("noise_variances_new and y_new do not have "
+                                 "the same lengths.")
+        # reject a column-count mismatch BEFORE delegating: GPdata stacks x
+        # first, so a failure in the y stack would leave the data half-updated
+        y_cols_new = 1 if y_new.ndim == 1 else y_new.shape[1]
+        y_cols_old = np.asarray(self.data.y_data).shape[1]
+        if append and y_cols_new != y_cols_old:
+            raise AssertionError(
+                f"y_new has {y_cols_new} column(s) but the stored y_data has "
+                f"{y_cols_old}; appended outputs must match.")
+        if rank_n_update is None:
+            rank_n_update = append
+        if not append and rank_n_update:
+            warnings.warn("`rank_n_update=True` is invalid when "
+                          "`append=False` (the previous factorization belongs "
+                          "to data that no longer exists). Forcing "
+                          "`rank_n_update=False`.")
+            rank_n_update = False
+        self.data.update(x_new, y_new, noise_variances_new, append=append)
+        if append:
+            self.prior.augment_state_data()
+        else:
+            self.prior.update_state_data()
+        self.likelihood.update_state()
+        self.kv.update_state_data(rank_n_update)
 
     def _get_default_hyperparameter_bounds(self):
         """Data-driven bounds for the default kernel."""
@@ -189,20 +251,27 @@ class GP:
     def train(self, hyperparameter_bounds=None, objective_function=None,
               objective_function_gradient=None,
               objective_function_hessian=None, init_hyperparameters=None,
-              method="local", tolerance=0.0001, max_iter=10000,
+              method="mcmc", pop_size=20, tolerance=0.0001, max_iter=10000,
+              mcmc_prior=None, mcmc_prop_distrs="normal", mcmc_args=None,
               local_optimizer="L-BFGS-B", constraints=(), info=False,
-              **unported):
-        """Maximize the log marginal likelihood (or minimize a user
-        objective) with ``method="local"`` and commit the result.  Returns
-        the trained hyperparameters."""
-        if unported:
+              asynchronous=False, **unported):
+        """Find hyperparameters by maximizing the log marginal likelihood
+        (or minimizing a user objective), commit them, and return them.
+
+        ``method`` is ``"mcmc"`` (the default: adaptive Metropolis on the
+        LML; fills ``mcmc_info``), ``"global"`` (differential evolution,
+        ``pop_size`` × H members, the population evaluated in batched
+        chunks) or ``"local"`` (scipy ``local_optimizer`` on the fused LML
+        value and gradient)."""
+        if unported or asynchronous:
             raise NotImplementedError(
-                f"fvgp_tpu_torch: train options {sorted(unported)} are not "
-                "ported yet (ROADMAP item 1.5)")
-        if method != "local":
+                "fvgp_tpu_torch: train options "
+                f"{sorted(unported) + (['asynchronous'] if asynchronous else [])}"
+                " are not ported yet (ROADMAP item 1.5)")
+        if method not in ("global", "local", "mcmc"):
             raise NotImplementedError(
                 f"fvgp_tpu_torch: train(method={method!r}) is not ported yet "
-                "(ROADMAP item 1.5); use method='local'")
+                "(ROADMAP item 1.5); use 'global', 'local' or 'mcmc'")
         if hyperparameter_bounds is None:
             hyperparameter_bounds = self._get_default_hyperparameter_bounds()
             warnings.warn("Default hyperparameter_bounds initialized because "
@@ -223,19 +292,31 @@ class GP:
                 low=hyperparameter_bounds[:, 0],
                 high=hyperparameter_bounds[:, 1],
                 size=len(hyperparameter_bounds))
+        ml = self.marginal_likelihood
         user_provided_obj = objective_function is not None
-        if user_provided_obj and objective_function_gradient is None:
+        if method == "mcmc":
+            if user_provided_obj:
+                warnings.warn("MCMC always optimizes the log marginal "
+                              "likelihood; the user-defined "
+                              "objective_function is ignored.")
+                user_provided_obj = False
+            objective_function = ml.log_likelihood
+        elif objective_function is None:
+            objective_function = ml.neg_log_likelihood
+        if user_provided_obj and objective_function_gradient is None \
+                and method == "local":
             raise Exception("A gradient of the objective function must be "
                             "provided for method='local'.")
-        ml = self.marginal_likelihood
-        fused_vg = None
-        if not user_provided_obj:
-            objective_function = ml.neg_log_likelihood
+        if objective_function_gradient is None:
             objective_function_gradient = ml.neg_log_likelihood_gradient
-
+        fused_vg = batched_objective = None
+        if not user_provided_obj and (ml._traced_ready()
+                                      or ml._sparse_traced_ready()):
             def fused_vg(hps, _ml=ml):
                 val, grad = _ml.log_likelihood_value_and_gradient(hps)
                 return -val, -grad
+        if not user_provided_obj and ml._traced_ready():
+            batched_objective = ml.batched_neg_log_likelihood
 
         with sequential_linalg_state(self.args, method):
             hyperparameters = self.trainer.train(
@@ -246,9 +327,12 @@ class GP:
                                                  dtype=np.float64),
                 init_hyperparameters=np.asarray(init_hyperparameters,
                                                 dtype=np.float64),
-                method=method, tolerance=tolerance, max_iter=max_iter,
-                local_optimizer=local_optimizer, constraints=constraints,
-                info=info, fused_value_and_grad=fused_vg)
+                method=method, pop_size=pop_size, tolerance=tolerance,
+                max_iter=max_iter, local_optimizer=local_optimizer,
+                constraints=constraints, mcmc_prior=mcmc_prior,
+                mcmc_prop_distrs=mcmc_prop_distrs, mcmc_args=mcmc_args,
+                info=info, batched_objective=batched_objective,
+                fused_value_and_grad=fused_vg)
             self.set_hyperparameters(hyperparameters)
         return hyperparameters
 
@@ -273,11 +357,52 @@ class GP:
 
     def posterior_covariance(self, x_pred, x_out=None, variance_only=False,
                              add_noise=False):
-        """Posterior variances (``variance_only=True``); returns a dict with
-        ``"v(x)"`` and ``"v_flat"`` (``"S"`` is None)."""
+        """Posterior covariance ``S = k(x*,x*) − k(x*,X)ᵀ(K+V)⁻¹k(x*,X)``;
+        returns a dict with ``"v(x)"`` (variances, clipped at 0 with a
+        warning), ``"S"`` (None when ``variance_only``) and the flattened
+        ``"v_flat"`` / ``"S_flat"``.  ``add_noise`` adds a noise callable's
+        noise at ``x_pred``."""
         return self.posterior.posterior_covariance(
             x_pred, x_out=x_out, variance_only=variance_only,
             add_noise=add_noise)
+
+    def joint_gp_prior(self, x_pred, x_out=None):
+        """The joint prior over data and prediction points: dict with the
+        blocks ``"K"``, ``"k"``, ``"kappa"``, the joint ``"prior mean"``
+        and the joint covariance ``"S"``."""
+        return self.posterior.joint_gp_prior(x_pred, x_out=x_out)
+
+    # ----------------------------------------------------------------------
+    # validation helpers
+    # ----------------------------------------------------------------------
+    def rmse(self, x_test, y_test):
+        """Root mean squared error of the posterior mean."""
+        v1, v2 = y_test, self.posterior_mean(x_test)["m(x)"]
+        if v1.shape != v2.shape:
+            raise AssertionError(f"rmse: y_test shape {v1.shape} != "
+                                 f"posterior mean shape {v2.shape}")
+        return np.sqrt(np.sum((v1 - v2) ** 2) / v1.size)
+
+    def r2(self, x_test, y_test):
+        """R² prediction score of the posterior mean."""
+        y_pred = self.posterior_mean(x_test)["m(x)"]
+        if y_pred.shape != y_test.shape:
+            raise AssertionError(f"r2: y_test shape {y_test.shape} != "
+                                 f"posterior mean shape {y_pred.shape}")
+        ss_res = np.sum((y_test - y_pred) ** 2)
+        ss_tot = np.sum((y_test - np.mean(y_test)) ** 2)
+        return 1. - ss_res / ss_tot
+
+    @staticmethod
+    def make_2d_x_pred(bx, by, resx=100, resy=100):
+        from itertools import product
+        x = np.linspace(bx[0], bx[1], resx)
+        y = np.linspace(by[0], by[1], resy)
+        return np.array(list(product(x, y)))
+
+    @staticmethod
+    def make_1d_x_pred(b, res=100):
+        return np.linspace(b[0], b[1], res).reshape(res, -1)
 
     def __getattr__(self, name):
         # the rest of the JAX GP surface arrives slice by slice
@@ -294,20 +419,18 @@ class NotPortedError(NotImplementedError, AttributeError):
 
 
 _NOT_PORTED = {
-    **dict.fromkeys(("mcmc_info", "bo_info", "stop_training", "kill_client",
+    **dict.fromkeys(("bo_info", "stop_training", "kill_client",
                      "update_hyperparameters"), "1.5"),
     **dict.fromkeys(("posterior_mean_grad", "posterior_covariance_grad",
-                     "joint_gp_prior", "joint_gp_prior_grad", "gp_entropy",
+                     "joint_gp_prior_grad", "gp_entropy",
                      "gp_entropy_grad", "gp_kl_div", "gp_mutual_information",
                      "gp_total_correlation", "gp_relative_information_entropy",
                      "gp_relative_information_entropy_set",
                      "posterior_probability", "test_log_likelihood_gradient",
                      "get_prior_pdf"), "1.2"),
-    **dict.fromkeys(("crps", "rmse", "nrmse", "nlpd", "r2", "picp",
-                     "coverage_curve", "mpiw", "interval_score", "mae",
-                     "mape", "msll", "plot_observed_vs_predicted",
-                     "gaussian_1d", "make_2d_x_pred", "make_1d_x_pred"),
-                    "1.6"),
+    **dict.fromkeys(("crps", "nrmse", "nlpd", "picp", "coverage_curve",
+                     "mpiw", "interval_score", "mae", "mape", "msll",
+                     "plot_observed_vs_predicted", "gaussian_1d"), "1.6"),
     **dict.fromkeys(("dask_client", "initialize_gp2Scale_dask_client",
                      "get_hyperparameters", "get_gp2Scale_exec_time"),
                     "1.3"),

@@ -24,7 +24,7 @@ class GPdata:
                  noise_variances=None,
                  ram_economy=False,
                  gp2Scale=False,
-                 compute_device="cpu",
+                 compute_device="cuda",
                  gp2Scale_batch_size=10000):
 
         if not isinstance(x_data, (np.ndarray, list)):

@@ -1,14 +1,22 @@
-"""Linear-algebra state under gp2Scale (counterpart of
-``fvgp_tpu/models/gp_kv.py``): the lazy committed state, the auto mode,
-and the committed-state fast solver that assembles the covariance tiles at
-the committed hyperparameters and runs the wide preconditioned CG of
-``ops/sparse_lml.make_committed_solver`` — on the card with the fused K2
-SpMM for float32/bfloat16 solves.
+"""Linear-algebra state (counterpart of ``fvgp_tpu/models/gp_kv.py``).
 
-Single device, block-Jacobi.  The stored K+V modes (Chol, CholInv, Inv, the
-stored-operator Krylov modes and dense direct solves below
-``sparse_direct_dense_cutoff``) are not ported yet (ROADMAP items 1.2,
-1.4): a solve that needs them raises ``NotImplementedError``.
+* Dense models (``gp2Scale=False``): the K+V factorization committed at
+  every ``set_hyperparameters`` / ``update_gp_data`` in one of the modes
+  ``Chol`` (default; Cholesky factor), ``CholInv`` (factor + explicit
+  inverse) or ``Inv`` (explicit inverse), through ``ops/dense``.  An append
+  extends the factor or inverse by a blocked rank-n update unless the
+  old-data block itself moved (the drift check).  ``KVinvY`` and the
+  log-determinant are lazy.
+* gp2Scale: the lazy committed state, the auto mode, and the
+  committed-state fast solver that assembles the covariance tiles at the
+  committed hyperparameters and runs the wide preconditioned CG of
+  ``ops/sparse_lml.make_committed_solver`` — on the card with the fused K2
+  SpMM for float32/bfloat16 solves.  Single device, block-Jacobi.
+
+Not ported yet: the stored-operator Krylov modes and the dense direct solves
+below ``sparse_direct_dense_cutoff`` (ROADMAP item 1.4), and custom
+``[factor, solve, logdet]`` callables; a solve that needs them raises
+``NotImplementedError``.
 """
 
 import contextlib
@@ -18,6 +26,7 @@ import numpy as np
 import torch
 
 from .. import config
+from ..ops import dense as dops
 
 # ---------------------------------------------------------------------------
 # sequential-state gate
@@ -60,24 +69,35 @@ def sequential_linalg_state(args, method):
 
 _FAST_MODES = {"sparseCG", "sparseCGpre", "sparseMINRES", "sparseMINRESpre",
                "sparseLU", "sparseSolve"}
+_DENSE_MODES = {"Chol", "CholInv", "Inv"}
 
 
 class GPkv:
     def __init__(self, data, prior, likelihood, linalg_mode=None):
+        served = _FAST_MODES if data.gp2Scale else _DENSE_MODES
         if linalg_mode is not None and (not isinstance(linalg_mode, str)
-                                        or linalg_mode not in _FAST_MODES):
+                                        or linalg_mode not in served):
             raise NotImplementedError(
                 f"fvgp_tpu_torch: linalg_mode={linalg_mode!r} is not ported "
-                "yet (ROADMAP items 1.2 and 1.4); the gp2Scale path serves "
-                f"{sorted(_FAST_MODES)}")
+                f"yet for {'gp2Scale' if data.gp2Scale else 'dense'} models "
+                f"(ROADMAP item 1.4); this path serves {sorted(served)}")
         self.data = data
         self.prior = prior
         self.likelihood = likelihood
         self.linalg_mode = linalg_mode
-        self.mode = None              # resolved lazily from the structure
         self.last_solve_info = None
         self._fast_solver_ctx = None
+        self.KV = None
+        self.KVinv = None
+        self.Chol_factor = None
         self._KVinvY = None
+        self._logdet_KV = None
+        self._m_vec = None
+        if data.gp2Scale:
+            self.mode = None          # resolved lazily from the structure
+        else:
+            self.mode = linalg_mode or "Chol"
+            self._refresh(rank_n_update=False)
 
     @property
     def args(self):
@@ -92,8 +112,17 @@ class GPkv:
         return self.data.y_data
 
     @property
+    def gp2Scale(self):
+        return self.data.gp2Scale
+
+    @property
     def dtype(self):
         return config.linalg_dtype(self.args, self.data.device)
+
+    def _y_minus(self, m):
+        y = torch.as_tensor(np.asarray(self.y_data, np.float64),
+                            dtype=self.dtype).to(self.data.device)
+        return y - m[:, None]
 
     # ------------------------------------------------------------------
     def _auto_mode(self, n, nnz):
@@ -110,21 +139,142 @@ class GPkv:
     def _direct_dense_ok_n(self, n):
         return n <= int(self.args.get("sparse_direct_dense_cutoff", 20000))
 
+    # ------------------------------------------------------------------
+    # state transitions
+    # ------------------------------------------------------------------
     def update_state_hyperparameters(self):
-        self._fast_solver_ctx = None
+        self._refresh(rank_n_update=False)
+
+    def update_state_data(self, append):
+        self._refresh(rank_n_update=append)
+
+    def _refresh(self, rank_n_update):
+        self._fast_solver_ctx = None        # data/hyperparameters moved
         self._KVinvY = None
+        self._logdet_KV = None
+        if self.gp2Scale:
+            return                          # everything is lazy
+        from ..utils.logging import phase_timer
+        KV = self.addKV(self.prior.K, self.likelihood.V)
+        with phase_timer(f"KV factorization ({self.mode}, "
+                         f"{'rank-n update' if rank_n_update else 'full'})"):
+            if rank_n_update:
+                self.update_KV(KV)
+            else:
+                self.set_KV(KV)
+        self._m_vec = self.prior.m
 
     @property
     def KVinvY(self):
-        """(K+V)⁻¹(y - m) at the committed state, shape (N, 1)."""
+        """(K+V)⁻¹(y - m) at the committed state, shape (N, n_y)."""
         if self._KVinvY is None:
-            y = torch.as_tensor(np.asarray(self.y_data, np.float64),
-                                dtype=self.dtype).to(self.data.device)
-            m = self.prior.compute_mean(self.x_data,
+            m = self._m_vec if self._m_vec is not None else \
+                self.prior.compute_mean(self.x_data,
                                         self.prior.hyperparameters)
-            y_mean = y - m[:, None]
+            y_mean = self._y_minus(m)
             self._KVinvY = self.solve(y_mean).reshape(y_mean.shape)
         return self._KVinvY
+
+    @property
+    def logdet_KV(self):
+        if self._logdet_KV is None:
+            self._logdet_KV = self.logdet()
+        return self._logdet_KV
+
+    # ------------------------------------------------------------------
+    # dense factorizations
+    # ------------------------------------------------------------------
+    def set_KV(self, KV):
+        """Full factorization refresh in the committed mode."""
+        self.KV = KV
+        self.Chol_factor = self.KVinv = None
+        if self.mode in ("Chol", "CholInv"):
+            self.Chol_factor = dops.cholesky_factor(KV)
+        if self.mode == "CholInv":
+            self.KVinv = dops.inv_from_chol(self.Chol_factor)
+        if self.mode == "Inv":
+            self.KVinv = dops.calculate_inv(KV)
+
+    def _top_left_drifted(self, KV, n_old):
+        """True when the appended matrix's old-data block no longer matches
+        the stored KV the factor was computed from: the rank-n update
+        assumes that block is unchanged, but e.g. the default noise
+        ``(0.01·mean|y|)²`` moves with the new y mean, and extending the
+        stale factor would corrupt logdet and solves."""
+        old = self.KV
+        if old is None or old.shape[0] != n_old:
+            return True
+        diff = float(torch.max(torch.abs(KV[:n_old, :n_old] - old)))
+        scale = float(torch.max(torch.abs(torch.diagonal(KV)[:n_old]))) \
+            or 1.0
+        return diff > 1e-12 * scale
+
+    def update_KV(self, KV):
+        """Rank-n update after an append: blocked trailing updates of the
+        factor / explicit inverse, or a full refresh when the old-data block
+        itself moved."""
+        if self.mode in ("Chol", "CholInv"):
+            n_old = self.Chol_factor.shape[0]
+            if KV.shape[0] <= n_old or self._top_left_drifted(KV, n_old):
+                self.Chol_factor = dops.cholesky_factor(KV)
+            else:
+                self.Chol_factor = dops.update_chol_factor(self.Chol_factor,
+                                                           KV)
+            if self.mode == "CholInv":
+                self.KVinv = dops.inv_from_chol(self.Chol_factor)
+        else:
+            n_old = self.KVinv.shape[0]
+            if KV.shape[0] <= n_old or self._top_left_drifted(KV, n_old):
+                self.KVinv = dops.calculate_inv(KV)
+            else:
+                self.KVinv = dops.update_inv(self.KVinv, KV)
+        self.KV = KV
+
+    @staticmethod
+    def addKV(K, V):
+        """K + V for a dense K and a per-point vector or dense matrix V."""
+        if K.dim() != 2 or K.shape[0] != K.shape[1]:
+            raise AssertionError("K must be a square 2-d matrix")
+        if V.dim() == 1:
+            return dops.add_diagonal(K, V)
+        if V.dim() == 2:
+            return K + V
+        raise Exception("K+V not possible with the given formats")
+
+    # -- trial solves (nothing committed) ----------------------------------
+    def _solve_with(self, KV, b, chol=None):
+        if self.mode in ("Chol", "CholInv"):
+            L = chol if chol is not None else dops.cholesky_factor(KV)
+            return dops.cholesky_solve(L, b)
+        return dops.calculate_inv(KV) @ b
+
+    def _logdet_with(self, KV, chol=None):
+        if self.mode in ("Chol", "CholInv"):
+            L = chol if chol is not None else dops.cholesky_factor(KV)
+            return float(dops.cholesky_logdet(L))
+        return float(dops.calculate_logdet(KV))
+
+    def _require_dense(self):
+        if self.gp2Scale:
+            raise NotImplementedError(
+                "fvgp_tpu_torch: trial solves under gp2Scale need the stored "
+                "trial K+V, which is not ported yet (ROADMAP item 1.4)")
+
+    def compute_new_KVinvY(self, KV, m):
+        """KVinvY for a trial (KV, m) without committing state."""
+        self._require_dense()
+        y_mean = self._y_minus(m)
+        return self._solve_with(KV, y_mean).reshape(y_mean.shape)
+
+    def compute_new_KVlogdet_KVinvY(self, K, V, m):
+        """KVinvY and log|KV| of a trial, sharing one factorization."""
+        self._require_dense()
+        KV = self.addKV(K, V)
+        y_mean = self._y_minus(m)
+        chol = dops.cholesky_factor(KV) \
+            if self.mode in ("Chol", "CholInv") else None
+        KVinvY = self._solve_with(KV, y_mean, chol=chol)
+        return KVinvY.reshape(y_mean.shape), self._logdet_with(KV, chol=chol)
 
     # ------------------------------------------------------------------
     # committed-state fast sparse solver (in-place tiles; no stored KV)
@@ -393,7 +543,12 @@ class GPkv:
         return out[:, 0] if squeeze else out
 
     def solve(self, b):
-        """(K+V)⁻¹ b against the committed state, through the fast path."""
+        """(K+V)⁻¹ b against the committed state: the dense factorization,
+        or under gp2Scale the committed-state fast solver."""
+        if not self.gp2Scale:
+            if self.mode == "Chol":
+                return dops.cholesky_solve(self.Chol_factor, b)
+            return self.KVinv @ b
         if self.mode is not None and self.mode not in _FAST_MODES:
             raise NotImplementedError(
                 f"fvgp_tpu_torch: mode {self.mode!r} needs the stored K+V, "
@@ -410,3 +565,13 @@ class GPkv:
         if self.mode is None:
             self.mode = ctx["mode"]
         return self._fast_solve(ctx, b)
+
+    def logdet(self):
+        """log|K+V| in the committed dense mode."""
+        if self.gp2Scale:
+            raise NotImplementedError(
+                "fvgp_tpu_torch: the committed gp2Scale logdet needs the "
+                "stored K+V (ROADMAP item 1.4); the LML estimates it")
+        if self.mode in ("Chol", "CholInv"):
+            return float(dops.cholesky_logdet(self.Chol_factor))
+        return float(dops.calculate_logdet(self.KV))

@@ -1,18 +1,34 @@
-"""Log marginal likelihood + gradient under gp2Scale (counterpart of
-``fvgp_tpu/models/gp_marginal_likelihood.py``, the single-device sparse
-path).
+"""Log marginal likelihood + gradient (counterpart of
+``fvgp_tpu/models/gp_marginal_likelihood.py``).
 
-L = -1/2 ( (y-m)ᵀ(K+V)⁻¹(y-m) + log|K+V| + n log 2π ), evaluated by the
-differentiable mBCG program of ``ops/sparse_lml.make_sparse_lml``.  The
-host-side structure pass (bounding-box candidates at inflated lengthscales,
-exact tile liveness) is cached under the JAX package's drift policy, and
-the tile schedule is row-sorted once per structure for the K1 kernel.
+L = -1/2 ( (y-m)ᵀ(K+V)⁻¹(y-m) + log|K+V| + n log 2π ), the quadratic term
+averaged over the columns of a multi-column y.
+
+* Dense models: when kernel, mean and noise run on torch tensors the LML
+  is one plain function of ``hps`` — kernel assembly, Cholesky (or, in the
+  ``Inv`` mode, an LU solve and slogdet), solve, logdet — differentiated by
+  ``torch.autograd`` (the JAX package's traced ``value_and_grad``; eager, no
+  jit).  Its Hessian is ``torch.autograd.functional.hessian``.  A
+  population of hyperparameter vectors (``method="global"``, vectorized
+  MCMC chains) is evaluated in chunks sized from the card's free memory.
+  Host (numpy) callables get the value through the committed-mode trial
+  solve; their gradient engine waits for ROADMAP item 1.6.
+* gp2Scale: the differentiable mBCG program of
+  ``ops/sparse_lml.make_sparse_lml``.  The host-side structure pass
+  (bounding-box candidates at inflated lengthscales, exact tile liveness) is
+  cached under the JAX package's drift policy, and the tile schedule is
+  row-sorted once per structure for the K1 kernel.
 """
+
+import math
 
 import numpy as np
 import torch
 
 from .. import config
+from ..ops import dense as dops
+
+_LOG_2PI = math.log(2.0 * math.pi)
 
 
 def _rademacher_probes(n, p, dtype, device, generator):
@@ -230,15 +246,143 @@ class GPMarginalLikelihood:
         return float(val)
 
     # ------------------------------------------------------------------
+    # dense traced path
+    # ------------------------------------------------------------------
+    def _traced_ready(self):
+        """The dense LML is one autograd-differentiable function when
+        kernel, mean and noise run on torch tensors."""
+        return (not self.data.gp2Scale and self.data.Euclidean
+                and self.kv.mode in ("Chol", "CholInv", "Inv")
+                and self.prior.traceable and self.likelihood.noise_traceable)
+
+    def _hps_tensor(self, hyperparameters, requires_grad=False):
+        h = torch.as_tensor(np.asarray(hyperparameters, np.float64),
+                            dtype=self.prior.dtype).to(self.data.device)
+        return h.requires_grad_(requires_grad)
+
+    def _dense_operands(self, hps):
+        """(K+V, y-m) of the dense model at the hyperparameter tensor
+        ``hps``, built from the kernel, mean and noise callables directly so
+        autograd records them when ``hps`` requires grad."""
+        prior, lik = self.prior, self.likelihood
+        x = prior._x_dev
+        K = prior._apply_kernel(x, x, hps).to(prior.dtype)
+        V = lik.call_noise(x, hps).to(prior.dtype) \
+            if lik._mode == "callable" else lik.V
+        m = prior._default_mean_function(x, hps) if prior._default_mean \
+            else prior._apply_mean(x, hps).to(prior.dtype)
+        return self.kv.addKV(K, V), self.kv._y_minus(m)
+
+    def _lml_from(self, KV, ym):
+        """LML of one or a batch of (K+V, y-m), and the factorization's
+        info (non-zero where K+V is not positive definite)."""
+        if self.kv.mode == "Inv":
+            alpha, info = torch.linalg.solve_ex(KV, ym)
+            logdet = torch.linalg.slogdet(KV)[1]
+        else:
+            L, info = torch.linalg.cholesky_ex(KV)
+            alpha = torch.cholesky_solve(ym, L)
+            logdet = 2.0 * torch.sum(torch.log(torch.diagonal(
+                L, dim1=-2, dim2=-1)), dim=-1)
+        l1 = torch.sum(ym * alpha, dim=(-2, -1)) / ym.shape[-1]
+        return -0.5 * (l1 + logdet + KV.shape[-1] * _LOG_2PI), info
+
+    def _dense_lml(self, hps):
+        return self._lml_from(*self._dense_operands(hps))
+
+    def _traced_eval(self, hyperparameters, want_grad=False):
+        """(L, dL/dh or None); NaN where the factorization failed, as the
+        JAX program returns NaN from a failed Cholesky."""
+        hps = self._hps_tensor(hyperparameters, requires_grad=want_grad)
+        with torch.set_grad_enabled(want_grad):
+            val, info = self._dense_lml(hps)
+            grad = torch.autograd.grad(val, hps)[0] if want_grad else None
+        if int(info) != 0:
+            return np.nan, (None if grad is None
+                            else np.full(len(hyperparameters), np.nan))
+        return float(val.detach()), (None if grad is None
+                                     else config.to_numpy(grad))
+
+    def _population_chunk(self, pop):
+        """Members per batched evaluation: each holds K+V and its factor
+        (two n² matrices) plus one member's transient kernel assembly, in
+        half of the card's free memory (2 GiB on the CPU)."""
+        n = len(self.x_data)
+        item = torch.finfo(self.prior.dtype).bits // 8
+        dev = self.data.device
+        budget = torch.cuda.mem_get_info(dev)[0] // 2 \
+            if dev.type == "cuda" else 2 << 30
+        return max(1, min(pop, budget // max(3 * n * n * item, 1)))
+
+    def batched_neg_log_likelihood(self, P):
+        """-LML over a (pop, H) batch of hyperparameter vectors, evaluated
+        in population chunks with batched factorizations (NaN for members
+        whose K+V is not positive definite).  None off the traced path."""
+        if not self._traced_ready():
+            return None
+        P = np.atleast_2d(np.asarray(P, np.float64))
+        n = len(self.x_data)
+        chunk = self._population_chunk(len(P))
+        out = []
+        with torch.no_grad():
+            for s in range(0, len(P), chunk):
+                members = P[s:s + chunk]
+                KV = torch.empty((len(members), n, n), dtype=self.prior.dtype,
+                                 device=self.data.device)
+                ym = []
+                for i, h in enumerate(members):
+                    KV[i], r = self._dense_operands(self._hps_tensor(h))
+                    ym.append(r)
+                val, info = self._lml_from(KV, torch.stack(ym))
+                out.append(torch.where(info == 0, -val,
+                                       torch.full_like(val, np.nan)))
+                del KV
+        return config.to_numpy(torch.cat(out))
+
+    # ------------------------------------------------------------------
     # public surface
     # ------------------------------------------------------------------
+    def _require_gradient(self):
+        if self.data.gp2Scale:
+            self._require_sparse()
+        elif not self._traced_ready():
+            raise NotImplementedError(
+                "fvgp_tpu_torch: LML gradients of host (numpy) kernel, mean "
+                "or noise callables need the formula gradient engine, which "
+                "is not ported yet (ROADMAP item 1.6)")
+
+    def _trial_value(self, hyperparameters):
+        """The dense LML of host callables: a trial solve in the committed
+        mode."""
+        prior = self.prior
+        K = prior.compute_prior_covariance_matrix(self.x_data,
+                                                  hyperparameters)
+        V = self.likelihood.calculate_V(self.x_data, hyperparameters)
+        m = prior.compute_mean(self.x_data, hyperparameters)
+        KVinvY, logdet = self.kv.compute_new_KVlogdet_KVinvY(K, V, m)
+        ym = self.kv._y_minus(m)
+        l1 = float(torch.sum(ym * KVinvY)) / ym.shape[1]
+        return -0.5 * (l1 + logdet + len(ym) * _LOG_2PI)
+
     def log_likelihood(self, hyperparameters=None):
         """Marginal log-likelihood (at the committed hyperparameters when
-        None)."""
-        self._require_sparse()
-        hps = self.hyperparameters if hyperparameters is None \
-            else hyperparameters
-        val = self._sparse_lml_eval(np.asarray(hps))
+        None); -inf where K+V is not positive definite."""
+        if self.data.gp2Scale:
+            self._require_sparse()
+            hps = self.hyperparameters if hyperparameters is None \
+                else hyperparameters
+            val = self._sparse_lml_eval(np.asarray(hps))
+        elif hyperparameters is None:
+            ym = self.kv._y_minus(self.kv._m_vec)
+            l1 = float(torch.sum(ym * self.kv.KVinvY)) / ym.shape[1]
+            val = -0.5 * (l1 + self.kv.logdet_KV + len(ym) * _LOG_2PI)
+        elif self._traced_ready():
+            val, _ = self._traced_eval(hyperparameters)
+        else:
+            try:
+                val = self._trial_value(np.asarray(hyperparameters))
+            except dops.NonPositiveDefiniteError:
+                val = -np.inf
         return val if np.isfinite(val) else -np.inf
 
     def neg_log_likelihood(self, hyperparameters=None):
@@ -246,17 +390,32 @@ class GPMarginalLikelihood:
 
     def log_likelihood_value_and_gradient(self, hyperparameters):
         """(L, dL/dh) in one pass — the training hot loop calls this."""
-        self._require_sparse()
+        self._require_gradient()
         hyperparameters = np.asarray(hyperparameters)
+        if not self.data.gp2Scale:
+            return self._traced_eval(hyperparameters, want_grad=True)
         val, grad = self._sparse_lml_eval(hyperparameters, want_grad=True)
         if not np.isfinite(val):
             return -np.inf, np.zeros_like(hyperparameters, dtype=float)
         return val, grad
 
     def neg_log_likelihood_gradient(self, hyperparameters=None, component=0):
-        """Gradient of -L."""
-        self._require_sparse()
+        """Gradient of -L (at the committed hyperparameters when None)."""
         hps = self.hyperparameters if hyperparameters is None \
             else hyperparameters
-        _, grad = self._sparse_lml_eval(np.asarray(hps), want_grad=True)
+        _, grad = self.log_likelihood_value_and_gradient(np.asarray(hps))
         return -grad
+
+    def neg_log_likelihood_hessian(self, hyperparameters=None):
+        """The exact Hessian of -L (autograd twice through the dense LML)."""
+        self._require_gradient()
+        if self.data.gp2Scale:
+            raise NotImplementedError(
+                "fvgp_tpu_torch: the gp2Scale Hessian is not ported yet "
+                "(ROADMAP item 1.4)")
+        if hyperparameters is None:
+            hyperparameters = self.hyperparameters
+        hess = torch.autograd.functional.hessian(
+            lambda h: -self._dense_lml(h)[0],
+            self._hps_tensor(hyperparameters))
+        return np.asarray(config.to_numpy(hess), dtype=np.float64)

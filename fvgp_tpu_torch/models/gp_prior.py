@@ -1,15 +1,26 @@
-"""Kernel + prior-mean management under gp2Scale (counterpart of
+"""Kernel + prior-mean management (counterpart of
 ``fvgp_tpu/models/gp_prior.py``).
 
-The prior is lazy: the stored block-sparse covariance is never built on
-this path (the sparse LML and the committed solver assemble their own
-tiles), so ``K`` raises until the stored path is ported (ROADMAP item 1.3).
 Kernels are torch functions ``k(x1, x2, hps)`` (or with a fourth ``args``
-argument) that broadcast over a leading batch dimension; the default under
-gp2Scale is the anisotropic Wendland kernel, the default mean the constant
-``mean(y)``.  Cross covariances against prediction points run as chunked
-dense sweeps, and the posterior-mean product ``kᵀv`` is fused into the sweep
-so the (N, n_pred) cross covariance never exists.
+argument, arity sniffed) that broadcast over a leading batch dimension;
+means are ``m(x, hps)`` or ``m(x, hps, args)``.  A callable that runs on
+torch tensors is "traceable": autograd differentiates it inside the traced
+LML.  Host (numpy) callables give K and m, but their gradient engine waits
+for ROADMAP item 1.6.
+
+* Dense (``gp2Scale=False``): the default kernel is the anisotropic
+  Matérn-3/2 (``kernels.default_matern_ard``), the default mean the
+  constant ``mean(y)``.  K and m are computed eagerly at every commit, with
+  tensors that autograd does not record — on the card the default kernel's
+  K then comes from the K3 kernel.  An append computes only the new
+  (old × new) and (new × new) blocks.
+* gp2Scale: the prior is lazy.  The stored block-sparse covariance is never
+  built on this path (the sparse LML and the committed solver assemble their
+  own tiles), so ``K`` raises until the stored path is ported (ROADMAP item
+  1.3); the default kernel is the anisotropic Wendland kernel.  Cross
+  covariances against prediction points run as chunked dense sweeps, and the
+  posterior-mean product ``kᵀv`` is fused into the sweep so the (N, n_pred)
+  cross covariance never exists.
 """
 
 import inspect
@@ -19,7 +30,8 @@ import numpy as np
 import torch
 
 from .. import config
-from ..kernels import wendland_anisotropic
+from ..kernels import default_matern_ard, wendland_anisotropic
+from .gp_likelihood import _returns_tensor
 
 warnings.filterwarnings("once", category=UserWarning,
                         module=r"fvgp_tpu_torch(\..*)?")
@@ -54,6 +66,11 @@ def _dense_cross_product_scan(kernel_fn, xc, xp, hps, vc):
     return out
 
 
+def _host(a):
+    """A host numpy array of a tensor or array-like (for host callables)."""
+    return a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+
 def _pred_bucket(n_pred):
     """Bucketed prediction count (powers of two, floor 16), as in the JAX
     package, so both pad the prediction set alike."""
@@ -64,19 +81,26 @@ class GPprior:
     def __init__(self, data, trainer, kernel=None, prior_mean_function=None,
                  kernel_grad=None, prior_mean_function_grad=None,
                  gp2Scale_batch_size=10000, gp2Scale_distribution="blockwise"):
-        for fn, name in ((prior_mean_function, "prior_mean_function"),
-                         (kernel_grad, "kernel_function_grad"),
+        for fn, name in ((kernel_grad, "kernel_function_grad"),
                          (prior_mean_function_grad,
                           "prior_mean_function_grad")):
             if callable(fn):
                 raise NotImplementedError(
                     f"fvgp_tpu_torch: {name} is not ported yet (ROADMAP "
-                    "item 1.6, host callables)")
+                    "item 1.6, the formula gradient engine)")
         if gp2Scale_distribution not in ("blockwise", "rowwise"):
             raise AssertionError("gp2Scale_distribution must be `blockwise` "
                                  "or `rowwise`")
         if not (callable(kernel) or kernel is None):
             raise AssertionError("kernel must be callable or None")
+        if not (callable(prior_mean_function) or prior_mean_function is None):
+            raise AssertionError("prior_mean_function must be callable or "
+                                 "None")
+        if data.gp2Scale and callable(prior_mean_function):
+            raise NotImplementedError(
+                "fvgp_tpu_torch: a prior_mean_function under gp2Scale needs "
+                "the stored-K path, which is not ported yet (ROADMAP item "
+                "1.4)")
         self.data = data
         self.trainer = trainer
         self.batch_size = gp2Scale_batch_size
@@ -88,16 +112,26 @@ class GPprior:
                 "fvgp_tpu_torch: non-Euclidean inputs are not ported yet "
                 "(ROADMAP item 1.6)")
 
-        if not callable(kernel):
+        if self.gp2Scale and not callable(kernel):
             warnings.warn("gp2Scale enabled without a compactly supported "
                           "kernel; using the anisotropic Wendland kernel.",
                           stacklevel=2)
             kernel = wendland_anisotropic
-        self.kernel = kernel
-        self.k_n_params = _n_params(kernel)
+        self.kernel = kernel if callable(kernel) else default_matern_ard
+        self.k_n_params = _n_params(self.kernel)
+        self._default_mean = not callable(prior_mean_function)
+        self.mean_function = (self._default_mean_function
+                              if self._default_mean else prior_mean_function)
+        self.m_n_params = 2 if self._default_mean \
+            else _n_params(prior_mean_function)
         self._x_dev = None
         self._refresh_device_data()
         self._probe_traceability()
+        self._m = None
+        self._K = None
+        if not self.gp2Scale:
+            self.m, self.K = self._compute_prior(self.x_data,
+                                                 self.hyperparameters)
 
     # -- plumbing -----------------------------------------------------------
     @property
@@ -129,15 +163,51 @@ class GPprior:
         return self.data.Euclidean
 
     @property
+    def gp2Scale(self):
+        return self.data.gp2Scale
+
+    @property
+    def x_old(self):
+        return self.data.x_old
+
+    @property
+    def x_new(self):
+        return self.data.x_new
+
+    @property
     def K(self):
-        raise NotImplementedError(
-            "fvgp_tpu_torch: the stored gp2Scale covariance "
-            "(BlockSparseMatrix, distributed_covariance) is not ported yet "
-            "(ROADMAP item 1.3)")
+        if self.gp2Scale:
+            raise NotImplementedError(
+                "fvgp_tpu_torch: the stored gp2Scale covariance "
+                "(BlockSparseMatrix, distributed_covariance) is not ported "
+                "yet (ROADMAP item 1.3)")
+        if self._K is None:
+            self._m, self._K = self._compute_prior(self.x_data,
+                                                   self.hyperparameters)
+        return self._K
+
+    @K.setter
+    def K(self, value):
+        self._K = value
 
     @property
     def m(self):
-        return self.compute_mean(self.x_data, self.hyperparameters)
+        if self._m is None:
+            if self.gp2Scale:
+                return self.compute_mean(self.x_data, self.hyperparameters)
+            self._m, self._K = self._compute_prior(self.x_data,
+                                                   self.hyperparameters)
+        return self._m
+
+    @m.setter
+    def m(self, value):
+        self._m = value
+
+    @property
+    def traceable(self):
+        """True when kernel and mean both run on torch tensors, so the
+        whole prior is differentiable by autograd."""
+        return self.kernel_traceable and self.mean_traceable
 
     # ----------------------------------------------------------------------
     def _tensor(self, a):
@@ -148,16 +218,38 @@ class GPprior:
         self._x_dev = self._tensor(self.x_data)
 
     def _probe_traceability(self):
-        """True when the kernel runs on torch tensors (the gp2Scale engine
-        evaluates it batched on the device)."""
+        """Decide, once, whether kernel and mean run on torch tensors (the
+        "differentiable by autograd" probe; host callables return numpy)."""
         x2 = self._x_dev[: min(2, len(self.x_data))]
         hps = self._tensor(self.hyperparameters)
-        try:
-            self._apply_kernel(x2, x2, hps)
-            self.kernel_traceable = True
-        except Exception:
-            self.kernel_traceable = False
+        self.kernel_traceable = _returns_tensor(
+            lambda x, h: self._apply_kernel(x, x, h), x2, hps)
+        self.mean_traceable = self._default_mean or _returns_tensor(
+            self._apply_mean, x2, hps)
 
+    # ----------------------------------------------------------------------
+    # state transitions
+    # ----------------------------------------------------------------------
+    def augment_state_data(self):
+        """Append: only the (old × new) and (new × new) blocks are new."""
+        self.m, self.K = self._update_prior(self.x_old, self.x_new,
+                                            self.hyperparameters)
+        self._refresh_device_data()
+
+    def update_state_data(self):
+        self._refresh_device_data()
+        self.update_state_hyperparameters()
+
+    def update_state_hyperparameters(self):
+        if self.gp2Scale:
+            self._m = None
+            self._K = None
+        else:
+            self.m, self.K = self._compute_prior(self.x_data,
+                                                 self.hyperparameters)
+
+    # ----------------------------------------------------------------------
+    # covariance / mean evaluation
     # ----------------------------------------------------------------------
     def _apply_kernel(self, a, b, hps):
         if self.k_n_params == 3:
@@ -166,20 +258,49 @@ class GPprior:
             return self.kernel(a, b, hps, self.args)
         raise Exception("No valid kernel function signature")
 
+    def _apply_mean(self, x, hps):
+        if self.m_n_params == 2:
+            return self.mean_function(x, hps)
+        if self.m_n_params == 3:
+            return self.mean_function(x, hps, self.args)
+        raise Exception("No valid mean function signature")
+
     def compute_covariances(self, x1, x2, hps):
-        """Dense kernel evaluation k(x1, x2) as a device tensor."""
-        return self._apply_kernel(self._tensor(x1), self._tensor(x2),
-                                  self._tensor(hps))
+        """Dense kernel evaluation k(x1, x2) as a device tensor (``x1`` and
+        ``x2`` host arrays or device tensors)."""
+        if not self.kernel_traceable:
+            from scipy.sparse import issparse
+            K = self._apply_kernel(_host(x1), _host(x2), np.asarray(hps))
+            return self._tensor(K.toarray() if issparse(K) else K)
+        a, b = (v if torch.is_tensor(v) else self._tensor(v)
+                for v in (x1, x2))
+        return self._apply_kernel(a, b, self._tensor(hps)).to(self.dtype)
 
     def compute_mean(self, x, hps):
-        """Prior mean m(x): the constant mean(y_data)."""
+        """Prior mean m(x): the constant mean(y_data) by default."""
+        if self._default_mean:
+            return self._default_mean_function(x, hps)
+        if self.mean_traceable:
+            m = self._apply_mean(x if torch.is_tensor(x) else self._tensor(x),
+                                 self._tensor(hps))
+            return m.to(self.dtype)
+        return self._tensor(self._apply_mean(_host(x), np.asarray(hps)))
+
+    def _default_mean_function(self, x, hyperparameters):
+        """Constant mean = mean(y_data)."""
         return torch.full((len(x),), float(np.mean(self.y_data)),
                           dtype=self.dtype, device=self.device)
 
+    def compute_prior_covariance_matrix(self, x, hyperparameters):
+        """The dense prior covariance K(x, x)."""
+        if self.gp2Scale:
+            return self.K
+        return self.compute_covariances(x, x, hyperparameters)
+
     def compute_data_cross_covariance(self, x_pred, hyperparameters):
-        """k(x_data, x_pred): dense below the batch size, a chunked dense
-        sweep above it."""
-        if len(self.x_data) > self.batch_size:
+        """k(x_data, x_pred): under gp2Scale above the batch size a chunked
+        dense sweep, else one dense evaluation."""
+        if self.gp2Scale and len(self.x_data) > self.batch_size:
             k = self._dense_cross_or_none(x_pred, hyperparameters)
             if k is not None:
                 return k
@@ -188,7 +309,27 @@ class GPprior:
                 "args['gp2Scale_dense_cross_budget'] or device memory; the "
                 "block-sparse cross path is not ported yet (ROADMAP item "
                 "1.3)")
-        return self.compute_covariances(self.x_data, x_pred, hyperparameters)
+        return self.compute_covariances(self._x_dev, x_pred, hyperparameters)
+
+    def _compute_prior(self, x_data, hyperparameters):
+        m = self.compute_mean(self._x_dev, hyperparameters)
+        K = self.compute_prior_covariance_matrix(self._x_dev, hyperparameters)
+        if m.dim() != 1:
+            raise AssertionError("mean function returned non-1-d result")
+        return m, K
+
+    def _update_prior(self, x_old, x_new, hyperparameters):
+        """Append path: only the B (old × new) and D (new × new) blocks are
+        computed."""
+        if self._default_mean:
+            m = self.compute_mean(self.x_data, hyperparameters)
+        else:
+            m = torch.cat([self.m, self.compute_mean(x_new, hyperparameters)])
+        B = self.compute_covariances(x_old, x_new, hyperparameters)
+        D = self.compute_covariances(x_new, x_new, hyperparameters)
+        K = torch.cat([torch.cat([self.K, B], dim=1),
+                       torch.cat([B.T, D], dim=1)], dim=0)
+        return m, K
 
     def _cross_scan_inputs(self, x_pred, hyperparameters):
         """(xc, xp_padded, hps, n_pred) for the chunked cross scans —

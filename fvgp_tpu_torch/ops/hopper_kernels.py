@@ -1,7 +1,7 @@
-"""Hand-written Hopper kernels of the gp2Scale path, with their plain
-PyTorch versions and launch counters.
+"""Hand-written Hopper kernels, with their plain PyTorch versions and launch
+counters.
 
-Two kernels, both in ``csrc/hopper_kernels.cu`` (CUDA C++ for ``sm_90a``,
+Four kernels, all in ``csrc/hopper_kernels.cu`` (CUDA C++ for ``sm_90a``,
 built with ``nvcc`` at first use into ``fvgp_tpu_torch/_build/`` and loaded
 with ``ctypes`` through a plain C interface):
 
@@ -20,13 +20,25 @@ with ``ctypes`` through a plain C interface):
   bound by float32 arithmetic on the CUDA cores (tensor cores come later);
   the tile is read from device memory once per 32 columns and L2 serves the
   repeats.
+* ``dense_covariance`` (K3) replaces the Pallas ``dense_covariance`` —
+  ``K = σ²·poly(‖(x1−x2)/ℓ‖)`` (Matérn-3/2 or Wendland) from exact
+  per-dimension differences, one 32 × 32 output tile per thread block with
+  the whitened rows and columns in shared memory, float32 or float64.
+  Bound by the output write.  The dense GP's default kernel
+  (``kernels.default_matern_ard``) calls it for every covariance built
+  while autograd does not record.
+* ``block_spmv`` (K4) replaces the Pallas ``block_spmv`` — ``y = A·X`` over
+  a row-sorted tile list with the JAX wrapper's contract (padding, clamped
+  indices, zero rows without tiles, ragged ``n``, 1-D ``X``); K1's
+  row-owning thread blocks over CSR row offsets, float32 accumulation,
+  output in X's dtype.
 
 Dispatch is decided before launch: a CPU tensor takes the plain version; a
-float32 or bfloat16 CUDA tensor launches the kernel and never falls back;
-float64 follows the JAX package's rule (``sparse_lml.py:356-360``): K1 takes
-the plain formulation, K2 refuses it (its callers keep the plain scan).
-Each wrapper counts its launches in a plain integer attribute
-(``chunked_spmm.launches``, ``row_chunk_sums.launches``).
+CUDA tensor of a dtype the kernel takes launches it and never falls back;
+float64 follows the JAX package's rule (``sparse_lml.py:356-360``): K1 and
+K4 take the plain formulation, K2 refuses it (its callers keep the plain
+scan); K3 runs float64 in the kernel.  Each wrapper counts its launches in a
+plain integer attribute (``chunked_spmm.launches`` and so on).
 """
 
 import ctypes
@@ -38,9 +50,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..kernels import _safe_sqrt, _wendland_poly, matern_kernel_diff1
+
 __all__ = ["chunked_spmm", "chunked_spmm_reference", "chunked_spmm_vjp",
            "row_chunk_sums", "row_chunk_sums_reference",
-           "row_aligned_schedule", "build_kernels", "reset_launch_counts"]
+           "row_aligned_schedule", "dense_covariance",
+           "dense_covariance_reference", "block_spmv",
+           "block_spmv_reference", "build_kernels", "reset_launch_counts"]
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "hopper_kernels.cu"
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -83,6 +99,12 @@ def build_kernels(verbose=False):
     lib.fvgp_row_chunk_sums.argtypes = [vp, vp, vp, vp, i64, i32, i32, i32,
                                         i32, i32, vp]
     lib.fvgp_row_chunk_sums.restype = i32
+    lib.fvgp_block_spmv.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32,
+                                    vp]
+    lib.fvgp_block_spmv.restype = i32
+    lib.fvgp_dense_covariance.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32,
+                                          i32, vp]
+    lib.fvgp_dense_covariance.restype = i32
     _lib = lib
     return time.time() - t0, log
 
@@ -96,6 +118,8 @@ def _kernels():
 def reset_launch_counts():
     chunked_spmm.launches = 0
     row_chunk_sums.launches = 0
+    dense_covariance.launches = 0
+    block_spmv.launches = 0
 
 
 def _stream(t):
@@ -116,6 +140,19 @@ def _check_kernel_inputs(name, tiles, X, B):
     if tiles.dim() != 3 or tiles.shape[1:] != (B, B):
         raise ValueError(f"{name}: tiles must be (T, {B}, {B}), got "
                          f"{tuple(tiles.shape)}")
+
+
+def _row_offsets(name, rows, nb):
+    """CSR row offsets (nb + 1,) int32 of a row-sorted tile list; rows
+    >= nb fall past the last offset.  An unsorted list is refused: the
+    row-owning kernels (K1, K4) would skip its out-of-order tiles."""
+    rows = rows.to(torch.int32).contiguous()
+    if rows.numel() > 1 and bool((rows[1:] < rows[:-1]).any()):
+        raise ValueError(f"{name}: the tile list must be row-sorted "
+                         "(sort the schedule once on the host)")
+    return torch.searchsorted(
+        rows, torch.arange(nb + 1, dtype=torch.int32, device=rows.device)
+    ).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -182,13 +219,7 @@ def _launch_chunked_spmm(rows, cols, tiles, X_c, nb, B):
     _check_kernel_inputs("chunked_spmm", tiles, X_c, B)
     if X_c.shape[0] != nb * B:
         raise ValueError(f"chunked_spmm: X must have nb*B={nb * B} rows")
-    rows = rows.to(torch.int32).contiguous()
-    if rows.numel() > 1 and bool((rows[1:] < rows[:-1]).any()):
-        raise ValueError("chunked_spmm: the tile list must be row-sorted "
-                         "(sort the schedule once on the host)")
-    row_ptr = torch.searchsorted(
-        rows, torch.arange(nb + 1, dtype=torch.int32, device=rows.device)
-    ).to(torch.int32)
+    row_ptr = _row_offsets("chunked_spmm", rows, nb)
     cols = cols.to(torch.int32).contiguous()
     tiles = tiles.contiguous()
     X_c = X_c.contiguous()
@@ -331,3 +362,150 @@ def row_chunk_sums(tiles, cols, Xb, B, C=8):
 
 
 row_chunk_sums.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3: dense_covariance — the dense path's covariance assembly
+# ---------------------------------------------------------------------------
+
+_COV_KINDS = {"matern32": 0, "wendland": 1}
+_COV_DTYPES = {torch.float32: 0, torch.float64: 2}
+_COV_MAX_DIM = 32
+
+
+def _cov_operands(x1, x2, hyperparameters):
+    if x1.dim() != 2 or x2.dim() != 2 or x1.shape[1] != x2.shape[1]:
+        raise ValueError("dense_covariance: x1 and x2 must be (n, D) with one "
+                         f"D, got {tuple(x1.shape)} and {tuple(x2.shape)}")
+    hps = torch.as_tensor(hyperparameters, dtype=x1.dtype, device=x1.device)
+    return hps, hps[1:1 + x1.shape[1]]
+
+
+def dense_covariance_reference(x1, x2, hyperparameters, kind="matern32"):
+    """Plain PyTorch ``K = hps[0]·poly(‖(x1−x2)/ℓ‖)`` with ℓ =
+    hps[1:1+D]: the whitened distance from exact per-dimension differences
+    (an (n1, n2, D) intermediate), ``kind`` "matern32" or "wendland"."""
+    if kind not in _COV_KINDS:
+        raise ValueError(f"dense_covariance: unknown kind {kind!r}")
+    hps, ls = _cov_operands(x1, x2, hyperparameters)
+    diff = (x1 / ls)[:, None, :] - (x2 / ls)[None, :, :]
+    d = _safe_sqrt(torch.sum(diff * diff, -1))
+    if kind == "matern32":
+        return hps[0] * matern_kernel_diff1(d, 1.0)
+    return hps[0] * _wendland_poly(d)
+
+
+def dense_covariance(x1, x2, hyperparameters, kind="matern32"):
+    """``K = k(x1, x2)`` (see :func:`dense_covariance_reference`).  CPU
+    tensors take the plain version; float32/float64 CUDA tensors launch the
+    K3 kernel.  The kernel has no backward: it refuses inputs for which
+    autograd records."""
+    if x1.device.type == "cpu":
+        return dense_covariance_reference(x1, x2, hyperparameters, kind)
+    if kind not in _COV_KINDS:
+        raise ValueError(f"dense_covariance: unknown kind {kind!r}")
+    if x1.dtype not in _COV_DTYPES or x2.dtype != x1.dtype \
+            or x2.device != x1.device:
+        raise TypeError("dense_covariance: the kernel takes float32 or "
+                        "float64 x1 and x2 of one dtype on one device, got "
+                        f"{x1.dtype} / {x2.dtype}")
+    hps, ls = _cov_operands(x1, x2, hyperparameters)
+    if torch.is_grad_enabled() and (x1.requires_grad or x2.requires_grad
+                                    or hps.requires_grad):
+        raise RuntimeError("dense_covariance: the kernel has no backward; "
+                           "evaluate the plain formula under autograd")
+    n1, D = x1.shape
+    n2 = x2.shape[0]
+    if D > _COV_MAX_DIM:
+        raise ValueError(f"dense_covariance: the kernel takes D <= "
+                         f"{_COV_MAX_DIM}, got {D}")
+    z1 = (x1 / ls).contiguous()
+    z2 = (x2 / ls).contiguous()
+    var = hps[:1].contiguous()
+    out = torch.empty((n1, n2), dtype=x1.dtype, device=x1.device)
+    lib = _kernels()
+    with torch.cuda.device(x1.device):
+        err = lib.fvgp_dense_covariance(
+            _ptr(z1), _ptr(z2), _ptr(var), _ptr(out), n1, n2, D,
+            _COV_KINDS[kind], _COV_DTYPES[x1.dtype], _stream(x1))
+    if err != 0:
+        raise RuntimeError(f"dense_covariance: kernel launch failed with CUDA "
+                           f"error {err}")
+    dense_covariance.launches += 1
+    return out
+
+
+dense_covariance.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K4: block_spmv — y = A·X over a row-sorted tile list
+# ---------------------------------------------------------------------------
+
+def _spmv_operands(rows, cols, X, nb, B):
+    """(padded X (nb*B, k), clamped rows, clamped cols, squeeze) — the JAX
+    wrapper's contract (``pallas_kernels.py:115-124``)."""
+    squeeze = X.dim() == 1
+    if squeeze:
+        X = X[:, None]
+    Xp = torch.zeros((nb * B, X.shape[1]), dtype=X.dtype, device=X.device)
+    Xp[:X.shape[0]] = X
+    r = torch.as_tensor(rows, device=X.device).to(torch.int32).clamp(
+        max=nb - 1)
+    c = torch.as_tensor(cols, device=X.device).to(torch.int32).clamp(
+        max=nb - 1)
+    return Xp, r, c, squeeze
+
+
+def _spmv_result(out, X, n, squeeze):
+    out = out[:X.shape[0] if n is None else n]
+    return out[:, 0] if squeeze else out
+
+
+def block_spmv_reference(rows, cols, tiles, X, nb, block_size, n=None):
+    """Plain PyTorch ``y = A @ X``: X (n, k) or (n,) padded to nb·B rows,
+    rows and cols clamped to nb − 1 (sentinels carry zero tiles), per-tile
+    products accumulated in float32 (float64 for float64 X) into row blocks —
+    rows with no tile stay zero — and returned in X's dtype, truncated to
+    ``n`` (default: X's length)."""
+    B = block_size
+    Xp, r, c, squeeze = _spmv_operands(rows, cols, X, nb, B)
+    k = Xp.shape[1]
+    acc = torch.float64 if X.dtype == torch.float64 else torch.float32
+    prod = torch.bmm(tiles.to(acc), Xp.reshape(nb, B, k)[c.long()].to(acc))
+    out = torch.zeros((nb, B, k), dtype=acc, device=X.device)
+    out.index_add_(0, r.long(), prod)
+    return _spmv_result(out.reshape(nb * B, k).to(X.dtype), X, n, squeeze)
+
+
+def block_spmv(rows, cols, tiles, X, nb, block_size, n=None):
+    """``y = A @ X`` over a row-sorted tile list (the contract of
+    :func:`block_spmv_reference`).  CPU tensors and float64 take the plain
+    version; float32/bfloat16 CUDA tensors (tiles of X's dtype) launch the
+    K4 kernel, which writes the rows without tiles as zero itself."""
+    if X.device.type == "cpu" or X.dtype == torch.float64:
+        return block_spmv_reference(rows, cols, tiles, X, nb, block_size, n)
+    B = block_size
+    _check_kernel_inputs("block_spmv", tiles, X, B)
+    Xp, r, c, squeeze = _spmv_operands(rows, cols, X, nb, B)
+    if tiles.shape[0] != r.shape[0] or c.shape[0] != r.shape[0]:
+        raise ValueError("block_spmv: rows, cols and tiles must list the same "
+                         "number of tiles")
+    row_ptr = _row_offsets("block_spmv", r, nb)
+    k = Xp.shape[1]
+    tiles = tiles.contiguous()
+    c = c.contiguous()
+    out = torch.empty((nb * B, k), dtype=X.dtype, device=X.device)
+    lib = _kernels()
+    with torch.cuda.device(X.device):
+        err = lib.fvgp_block_spmv(
+            _ptr(tiles), _ptr(Xp), _ptr(row_ptr), _ptr(c), _ptr(out), nb, B,
+            k, _KERNEL_DTYPES[X.dtype], _stream(X))
+    if err != 0:
+        raise RuntimeError(f"block_spmv: kernel launch failed with CUDA error "
+                           f"{err}")
+    block_spmv.launches += 1
+    return _spmv_result(out, X, n, squeeze)
+
+
+block_spmv.launches = 0

@@ -53,7 +53,8 @@ def journeys():
         for name, cls in (("jax", JaxGP), ("torch", GP)):
             gp = cls(x, y, init_hyperparameters=HPS,
                      noise_variances=np.full(N, 1e-2), gp2Scale=True,
-                     linalg_mode="sparseCGpre", args=dict(ARGS))
+                     compute_device="cpu", linalg_mode="sparseCGpre",
+                     args=dict(ARGS))
             val, grad = gp.marginal_likelihood \
                 .log_likelihood_value_and_gradient(HPS)
             trained = gp.train(hyperparameter_bounds=BOUNDS, method="local",
@@ -108,7 +109,7 @@ def test_gp_from_numpy_state_round_trip(journeys):
                                journeys["jax"]["mean"], rtol=0, atol=1e-6)
     shuffled = dict(state, x_data=state["x_data"][::-1].copy())
     with pytest.raises(ValueError):
-        gp_from_numpy_state(shuffled)
+        gp_from_numpy_state(shuffled, compute_device="cpu")
 
 
 def test_float32_fused_route_matches_dense_oracle():
@@ -126,7 +127,7 @@ def test_float32_fused_route_matches_dense_oracle():
         warnings.simplefilter("ignore")
         gp = GP(x, y, init_hyperparameters=hps,
                 noise_variances=np.full(n, 1e-2), gp2Scale=True,
-                linalg_mode="sparseCGpre",
+                compute_device="cpu", linalg_mode="sparseCGpre",
                 args={"gp2Scale_block_size": 64, "dtype": "float32",
                       "gp2Scale_posterior_budget": int(1.6e7)})
     xp = rng.uniform(0, 16, (30, 3))

@@ -104,3 +104,107 @@ def test_journey_on_card_matches_cpu(cuda_device):
     assert np.linalg.norm(g1 - g0) / np.linalg.norm(g0) < 1e-3
     np.testing.assert_allclose(m1, m0, rtol=0, atol=1e-3)
     np.testing.assert_allclose(s1, s0, rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["matern32", "wendland"])
+def test_k3_kernel_matches_plain_on_card(cuda_device, kind, dtype):
+    """Ragged (not a multiple of 32) shapes; the diagonal of k(x, x) is
+    exactly the signal variance (d = 0 exactly)."""
+    rng = np.random.default_rng(6)
+    x1 = torch.as_tensor(rng.uniform(0, 6, (301, 3)), dtype=dtype) \
+        .to(cuda_device)
+    x2 = torch.as_tensor(rng.uniform(0, 6, (77, 3)), dtype=dtype) \
+        .to(cuda_device)
+    hps = torch.as_tensor([1.3, 1.5, 2.0, 2.5], dtype=dtype).to(cuda_device)
+    before = HK.dense_covariance.launches
+    got = HK.dense_covariance(x1, x2, hps, kind=kind)
+    self_cov = HK.dense_covariance(x1, x1, hps, kind=kind)
+    assert HK.dense_covariance.launches == before + 2
+    ref = HK.dense_covariance_reference(x1, x2, hps, kind=kind)
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    torch.testing.assert_close(got, ref, rtol=0, atol=tol)
+    assert torch.all(torch.diagonal(self_cov) == hps[0])
+
+
+@pytest.mark.cuda
+def test_k3_refuses_autograd_and_default_kernel_routes_around_it(
+        cuda_device):
+    from fvgp_tpu_torch.kernels import default_matern_ard
+    x = torch.rand((40, 2), device=cuda_device, dtype=torch.float64)
+    h = torch.tensor([1.0, 0.7, 0.9], device=cuda_device,
+                     dtype=torch.float64, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        HK.dense_covariance(x, x, h)
+    before = HK.dense_covariance.launches
+    default_matern_ard(x, x, h).sum().backward()     # the plain formula
+    assert HK.dense_covariance.launches == before
+    with torch.no_grad():
+        default_matern_ard(x, x, h)
+    assert HK.dense_covariance.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_kernel_matches_plain_on_card(cuda_device, dtype):
+    """Rows without tiles come back zero, sentinels are clamped, ragged n,
+    1-D X squeezed."""
+    rng = np.random.default_rng(7)
+    nb, B, k = 9, 64, 17
+    rows = np.sort(rng.integers(0, nb, 40)).astype(np.int32)
+    rows[rows == 4] = 5                       # row block 4 owns no tile
+    cols = rng.integers(0, nb, 40).astype(np.int32)
+    rows = np.concatenate([rows, [nb, nb]]).astype(np.int32)
+    cols = np.concatenate([cols, [nb, nb]]).astype(np.int32)
+    tiles = rng.standard_normal((42, B, B))
+    tiles[-2:] = 0.0
+    args = [torch.as_tensor(a).to(cuda_device) for a in (rows, cols)]
+    t = torch.as_tensor(tiles, dtype=dtype).to(cuda_device)
+    n = nb * B - 13
+    for X in (rng.standard_normal((n, k)), rng.standard_normal(n)):
+        x = torch.as_tensor(X, dtype=dtype).to(cuda_device)
+        before = HK.block_spmv.launches
+        got = HK.block_spmv(*args, t, x, nb, B)
+        assert HK.block_spmv.launches == before + 1
+        ref = HK.block_spmv_reference(*args, t, x, nb, B)
+        assert got.shape == ref.shape and got.dtype == dtype
+        scale = float(ref.float().abs().max())
+        tol = 1e-4 * scale if dtype == torch.float32 else 1e-2 * scale
+        torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                                   atol=tol)
+        assert torch.all(got[4 * B:5 * B] == 0)
+
+
+@pytest.mark.cuda
+def test_dense_journey_on_card_matches_cpu(cuda_device):
+    """The dense GP at a small size: CUDA float32 (K3 launched for the
+    committed covariances) against the CPU in float64; bounds as in
+    chip_smoke.py."""
+    import warnings
+
+    from fvgp_tpu_torch import GP
+    rng = np.random.default_rng(10)
+    n = 600
+    x = rng.uniform(0, 10, (n, 3))
+    y = np.sin(x[:, 0]) + 0.05 * rng.standard_normal(n)
+    xp = rng.uniform(0, 10, (25, 3))
+    hps = np.array([1.0, 1.5, 1.5, 1.5])
+    out = {}
+    HK.reset_launch_counts()
+    for device in ("cpu", "cuda"):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            gp = GP(x, y, init_hyperparameters=hps,
+                    noise_variances=np.full(n, 1e-2), compute_device=device)
+            val, grad = gp.marginal_likelihood \
+                .log_likelihood_value_and_gradient(hps)
+            out[device] = (val, grad, gp.posterior_mean(xp)["m(x)"],
+                           gp.posterior_covariance(xp,
+                                                   variance_only=True)["v(x)"])
+    assert HK.dense_covariance.launches > 0
+    (v0, g0, m0, s0), (v1, g1, m1, s1) = out["cpu"], out["cuda"]
+    assert abs(v1 - v0) / abs(v0) < 1e-4
+    assert np.linalg.norm(g1 - g0) / np.linalg.norm(g0) < 1e-3
+    np.testing.assert_allclose(m1, m0, rtol=0, atol=1e-3)
+    np.testing.assert_allclose(s1, s0, rtol=0, atol=1e-3)

@@ -1,6 +1,7 @@
 """Package rules of fvgp_tpu_torch: it never loads JAX or the JAX package,
-a card that is not there is refused instead of quietly replaced by the CPU,
-unported paths say so, and the chip smoke refuses to run without a card."""
+its entry points run on the card unless the CPU is asked for, a card that
+is not there is refused instead of quietly replaced by the CPU, unported
+paths say so, and the chip smoke refuses to run without a card."""
 
 import os
 import subprocess
@@ -29,6 +30,8 @@ def test_import_loads_neither_jax_nor_the_jax_package():
     proc = _run(
         "import sys, fvgp_tpu_torch\n"
         "import fvgp_tpu_torch.ops.sparse_lml, fvgp_tpu_torch.interop\n"
+        "import fvgp_tpu_torch.ops.dense, fvgp_tpu_torch.ops.hopper_kernels\n"
+        "import fvgp_tpu_torch.kernels, fvgp_tpu_torch.models.gp_mcmc\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'fvgp_tpu' or m.startswith('fvgp_tpu.')]\n"
         "print(bad)\n"
@@ -51,17 +54,52 @@ def test_cuda_without_a_card_raises():
             GP(x, y, gp2Scale=True, compute_device=device)
 
 
-def test_dense_path_and_unported_methods_raise():
+def test_entry_points_default_to_the_card():
+    """No ``compute_device``: the card — which raises on a machine without
+    one, exactly like an explicit ``"cuda"``."""
+    import inspect
+
+    from fvgp_tpu_torch import gp_from_numpy_state
+    from fvgp_tpu_torch.config import resolve_device
+    from fvgp_tpu_torch.models.gp_data import GPdata
+    for fn in (GP, GPdata, gp_from_numpy_state, resolve_device):
+        default = inspect.signature(fn).parameters["compute_device"].default
+        assert default == "cuda", fn
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
     x, y = _tiny_data()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 1.2"):
-        GP(x, y, gp2Scale=False)
+    state = {"x_data": x, "y_data": y, "noise_variances": None,
+             "hyperparameters": np.ones(3), "gp2Scale": False}
+    for make in (lambda: GP(x, y), lambda: GPdata(x, y),
+                 lambda: gp_from_numpy_state(state), resolve_device):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_dense_path_and_unported_methods_raise():
+    """The dense path and the gp2Scale path both build on the CPU; what is
+    not ported yet on either raises with the ROADMAP item that brings
+    it."""
+    x, y = _tiny_data()
     with pytest.warns(UserWarning):
-        gp = GP(x, y, gp2Scale=True)
+        dense = GP(x, y, compute_device="cpu")
+    assert np.isfinite(dense.log_likelihood())
     with pytest.raises(NotImplementedError, match="ROADMAP item 1.5"):
-        gp.train(method="mcmc")
+        dense.train(method="hgdl")
+    with pytest.raises(NotImplementedError, match="ROADMAP item 1.4"):
+        GP(x, y, compute_device="cpu", linalg_mode="sparseCG")
     with pytest.raises(NotPortedError, match="ROADMAP item 1.6"):
-        gp.rmse(x, y)
-    assert not hasattr(gp, "joint_gp_prior")
+        dense.crps(x, y)
+    with pytest.raises(NotPortedError, match="ROADMAP item 1.2"):
+        dense.gp_entropy(x)
+    assert not hasattr(dense, "posterior_mean_grad")
+    with pytest.warns(UserWarning):
+        gp = GP(x, y, gp2Scale=True, compute_device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP item 1.3"):
+        gp.update_gp_data(x, y)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 1.5"):
+        gp.train(method="bo")
     with pytest.raises(AttributeError):
         gp.no_such_attribute
 
