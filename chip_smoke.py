@@ -15,13 +15,16 @@ line is never printed):
    started together;
 3. kernel phase: K1 ``chunked_spmm`` and K4 ``block_spmv`` at the N=50k
    training structure (B=256, k=17, bfloat16 and float32 tiles from the
-   real assembly), K2 ``row_chunk_sums`` at committed-solver shapes (B=128,
-   C=8, c=128), and K3 ``dense_covariance`` at the dense cell's shapes
-   (N=10,000 x 10,000 and 10,000 x 500, D=3; Matérn-3/2 and Wendland;
-   float32 and float64) — each against its plain PyTorch version, with
-   errors, times, the bound and, where one exists, one library call's time;
-   then K4's own path, its ops entry point ``block_spmv`` as a user calls
-   it (its only caller, as in the JAX package);
+   real assembly), K1 again at the N=1M journey's structure (B=128, k=17,
+   bfloat16: the shape of its launches on that path), K2 ``row_chunk_sums``
+   at committed-solver shapes (B=128, C=8; c=128 in bfloat16 and float32,
+   and the journey's widths c=8 and c=512 in bfloat16), and K3
+   ``dense_covariance`` at the dense cell's shapes (N=10,000 x 10,000 and
+   10,000 x 500, D=3; Matérn-3/2 and Wendland; float32 and float64) — each
+   against its plain PyTorch version, with errors, times, the bound and,
+   where one exists, one library call's time; then K4's own path, its ops
+   entry point ``block_spmv`` as a user calls it (its only caller, as in
+   the JAX package);
 4. gp2Scale cross-check: the public journey at N=10,000 on CUDA (float32,
    and float32 with bfloat16 tile streaming) against the CPU in float64,
    with the same probes;
@@ -71,9 +74,11 @@ K4_BF16_RTOL = 1e-2
 # variance), 1e-5 in float32 and 1e-12 in float64
 K3_RTOL = {"float32": 1e-5, "float64": 1e-12}
 # published dense peaks of one H100 SXM (NVIDIA data sheet): tensor-core
-# bf16, float32 outside the tensor cores, float64 outside the tensor
-# cores; HBM3 bandwidth
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "float64": 34e12}
+# bf16 and TF32, float32 outside the tensor cores, float64 outside the
+# tensor cores; HBM3 bandwidth.  The float32 SpMMs do three TF32 products
+# for each float32 product (the 3xTF32 split), counted as such.
+PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 495e12, "float32": 67e12,
+              "float64": 34e12}
 HBM_BYTES_PER_S = 3.35e12
 # journey on CUDA vs the CPU in float64, same probes (relative for the LML,
 # relative 2-norm for the gradient, absolute for posteriors of O(1) scale)
@@ -122,6 +127,20 @@ def record(err, ms, plain_ms, n_bytes, n_ops, dtype, library_ms):
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
+
+
+def spmm_record(err, ms, plain_ms, n_bytes, n_products, dtype, library_ms):
+    """A block-sparse SpMM's record: bfloat16 products run on the bf16
+    tensor cores, float32 ones as three TF32 products each."""
+    if dtype == "float32":
+        return record(err, ms, plain_ms, n_bytes, 3 * n_products, "tf32",
+                      library_ms)
+    return record(err, ms, plain_ms, n_bytes, n_products, dtype, library_ms)
+
+
+def share(rec):
+    return (f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
+            f"{100.0 * rec['bound_ms'] / rec['ms']:.1f}% of it")
 
 
 def launch_counts():
@@ -203,6 +222,85 @@ def assemble(x, nb, B, rows, cols, hps, tile_dtype, dtype, device):
     return tiles, r, c
 
 
+def k1_case(label, r, c, tiles, X, nb, B, mvd):
+    """K1 against its plain version on the training path's operands
+    (clamped columns), timed beside the plain version and the BSR library
+    call; returns the record (bound from the live tiles, X and the float32
+    output, each once)."""
+    from fvgp_tpu_torch.ops import hopper_kernels as hk
+    cc = c.clamp(max=nb - 1)
+    got = hk.chunked_spmm(r, cc, tiles, X, nb, B, mv_dtype=mvd)
+    ref = hk.chunked_spmm_reference(r, cc, tiles, X, nb, B, mv_dtype=mvd)
+    err = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    tol = KERNEL_RTOL * scale
+    del got, ref
+    ms = cuda_ms(lambda: hk.chunked_spmm(r, cc, tiles, X, nb, B,
+                                         mv_dtype=mvd))
+    plain_ms = cuda_ms(lambda: hk.chunked_spmm_reference(
+        r, cc, tiles, X, nb, B, mv_dtype=mvd), reps=3)
+    lib_ms = bsr_library_ms(r, c, tiles, X, nb, B)
+    live = int(((r < nb) & (c < nb)).sum())
+    k = X.shape[1]
+    rec = spmm_record(err, ms, plain_ms,
+                      live * B * B * tiles.element_size()
+                      + 2 * nb * B * k * 4 + 8 * live,
+                      2 * live * B * B * k, str(tiles.dtype)[6:], lib_ms)
+    log(f"K1 chunked_spmm [{label}, B={B}, k={k}, T={len(r)}, live {live}]:"
+        f" max_abs_err {err:.3e} (tol {tol:.3e} = {KERNEL_RTOL:g} x "
+        f"max|ref| {scale:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f}"
+        f" ms, library {lib_ms} ms; {share(rec)}")
+    if not (err <= tol):
+        raise AssertionError(f"K1 ({label}) disagrees with its plain "
+                             f"version: {err} > {tol}")
+    return rec
+
+
+def k2_case(label, tiles, cc, Xb, B, C, n_chunks, nb):
+    """K2 against its plain version, timed beside the plain version and
+    the library yardstick: one ``torch.einsum('ncij,ncjk->nik')`` over the
+    tiles and the X blocks gathered through cols beforehand (the gather
+    excluded, as the BSR build is for K1; cuBLAS writes the input dtype).
+    Bound: live tiles, cols, X and the float32 output, each once."""
+    import torch
+
+    from fvgp_tpu_torch.ops import hopper_kernels as hk
+    c_w = Xb.shape[2]
+    got = hk.row_chunk_sums(tiles, cc, Xb, B, C=C)
+    ref = hk.row_chunk_sums_reference(tiles, cc, Xb, B, C=C)
+    err = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    tol = KERNEL_RTOL * scale
+    del got
+    ms = cuda_ms(lambda: hk.row_chunk_sums(tiles, cc, Xb, B, C=C))
+    plain_ms = cuda_ms(lambda: hk.row_chunk_sums_reference(tiles, cc, Xb, B,
+                                                           C=C), reps=3)
+    Xg = Xb[cc.long().clamp(max=nb - 1)].view(n_chunks, C, B, c_w)
+    tv = tiles.view(n_chunks, C, B, B)
+    lib = torch.einsum("ncij,ncjk->nik", tv, Xg)
+    lib_err = float((lib.float() - ref).abs().max())
+    del lib, ref
+    lib_ms = cuda_ms(lambda: torch.einsum("ncij,ncjk->nik", tv, Xg))
+    del Xg
+    live = int((cc < nb).sum())
+    item = tiles.element_size()
+    rec = spmm_record(err, ms, plain_ms,
+                      live * B * B * item + 4 * len(cc) + nb * B * c_w * item
+                      + n_chunks * B * c_w * 4, 2 * live * B * B * c_w,
+                      str(tiles.dtype)[6:], lib_ms)
+    log(f"K2 row_chunk_sums [{label}, B={B}, C={C}, c={c_w}, n_chunks="
+        f"{n_chunks}]: max_abs_err {err:.3e} (tol {tol:.3e}); kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms "
+        f"(einsum over gathered X, max_abs_err {lib_err:.3e}); {share(rec)}")
+    if not (err <= tol):
+        raise AssertionError(f"K2 ({label}) disagrees with its plain "
+                             f"version: {err} > {tol}")
+    if not (lib_err <= K4_BF16_RTOL * scale):
+        raise AssertionError(f"the K2 library yardstick ({label}) computes "
+                             f"another function: {lib_err}")
+    return rec
+
+
 def kernel_phase(device):
     import torch
 
@@ -222,34 +320,10 @@ def kernel_phase(device):
                       ("bfloat16", torch.bfloat16)):
         tiles, r, c = assemble(x, nb, B, rows_p, cols_p, hps, tdt,
                                torch.float32, device)
-        cc = c.clamp(max=nb - 1)      # the training path's operands
         mvd = None if tdt == torch.float32 else tdt
-        got = hk.chunked_spmm(r, cc, tiles, X, nb, B, mv_dtype=mvd)
-        ref = hk.chunked_spmm_reference(r, cc, tiles, X, nb, B,
-                                        mv_dtype=mvd)
-        torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
-        scale = float(ref.abs().max())
-        tol = KERNEL_RTOL * scale
-        ms = cuda_ms(lambda: hk.chunked_spmm(r, cc, tiles, X, nb, B,
-                                             mv_dtype=mvd))
-        plain_ms = cuda_ms(lambda: hk.chunked_spmm_reference(
-            r, cc, tiles, X, nb, B, mv_dtype=mvd))
-        lib_ms = bsr_library_ms(r, c, tiles, X, nb, B)
-        log(f"K1 chunked_spmm [{name} tiles, B={B}, k={k}, T={len(rows_p)}]"
-            f": max_abs_err {err:.3e} (tol {tol:.3e} = {KERNEL_RTOL:g} x "
-            f"max|ref| {scale:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f}"
-            f" ms, library {lib_ms} ms")
-        if not (err <= tol):
-            raise AssertionError(f"K1 ({name}) disagrees with its plain "
-                                 f"version: {err} > {tol}")
-        item = tiles.element_size()
+        rec = k1_case(f"{name} tiles", r, c, tiles, X, nb, B, mvd)
         if name == "bfloat16":     # the path's dtype
-            # live tiles, X (float32) and the float32 output, once each
-            records["chunked_spmm"] = record(
-                err, ms, plain_ms,
-                live * B * B * item + 2 * nb * B * k * 4 + 8 * live,
-                2 * live * B * B * k, name, lib_ms)
+            records["chunked_spmm"] = rec
         # ---- K4 block_spmv on the same structure: X in the tile dtype,
         # ragged n = N, sentinel rows clamped into the last row block
         Xk = X[:N].to(tdt)
@@ -267,65 +341,52 @@ def kernel_phase(device):
         plain_ms = cuda_ms(lambda: hk.block_spmv_reference(r, c, tiles, Xk,
                                                            nb, B))
         lib_ms = bsr_library_ms(r, c, tiles, X, nb, B)
+        item = tiles.element_size()
+        rec = spmm_record(err, ms, plain_ms,
+                          live * B * B * item + 2 * N * k * item + 8 * live,
+                          2 * live * B * B * k, name, lib_ms)
         log(f"K4 block_spmv [{name}, B={B}, k={k}, n={N}, T={len(rows_p)}]: "
             f"max_abs_err {err:.3e} (tol {tol:.3e} = {rtol:g} x max|ref| "
             f"{scale:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"library {lib_ms} ms")
+            f"library {lib_ms} ms; {share(rec)}")
         if not (err <= tol):
             raise AssertionError(f"K4 ({name}) disagrees with its plain "
                                  f"version: {err} > {tol}")
         if name == "float32":
-            records["block_spmv"] = record(
-                err, ms, plain_ms,
-                live * B * B * item + 2 * N * k * item + 8 * live,
-                2 * live * B * B * k, name, lib_ms)
+            records["block_spmv"] = rec
             spmv_launches = spmv_entry_path(r, c, tiles, Xk, nb, B)
         del tiles
-    # ---- K2 at committed-solver shapes --------------------------------
-    B, C, c_w = 128, 8, 128
+    # ---- K1 at the N=1M journey's structure (its 100 launches' shape) --
+    N1, B1 = 1_000_000, 128
+    hps1 = np.array([1.0, 2.0, 2.0, 2.0])
+    x, nb, rows_p, cols_p = bench_structure(N1, B1, hps1, seed=1)
+    tiles, r, c = assemble(x, nb, B1, rows_p, cols_p, hps1, torch.bfloat16,
+                           torch.float32, device)
+    X1 = torch.randn((nb * B1, k), generator=gen).to(device)
+    k1_case("bfloat16 tiles, N=1M journey", r, c, tiles, X1, nb, B1,
+            torch.bfloat16)
+    del tiles, X1, r, c
+    torch.cuda.empty_cache()
+    # ---- K2 at committed-solver shapes: c=128 in both dtypes, and the
+    # N=1M journey's widths (posterior mean 8, variance 512) in bfloat16
+    B, C = 128, 8
     hps2 = np.array([1.0, 2.0, 2.0, 2.0])
     x, nb, rows_p, cols_p = bench_structure(N, B, hps2, seed=1)
     live = rows_p < nb
     rows_a, cols_a, rowsc, n_chunks = hk.row_aligned_schedule(
         rows_p[live], cols_p[live], nb, C=C)
-    tiles, r, cc = assemble(x, nb, B, rows_a, cols_a, hps2, torch.bfloat16,
-                            torch.float32, device)
-    Xb = torch.randn((nb, B, c_w), generator=gen).to(torch.bfloat16) \
-        .to(device)
-    got = hk.row_chunk_sums(tiles, cc, Xb, B, C=C)
-    ref = hk.row_chunk_sums_reference(tiles, cc, Xb, B, C=C)
-    torch.cuda.synchronize()
-    err = float((got - ref).abs().max())
-    scale = float(ref.abs().max())
-    tol = KERNEL_RTOL * scale
-    ms = cuda_ms(lambda: hk.row_chunk_sums(tiles, cc, Xb, B, C=C))
-    plain_ms = cuda_ms(lambda: hk.row_chunk_sums_reference(tiles, cc, Xb, B,
-                                                           C=C))
-    # the library yardstick: one einsum over the tiles and the X blocks
-    # gathered through cols beforehand (the gather excluded, as the BSR
-    # build is for K1); cuBLAS writes bfloat16
-    Xg = Xb[cc.long().clamp(max=nb - 1)].view(n_chunks, C, B, c_w)
-    tv = tiles.view(n_chunks, C, B, B)
-    lib = torch.einsum("ncij,ncjk->nik", tv, Xg)
-    torch.cuda.synchronize()
-    lib_err = float((lib.float() - ref).abs().max())
-    lib_ms = cuda_ms(lambda: torch.einsum("ncij,ncjk->nik", tv, Xg))
-    del lib, Xg
-    log(f"K2 row_chunk_sums [bfloat16, B={B}, C={C}, c={c_w}, "
-        f"n_chunks={n_chunks}]: max_abs_err {err:.3e} (tol {tol:.3e}); "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f}"
-        f" ms (einsum over gathered X, max_abs_err {lib_err:.3e})")
-    if not (err <= tol):
-        raise AssertionError(f"K2 disagrees with its plain version: "
-                             f"{err} > {tol}")
-    if not (lib_err <= K4_BF16_RTOL * scale):
-        raise AssertionError(f"the K2 library yardstick computes another "
-                             f"function: {lib_err}")
-    live = int((cols_a < nb).sum())
-    records["row_chunk_sums"] = record(
-        err, ms, plain_ms,
-        live * B * B * 2 + 4 * len(cols_a) + nb * B * c_w * 2
-        + n_chunks * B * c_w * 4, 2 * live * B * B * c_w, "bfloat16", lib_ms)
+    for name, tdt, widths in (("bfloat16", torch.bfloat16, (128, 8, 512)),
+                              ("float32", torch.float32, (128,))):
+        tiles, r, cc = assemble(x, nb, B, rows_a, cols_a, hps2, tdt,
+                                torch.float32, device)
+        for c_w in widths:
+            Xb = torch.randn((nb, B, c_w), generator=gen).to(tdt).to(device)
+            rec = k2_case(name, tiles, cc, Xb, B, C, n_chunks, nb)
+            if (name, c_w) == ("bfloat16", 128):
+                records["row_chunk_sums"] = rec
+            del Xb
+        del tiles
+    torch.cuda.empty_cache()
     return records, spmv_launches
 
 
@@ -582,10 +643,24 @@ def dense_journey(N):
     return launches
 
 
+def journey_model(x, y, hps):
+    """The gp2Scale journey's public GP on the card: B=128, bfloat16 solver
+    and storage, 32 CG iterations, 16 fixed probes, no structure cache."""
+    from fvgp_tpu_torch import GP
+    return GP(x, y, init_hyperparameters=hps,
+              noise_variances=np.full(len(x), 1e-2), gp2Scale=True,
+              compute_device="cuda",
+              args={"gp2Scale_block_size": 128,
+                    "gp2Scale_solver_dtype": "bfloat16",
+                    "gp2Scale_storage_dtype": "bfloat16",
+                    "sparse_cg_maxiter": 32,
+                    "random_logdet_fixed_probes": 16,
+                    "gp2Scale_structure_cache_dir": False})
+
+
 def full_journey(N):
     import torch
 
-    from fvgp_tpu_torch import GP
     from fvgp_tpu_torch.ops import hopper_kernels as hk
     x, y, xp = journey_data(N)
     hps = np.array([1.0, 2.0, 2.0, 2.0])
@@ -593,14 +668,7 @@ def full_journey(N):
     torch.cuda.reset_peak_memory_stats()
     hk.reset_launch_counts()
     t0 = time.time()
-    gp = GP(x, y, init_hyperparameters=hps, noise_variances=np.full(N, 1e-2),
-            gp2Scale=True, compute_device="cuda",
-            args={"gp2Scale_block_size": 128,
-                  "gp2Scale_solver_dtype": "bfloat16",
-                  "gp2Scale_storage_dtype": "bfloat16",
-                  "sparse_cg_maxiter": 32,
-                  "random_logdet_fixed_probes": 16,
-                  "gp2Scale_structure_cache_dir": False})
+    gp = journey_model(x, y, hps)
     times["construction_s"] = time.time() - t0
     ml = gp.marginal_likelihood
     t0 = time.time()
@@ -681,6 +749,11 @@ def main():
         native = native_built.result()
     log(f"Hopper kernels built in {secs:.2f} s (nvcc, sm_90a); native host "
         f"runtime: {native}; both in {time.time() - t0:.2f} s")
+    if native != "native":
+        # g++ is on the card's machine: the numpy fallback would silently
+        # change the gp2Scale structure pass being measured
+        raise RuntimeError("the native host runtime did not build (backend "
+                           f"{native!r})")
     for line in build_log.splitlines():
         if "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")

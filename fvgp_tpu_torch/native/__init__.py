@@ -1,11 +1,11 @@
 """On-demand-built C++ host runtime (ctypes bindings).
 
-Builds the JAX package's ``fvgp_tpu/native/structure.cpp`` — read by path,
-never imported — into ``fvgp_tpu_torch/_build/`` on first use (g++ -O3
--fopenmp) and exposes it through ctypes; every entry point has a numpy
-fallback, so the framework works without a toolchain or without that
-source.  :func:`backend` says which of the two runs.  Disable with
-``FVGP_TPU_NATIVE=0``.
+Builds the port's own ``native/structure.cpp`` (a copy of the JAX
+package's host source; the port reads nothing of that package) into
+``fvgp_tpu_torch/_build/`` on first use (g++ -O3 -fopenmp) and exposes it
+through ctypes; every entry point has a numpy fallback, so the framework
+works without a toolchain.  :func:`backend` says which of the two runs.
+Disable with ``FVGP_TPU_NATIVE=0``.
 """
 
 import ctypes
@@ -20,7 +20,7 @@ _LIB = None
 _TRIED = False
 
 _PKG = Path(__file__).resolve().parent.parent
-_SRC = _PKG.parent / "fvgp_tpu" / "native" / "structure.cpp"
+_SRC = Path(__file__).resolve().parent / "structure.cpp"
 _BUILD_DIR = _PKG / "_build"
 
 

@@ -8,18 +8,21 @@ with ``ctypes`` through a plain C interface):
 * ``chunked_spmm`` (K1) replaces the Pallas ``chunked_spmm`` of
   ``fvgp_tpu/ops/pallas_kernels.py`` — the SpMM of every mBCG iteration.
   ``Y[rows[t]] += tiles[t] @ X[cols[t]]`` over a ROW-SORTED tile list: one
-  thread block owns one output row block (a 64- or 32-row slice of it, times
-  32 columns), walks that row's tiles through CSR row offsets, and writes its
-  output once — no atomics, deterministic.  Bound by the tile stream
-  (T·B² elements) at k = 17; the TPU version's VMEM gate does not exist here,
-  every T and every N is served.
+  thread block owns a 64-row slice of one output row block and all k
+  columns, walks that row's tiles through CSR row offsets, and writes its
+  output once — no atomics, deterministic.  A grid of at most two waves
+  starts the longest rows first.  Bound by the tile stream
+  (T·B² elements) at k = 17: the tile slices stream through a cp.async
+  ring into tensor-core MMAs (bfloat16 ``mma.sync``; float32 as a 3×TF32
+  split, which keeps float32 accuracy).  The TPU version's VMEM gate does
+  not exist here, every T and every N is served.
 * ``row_chunk_sums`` (K2) replaces the Pallas ``row_chunk_sums`` — the
   wide-RHS SpMM of the committed posterior CG.  Per C-tile chunk of a
   row-aligned schedule it returns one (B, c) float32 partial sum, reading the
-  X blocks through ``cols`` itself (no pre-gathered X).  At c >= 64 it is
-  bound by float32 arithmetic on the CUDA cores (tensor cores come later);
-  the tile is read from device memory once per 32 columns and L2 serves the
-  repeats.
+  X blocks through ``cols`` itself (no pre-gathered X).  Bfloat16 runs on
+  ``wgmma`` fed by TMA copies (the gather folded into the copy) through an
+  mbarrier ring, bound by the bytes of the tiles; float32 takes K1's 3×TF32
+  body with chunks as segments.
 * ``dense_covariance`` (K3) replaces the Pallas ``dense_covariance`` —
   ``K = σ²·poly(‖(x1−x2)/ℓ‖)`` (Matérn-3/2 or Wendland) from exact
   per-dimension differences, one 32 × 32 output tile per thread block with
@@ -29,16 +32,19 @@ with ``ctypes`` through a plain C interface):
   while autograd does not record.
 * ``block_spmv`` (K4) replaces the Pallas ``block_spmv`` — ``y = A·X`` over
   a row-sorted tile list with the JAX wrapper's contract (padding, clamped
-  indices, zero rows without tiles, ragged ``n``, 1-D ``X``); K1's
-  row-owning thread blocks over CSR row offsets, float32 accumulation,
-  output in X's dtype.
+  indices, zero rows without tiles, ragged ``n``, 1-D ``X``); K1's body
+  over CSR row offsets, float32 accumulation, output in X's dtype.
+
+The SpMM wrappers pad X's columns to a multiple of 8 (a copy where they are
+not), so that every row of X is 16-byte aligned for the asynchronous copies.
 
 Dispatch is decided before launch: a CPU tensor takes the plain version; a
-CUDA tensor of a dtype the kernel takes launches it and never falls back;
-float64 follows the JAX package's rule (``sparse_lml.py:356-360``): K1 and
-K4 take the plain formulation, K2 refuses it (its callers keep the plain
-scan); K3 runs float64 in the kernel.  Each wrapper counts its launches in a
-plain integer attribute (``chunked_spmm.launches`` and so on).
+CUDA tensor of a dtype the kernel takes launches it and never falls back,
+the dtype picking the body; float64 follows the JAX package's rule
+(``sparse_lml.py:356-360``): K1 and K4 take the plain formulation, K2
+refuses it (its callers keep the plain scan); K3 runs float64 in the kernel.
+Each wrapper counts its launches in a plain integer attribute
+(``chunked_spmm.launches`` and so on).
 """
 
 import ctypes
@@ -62,7 +68,7 @@ _SRC = Path(__file__).resolve().parent.parent / "csrc" / "hopper_kernels.cu"
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 _SO = _BUILD_DIR / "libfvgp_hopper.so"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+               "-O3", "-shared", "-Xcompiler", "-fPIC", "-ldl"]
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
 
@@ -93,14 +99,14 @@ def build_kernels(verbose=False):
         log = proc.stderr
     lib = ctypes.CDLL(str(_SO))
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.fvgp_chunked_spmm.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32,
-                                      vp]
+    lib.fvgp_chunked_spmm.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32,
+                                      i32, i32, vp]
     lib.fvgp_chunked_spmm.restype = i32
     lib.fvgp_row_chunk_sums.argtypes = [vp, vp, vp, vp, i64, i32, i32, i32,
-                                        i32, i32, vp]
+                                        i32, i32, i32, vp]
     lib.fvgp_row_chunk_sums.restype = i32
-    lib.fvgp_block_spmv.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32,
-                                    vp]
+    lib.fvgp_block_spmv.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32,
+                                    i32, i32, vp]
     lib.fvgp_block_spmv.restype = i32
     lib.fvgp_dense_covariance.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32,
                                           i32, vp]
@@ -142,17 +148,45 @@ def _check_kernel_inputs(name, tiles, X, B):
                          f"{tuple(tiles.shape)}")
 
 
-def _row_offsets(name, rows, nb):
-    """CSR row offsets (nb + 1,) int32 of a row-sorted tile list; rows
-    >= nb fall past the last offset.  An unsorted list is refused: the
-    row-owning kernels (K1, K4) would skip its out-of-order tiles."""
-    rows = rows.to(torch.int32).contiguous()
-    if rows.numel() > 1 and bool((rows[1:] < rows[:-1]).any()):
+def _aligned(name, t):
+    """``t`` contiguous, refused unless it starts on the 16-byte boundary
+    that the kernels' asynchronous copies need."""
+    t = t.contiguous()
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: operands must start on a 16-byte "
+                         "boundary")
+    return t
+
+
+def _pad_cols(name, X):
+    """X (..., k) with its columns zero-padded to a multiple of 8 (a copy
+    where k is not one), so that every row is 16-byte aligned."""
+    pad = -X.shape[-1] % 8
+    return _aligned(name, torch.nn.functional.pad(X, (0, pad)) if pad else X)
+
+
+def _row_segments(name, rows, nb):
+    """CSR row offsets (nb + 1,) int32 of a row-sorted tile list (rows >= nb
+    fall past the last offset) and the row blocks by descending tile count:
+    the kernel's launch order when its grid is at most two waves, so long
+    rows start first instead of trailing it.  An unsorted list is refused:
+    the row-owning kernels (K1, K4) would skip its out-of-order tiles.
+    Kept on the rows tensor, for its current version, so the check's host
+    sync is paid once per structure rather than once per launch."""
+    kept = getattr(rows, "_fvgp_row_segments", None)
+    if kept is not None and kept[:2] == (rows._version, nb):
+        return kept[2], kept[3]
+    r = rows.to(torch.int32).contiguous()
+    if r.numel() > 1 and bool((r[1:] < r[:-1]).any()):
         raise ValueError(f"{name}: the tile list must be row-sorted "
                          "(sort the schedule once on the host)")
-    return torch.searchsorted(
-        rows, torch.arange(nb + 1, dtype=torch.int32, device=rows.device)
+    row_ptr = torch.searchsorted(
+        r, torch.arange(nb + 1, dtype=torch.int32, device=r.device)
     ).to(torch.int32)
+    order = torch.argsort(row_ptr[1:] - row_ptr[:-1], descending=True,
+                          stable=True).to(torch.int32)
+    rows._fvgp_row_segments = (rows._version, nb, row_ptr, order)
+    return row_ptr, order
 
 
 # ---------------------------------------------------------------------------
@@ -219,16 +253,17 @@ def _launch_chunked_spmm(rows, cols, tiles, X_c, nb, B):
     _check_kernel_inputs("chunked_spmm", tiles, X_c, B)
     if X_c.shape[0] != nb * B:
         raise ValueError(f"chunked_spmm: X must have nb*B={nb * B} rows")
-    row_ptr = _row_offsets("chunked_spmm", rows, nb)
+    row_ptr, order = _row_segments("chunked_spmm", rows, nb)
     cols = cols.to(torch.int32).contiguous()
-    tiles = tiles.contiguous()
-    X_c = X_c.contiguous()
+    tiles = _aligned("chunked_spmm", tiles)
+    Xp = _pad_cols("chunked_spmm", X_c)
     out = torch.empty((nb * B, k), dtype=torch.float32, device=X_c.device)
     lib = _kernels()
     with torch.cuda.device(X_c.device):
         err = lib.fvgp_chunked_spmm(
-            _ptr(tiles), _ptr(X_c), _ptr(row_ptr), _ptr(cols), _ptr(out),
-            nb, B, k, _KERNEL_DTYPES[tiles.dtype], _stream(X_c))
+            _ptr(tiles), _ptr(Xp), _ptr(row_ptr), _ptr(order), _ptr(cols),
+            _ptr(out), nb, B, k, Xp.shape[1], _KERNEL_DTYPES[tiles.dtype],
+            _stream(X_c))
     if err != 0:
         raise RuntimeError(f"chunked_spmm: kernel launch failed with CUDA "
                            f"error {err}")
@@ -345,15 +380,15 @@ def row_chunk_sums(tiles, cols, Xb, B, C=8):
         raise ValueError("row_chunk_sums: the slice must hold whole "
                          f"C={C}-tile chunks with one column index per tile")
     n_chunks = tiles.shape[0] // C
-    tiles = tiles.contiguous()
-    Xb = Xb.contiguous()
+    tiles = _aligned("row_chunk_sums", tiles)
+    Xp = _pad_cols("row_chunk_sums", Xb)
     cols = cols.to(torch.int32).contiguous()
     out = torch.empty((n_chunks, B, c), dtype=torch.float32, device=Xb.device)
     lib = _kernels()
     with torch.cuda.device(Xb.device):
         err = lib.fvgp_row_chunk_sums(
-            _ptr(tiles), _ptr(Xb), _ptr(cols), _ptr(out), n_chunks, C, nb, B,
-            c, _KERNEL_DTYPES[tiles.dtype], _stream(Xb))
+            _ptr(tiles), _ptr(Xp), _ptr(cols), _ptr(out), n_chunks, C, nb, B,
+            c, Xp.shape[2], _KERNEL_DTYPES[tiles.dtype], _stream(Xb))
     if err != 0:
         raise RuntimeError(f"row_chunk_sums: kernel launch failed with CUDA "
                            f"error {err}")
@@ -491,16 +526,18 @@ def block_spmv(rows, cols, tiles, X, nb, block_size, n=None):
     if tiles.shape[0] != r.shape[0] or c.shape[0] != r.shape[0]:
         raise ValueError("block_spmv: rows, cols and tiles must list the same "
                          "number of tiles")
-    row_ptr = _row_offsets("block_spmv", r, nb)
+    row_ptr, order = _row_segments("block_spmv", r, nb)
     k = Xp.shape[1]
-    tiles = tiles.contiguous()
+    Xp = _pad_cols("block_spmv", Xp)
+    tiles = _aligned("block_spmv", tiles)
     c = c.contiguous()
     out = torch.empty((nb * B, k), dtype=X.dtype, device=X.device)
     lib = _kernels()
     with torch.cuda.device(X.device):
         err = lib.fvgp_block_spmv(
-            _ptr(tiles), _ptr(Xp), _ptr(row_ptr), _ptr(c), _ptr(out), nb, B,
-            k, _KERNEL_DTYPES[X.dtype], _stream(X))
+            _ptr(tiles), _ptr(Xp), _ptr(row_ptr), _ptr(order), _ptr(c),
+            _ptr(out), nb, B, k, Xp.shape[1], _KERNEL_DTYPES[X.dtype],
+            _stream(X))
     if err != 0:
         raise RuntimeError(f"block_spmv: kernel launch failed with CUDA error "
                            f"{err}")

@@ -31,8 +31,14 @@ def _k1_case(rng, T=96, B=16, nb=10, k=5):
     return rows, cols, tiles, X, nb, B
 
 
-def test_k1_plain_matches_jax_spmv():
-    rows, cols, tiles, X, nb, B = _k1_case(np.random.default_rng(0))
+@pytest.mark.parametrize("B", [16, 32])
+@pytest.mark.parametrize("k", [1, 5, 17, 33])
+def test_k1_plain_matches_jax_spmv(k, B):
+    """Widths the kernel's n8 column fragments treat apart: one column, a
+    ragged 5 and 17 (3 fragments, the training path's 1 + 16 probes) and
+    33 (a second column tile)."""
+    rows, cols, tiles, X, nb, B = _k1_case(np.random.default_rng(0), B=B,
+                                           k=k)
     ref = np.asarray(SL._spmv(jnp.asarray(rows), jnp.asarray(cols),
                               jnp.asarray(tiles), jnp.asarray(X), nb, B))
     got = HK.chunked_spmm(torch.as_tensor(rows), torch.as_tensor(cols),
@@ -115,11 +121,15 @@ def test_row_aligned_schedule_identical_to_jax():
         assert got[3] == ref[3]
 
 
-def test_k2_plain_in_fused_scan_matches_jax():
-    """The sizes of test_pallas_kernels.test_fused_spmv_scan_matches_dense;
-    JAX runs its Pallas row_chunk_sums in interpret mode here."""
+@pytest.mark.parametrize("C", [1, 4])
+@pytest.mark.parametrize("c", [5, 40, 128])
+def test_k2_plain_in_fused_scan_matches_jax(c, C):
+    """The sizes of test_pallas_kernels.test_fused_spmv_scan_matches_dense
+    at the widths the kernels treat apart (ragged 5 and 40, the wgmma
+    width 128) and chunk lengths 1 and 4; JAX runs its Pallas
+    row_chunk_sums in interpret mode here."""
     rng = np.random.default_rng(1)
-    nb, B, C = 6, 8, 4
+    nb, B = 6, 8
     pairs = sorted({(int(rng.integers(0, nb)), int(rng.integers(0, nb)))
                     for _ in range(18)})
     rows = np.array([p[0] for p in pairs], np.int32)
@@ -129,7 +139,7 @@ def test_k2_plain_in_fused_scan_matches_jax():
     tiles = np.zeros((len(rows_p), B, B), np.float32)
     live = cols_p < nb
     tiles[live] = rng.standard_normal((int(live.sum()), B, B))
-    X = rng.standard_normal((nb * B, 5)).astype(np.float32)
+    X = rng.standard_normal((nb * B, c)).astype(np.float32)
     ref = np.asarray(SL._spmv_scan_fused(
         jnp.asarray(rowsc), jnp.asarray(cols_p), jnp.asarray(tiles),
         jnp.asarray(X), nb, B, C=C))
@@ -153,3 +163,57 @@ def test_cpu_tensors_never_launch_a_kernel():
                       X32.reshape(nb, B, -1), B, C=8)
     assert HK.chunked_spmm.launches == 0
     assert HK.row_chunk_sums.launches == 0
+
+
+def _tf32(x):
+    """Round float32 to TF32 (10-bit mantissa, nearest, ties away from
+    zero): the kernels' ``cvt.rna.tf32.f32``."""
+    bits = x.view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _matmul_3xtf32(a, b):
+    """The float32 kernels' arithmetic: a = a_hi + a_lo and b = b_hi + b_lo
+    rounded to TF32, lo·hi + hi·lo + hi·hi summed in float32 (the TF32
+    products are exact in float32)."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+@pytest.mark.parametrize("depth", [1024, 5376])
+def test_3xtf32_split_holds_float32_accuracy(depth):
+    """The error budget behind the card's 1e-4 check of float32 K1, K2 and
+    K4: at K2's contraction depth (C·B = 8·128) and K1's (~21 tiles of 256
+    per row at N = 50k) the 3×TF32 product stays within 1e-5 of the
+    float64 product, of the output scale; one TF32 pass does not."""
+    rng = np.random.default_rng(13)
+    a = rng.uniform(0.0, 1.0, (64, depth))          # covariance tiles
+    b = rng.standard_normal((depth, 24))            # X columns
+    exact = torch.as_tensor(a) @ torch.as_tensor(b)
+    a32 = torch.as_tensor(a, dtype=torch.float32)
+    b32 = torch.as_tensor(b, dtype=torch.float32)
+    scale = float(exact.abs().max())
+    err = float((_matmul_3xtf32(a32, b32).double() - exact).abs().max())
+    assert err <= 1e-5 * scale, err / scale
+    one_pass = float(((_tf32(a32) @ _tf32(b32)).double() - exact).abs()
+                     .max())
+    assert one_pass > 1e-4 * scale, one_pass / scale
+
+
+def test_row_segments_offsets_order_and_refusal():
+    """The K1/K4 wrappers' row segments: CSR offsets with unclamped
+    sentinels (row == nb) past the last offset, the launch order by
+    descending tile count, an unsorted list refused, and the kept result
+    dropped when the rows tensor is written in place."""
+    nb = 4
+    rows = torch.tensor([0, 0, 2, 2, 2, 3, 4, 4], dtype=torch.int32)
+    row_ptr, order = HK._row_segments("t", rows, nb)
+    assert row_ptr.tolist() == [0, 2, 2, 5, 6]
+    assert order.tolist() == [2, 0, 3, 1]
+    assert HK._row_segments("t", rows, nb)[0] is row_ptr
+    rows[1] = 3                                   # now unsorted
+    with pytest.raises(ValueError, match="row-sorted"):
+        HK._row_segments("t", rows, nb)
+    with pytest.raises(ValueError, match="row-sorted"):
+        HK._row_segments("t", torch.tensor([1, 0], dtype=torch.int32), nb)

@@ -70,6 +70,82 @@ def test_k2_kernel_matches_plain_on_card(cuda_device):
                                atol=1e-4 * float(ref.abs().max()))
 
 
+def _close_to_plain(got, ref, rtol=1e-4):
+    """Kernel against plain version: ``rtol`` of the output scale (both
+    read the same inputs and sum in float32, in another order)."""
+    scale = float(ref.float().abs().max())
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                               atol=rtol * max(scale, 1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [64, 128, 256])
+@pytest.mark.parametrize("k", [1, 17, 40])
+def test_k1_k4_pipeline_edges_on_card(cuda_device, dtype, B, k):
+    """Where the pipelined segment body breaks: row block 0 owns more tiles
+    than the ring has stages, row block 1 owns none (K4 writes it as zero),
+    one- and 40-column X (ragged against the n8 fragments), unclamped
+    sentinels at the tail."""
+    rng = np.random.default_rng(11)
+    nb = 5
+    rows = np.concatenate([np.zeros(9), np.full(4, 2), np.full(3, 3),
+                           np.full(2, 4), np.full(3, nb)]).astype(np.int32)
+    cols = rng.integers(0, nb, len(rows)).astype(np.int32)
+    cols[-3:] = nb
+    tiles = rng.standard_normal((len(rows), B, B))
+    tiles[-3:] = 0.0
+    r, c = (torch.as_tensor(a).to(cuda_device) for a in (rows, cols))
+    cc = c.clamp(max=nb - 1)
+    t = torch.as_tensor(tiles, dtype=dtype).to(cuda_device)
+    x = torch.as_tensor(rng.standard_normal((nb * B, k)),
+                        dtype=torch.float32).to(cuda_device)
+    mvd = None if dtype == torch.float32 else dtype
+    before = HK.chunked_spmm.launches
+    got = HK.chunked_spmm(r, cc, t, x, nb, B, mv_dtype=mvd)
+    assert HK.chunked_spmm.launches == before + 1
+    _close_to_plain(got, HK.chunked_spmm_reference(r, cc, t, x, nb, B,
+                                                   mv_dtype=mvd))
+    assert torch.all(got[B:2 * B] == 0)
+    xk = x.to(dtype)
+    before = HK.block_spmv.launches
+    got = HK.block_spmv(r, c, t, xk, nb, B)
+    assert HK.block_spmv.launches == before + 1
+    ref = HK.block_spmv_reference(r, c, t, xk, nb, B)
+    assert got.dtype == dtype and got.shape == ref.shape
+    _close_to_plain(got, ref, 1e-4 if dtype == torch.float32 else 1e-2)
+    assert torch.all(got[B:2 * B] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [64, 128, 256])
+@pytest.mark.parametrize("C", [1, 8])
+@pytest.mark.parametrize("c", [1, 40, 128, 200, 300])
+def test_k2_shapes_on_card(cuda_device, dtype, B, C, c):
+    """K2 at ragged widths (1, 40, 200), at the wgmma widths (128) and past
+    256 (300: two column tiles), with all-sentinel chunks (zero tiles,
+    cols == nb) among live ones."""
+    rng = np.random.default_rng(12)
+    nb, n_chunks = 6, 7
+    cols = rng.integers(0, nb, n_chunks * C).astype(np.int32)
+    tiles = rng.standard_normal((n_chunks * C, B, B))
+    for s in (1, 4):                              # all-sentinel chunks
+        cols[s * C:(s + 1) * C] = nb
+        tiles[s * C:(s + 1) * C] = 0.0
+    t = torch.as_tensor(tiles, dtype=dtype).to(cuda_device)
+    cc = torch.as_tensor(cols).to(cuda_device)
+    Xb = torch.as_tensor(rng.standard_normal((nb, B, c)),
+                         dtype=dtype).to(cuda_device)
+    before = HK.row_chunk_sums.launches
+    got = HK.row_chunk_sums(t, cc, Xb, B, C=C)
+    assert HK.row_chunk_sums.launches == before + 1
+    ref = HK.row_chunk_sums_reference(t, cc, Xb, B, C=C)
+    assert got.shape == (n_chunks, B, c) and got.dtype == torch.float32
+    _close_to_plain(got, ref)
+    assert torch.all(got[1] == 0) and torch.all(got[4] == 0)
+
+
 @pytest.mark.cuda
 def test_journey_on_card_matches_cpu(cuda_device):
     """The public journey at a small size: CUDA float32 (kernels launched)

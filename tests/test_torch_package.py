@@ -3,6 +3,7 @@ its entry points run on the card unless the CPU is asked for, a card that
 is not there is refused instead of quietly replaced by the CPU, unported
 paths say so, and the chip smoke refuses to run without a card."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -110,3 +111,32 @@ def test_chip_smoke_refuses_to_run_without_a_card():
     proc = _run([str(ROOT / "chip_smoke.py")])
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def _code_strings(tree):
+    """String constants of a module that are not docstrings."""
+    docs = {id(node.body[0].value) for node in ast.walk(tree)
+            if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                                 ast.AsyncFunctionDef))
+            and node.body and isinstance(node.body[0], ast.Expr)
+            and isinstance(node.body[0].value, ast.Constant)}
+    return [node for node in ast.walk(tree)
+            if isinstance(node, ast.Constant) and isinstance(node.value, str)
+            and id(node) not in docs]
+
+
+def test_port_builds_no_path_into_the_jax_package():
+    """The native runtime builds from the port's own source, and no module
+    of the port names a file of the JAX package in its code (docstrings
+    may cite one as the reference)."""
+    from fvgp_tpu_torch import native
+    pkg = ROOT / "fvgp_tpu_torch"
+    assert native._SRC.resolve().is_relative_to(pkg), native._SRC
+    assert native._SRC.is_file()
+    bad = []
+    for py in sorted(pkg.rglob("*.py")):
+        for node in _code_strings(ast.parse(py.read_text())):
+            v = node.value.replace("\\", "/")
+            if v.strip("/") == "fvgp_tpu" or "fvgp_tpu/" in v:
+                bad.append(f"{py.relative_to(ROOT)}:{node.lineno}: {v!r}")
+    assert not bad, bad
