@@ -6,6 +6,8 @@ Run from the root of the repository:
     python3 chip_profile.py [N]             # the dense journey
     python3 chip_profile.py gp2scale [N]    # the gp2Scale journey
     python3 chip_profile.py k1              # K1's launch order and wrapper
+    python3 chip_profile.py k3              # K3's launch and store variants
+    python3 chip_profile.py k4              # K4's wrapper, launch by launch
 
 Dense: builds the bench's dense cell (``chip_smoke.dense_cell_data``,
 N = 10,000 by default, D = 3, linalg_mode="Chol", float32), warms it up,
@@ -30,8 +32,24 @@ k1: at the smoke's N = 50k training structure (float32 and bfloat16
 tiles), bare launches of K1 with the longest-rows-first order and without
 one (row-major), in turns, beside the wrapper ``chunked_spmm``; the same at
 the N = 1M journey's shape, where the launcher drops the order (the grid
-is ~30 waves), so both bare launches run row-major.  Exits non-zero without a
-card.
+is ~30 waves), so both bare launches run row-major.
+
+k3: at the dense journey's shapes (N = 10,000, D = 3; N x N on one tensor
+and on two, N x 500, 500 x 500), float32 and float64: bare launches beside
+the wrapper ``dense_covariance``, in turns — k(X, X) by the symmetric and by
+the full route (Matérn-3/2 and Wendland, and at D = 8 and 32: the
+measurements behind the wrapper's route rule), the store variants of the
+kernel (16-byte stores with and without the streaming hint, the
+scalar-store instance), and one wrapper call of N x 500 launch by launch.
+
+k4: at the same N = 50k structure, one call of the entry point
+``block_spmv`` traced with ``torch.profiler`` — float32 and bfloat16, a 2-D
+X (n = 50,000, k = 17) and a 1-D X: every device kernel and copy of the
+call with its time, the CUDA runtime calls the host made for it (launches,
+copies, synchronisations), the host time of the call, and the event-timed
+means of the call and of the bare launch on operands prepared once.
+
+Exits non-zero without a card.
 """
 
 import sys
@@ -73,6 +91,10 @@ def main():
         return gp2scale(int(args[1]) if len(args) > 1 else 1_000_000)
     if args and args[0] == "k1":
         return k1_order()
+    if args and args[0] == "k3":
+        return k3_launch()
+    if args and args[0] == "k4":
+        return k4_wrapper()
     N = int(args[0]) if args else 10_000
     print(f"card: {cs.smi_line()}; N={N}", flush=True)
     x, y, xp = cs.dense_cell_data(N)
@@ -133,6 +155,155 @@ def gp2scale(N):
         device_table(prof, wall, label)
     return 0
 
+
+def call_breakdown(label, fn):
+    """One call of ``fn`` under the profiler: its device kernels and copies
+    in the order of their size, the host's CUDA runtime calls, and the
+    host's time for the call (to the return, and to the device's end)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    for _ in range(3):          # a trace now and then comes back empty
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        avgs = prof.key_averages()
+        dev = sorted((e for e in avgs if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.self_device_time_total, reverse=True)
+        if dev:
+            break
+    host = [e for e in avgs if e.device_type == DeviceType.CPU
+            and e.key.startswith("cuda")]
+    print(f"{label}: host {1e3 * (t1 - t0):.4f} ms to return, "
+          f"{1e3 * (t2 - t0):.4f} ms to the device's end; device "
+          f"{sum(e.self_device_time_total for e in dev) / 1e3:.4f} ms in "
+          f"{sum(e.count for e in dev)} launches and copies", flush=True)
+    for e in dev:
+        print(f"  device {e.self_device_time_total / 1e3:8.4f} ms  "
+              f"x{e.count:<3d} {e.key[:84]}", flush=True)
+    print("  host runtime calls: " + ", ".join(
+        f"{e.key} x{e.count}" for e in host), flush=True)
+
+
+def k4_wrapper():
+    import torch
+
+    import chip_smoke as cs
+    from fvgp_tpu_torch.ops import hopper_kernels as hk
+    print(f"card: {cs.smi_line()}; K4 wrapper", flush=True)
+    hk._kernels()
+    gen = torch.Generator().manual_seed(3)
+    hps = np.array([1.0, 1.0, 1.0, 1.0])
+    N, B, k = 50_000, 256, 17
+    x, nb, rows, cols = cs.bench_structure(N, B, hps)
+    X = torch.randn((N, k), generator=gen).cuda()
+    for tdt in (torch.float32, torch.bfloat16):
+        t, r, c = cs.assemble(x, nb, B, rows, cols, hps, tdt, torch.float32,
+                              "cuda")
+        for shape, Xk in (("2-D X", X.to(tdt)),
+                          ("1-D X", X[:, 0].contiguous().to(tdt))):
+            label = f"K4 block_spmv [{str(tdt)[6:]}, {shape}, n={N}]"
+            call_breakdown(label, lambda: hk.block_spmv(r, c, t, Xk, nb, B))
+            X2 = Xk[:, None] if Xk.dim() == 1 else Xk
+            Xp = hk._pad_cols("k4", X2)
+            row_ptr, order = hk._row_segments("k4", r, nb)
+            out = torch.empty_like(X2)
+
+            def bare():
+                err = hk._kernels().fvgp_block_spmv(
+                    hk._ptr(t), hk._ptr(Xp), hk._ptr(row_ptr),
+                    hk._ptr(order), hk._ptr(c), hk._ptr(out), nb, B,
+                    X2.shape[1], Xp.shape[1], N, N,
+                    hk._KERNEL_DTYPES[tdt], hk._stream(Xp))
+                if err:
+                    raise RuntimeError(f"K4 launch failed: {err}")
+            ms = {"wrapper": [], "bare": []}
+            for _ in range(3):
+                for name in ("wrapper", "bare", "bare", "wrapper"):
+                    fn = bare if name == "bare" else \
+                        (lambda: hk.block_spmv(r, c, t, Xk, nb, B))
+                    ms[name].append(cs.cuda_ms(fn, reps=20))
+            print(f"{label}: event-timed " + "; ".join(
+                f"{k} median {np.median(v):.4f} ms ({len(v)} x 20)"
+                for k, v in ms.items()), flush=True)
+    return 0
+
+
+def k3_launch():
+    import torch
+
+    import chip_smoke as cs
+    from fvgp_tpu_torch.ops import hopper_kernels as hk
+    print(f"card: {cs.smi_line()}; K3 launch, routes and store variants",
+          flush=True)
+    lib = hk._kernels()
+    x, _, xp = cs.dense_cell_data(10_000)
+    sym, vec, hint = (hk._COV_SYMMETRIC, hk._COV_VECTOR_STORES,
+                      hk._COV_STREAMING)
+
+    def time_variants(label, a, b, hps, kind, variants):
+        """``variants``: name -> launch flags, or None for the wrapper; each
+        timed 6 x 20 launches, in turns."""
+        out = torch.empty((len(a), len(b)), dtype=a.dtype, device="cuda")
+
+        def bare(flags):
+            err = lib.fvgp_dense_covariance(
+                hk._ptr(a), hk._ptr(b), hk._ptr(hps), hk._ptr(out), len(a),
+                len(b), a.shape[1], hk._COV_KINDS[kind],
+                hk._COV_DTYPES[a.dtype], flags, hk._stream(a))
+            if err:
+                raise RuntimeError(f"K3 launch failed: {err}")
+        ms = {name: [] for name in variants}
+        names = list(variants)
+        for _ in range(3):
+            for name in names + names[::-1]:
+                fn = (lambda: hk.dense_covariance(a, b, hps, kind=kind)) \
+                    if variants[name] is None else \
+                    (lambda f=variants[name]: bare(f))
+                ms[name].append(cs.cuda_ms(fn, reps=20))
+        bound_ms = out.numel() * out.element_size() / cs.HBM_BYTES_PER_S * 1e3
+        print(f"K3 [{kind}, {str(a.dtype)[6:]}, D={a.shape[1]}, {label}] "
+              f"(output bytes over the memory rate {bound_ms:.4f} ms): "
+              + "; ".join(f"{k} median {np.median(v):.4f} ms"
+                          for k, v in ms.items()) + " (6 x 20 each)",
+              flush=True)
+
+    routes = {"wrapper": None, "symmetric route": sym | vec | hint,
+              "full route": vec | hint}
+    for dt in (torch.float32, torch.float64):
+        X = torch.as_tensor(x, dtype=dt).cuda()
+        XP = torch.as_tensor(xp, dtype=dt).cuda()
+        hps = torch.as_tensor([1.0, 1.5, 1.5, 1.5], dtype=dt).cuda()
+        # the journey's shapes: which route k(X, X) should take, the store
+        # variants of the full route, and the small shapes' launch
+        time_variants("N x N, x2 is x1", X, X, hps, "matern32", routes)
+        time_variants("N x N, x2 is x1", X, X, hps, "wendland", routes)
+        time_variants("N x N, two tensors", X, X.clone(), hps, "matern32",
+                      {"wrapper": None, "16-byte stores + hint": vec | hint,
+                       "16-byte stores": vec, "scalar stores": 0,
+                       "scalar stores + hint": hint})
+        time_variants("N x 500", X, XP, hps, "matern32",
+                      {"wrapper": None, "bare": vec | hint})
+        time_variants("500 x 500, x2 is x1", XP, XP, hps, "matern32", routes)
+        call_breakdown(f"K3 dense_covariance [{str(dt)[6:]}, N x 500]",
+                       lambda: hk.dense_covariance(X, XP, hps))
+        # the route rule's other side: the run-time-D instance
+        gen = torch.Generator().manual_seed(5)
+        for D in (8, 32):
+            XD = (4.0 * torch.rand((10_000, D), generator=gen)).to(dt).cuda()
+            hD = torch.cat([torch.ones(1), 1.0 + 2.0 * torch.rand(
+                D, generator=gen)]).to(dt).cuda()
+            time_variants("N x N, x2 is x1", XD, XD, hD, "matern32", routes)
+    return 0
 
 
 def k1_order():

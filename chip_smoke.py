@@ -19,12 +19,16 @@ line is never printed):
    bfloat16: the shape of its launches on that path), K2 ``row_chunk_sums``
    at committed-solver shapes (B=128, C=8; c=128 in bfloat16 and float32,
    and the journey's widths c=8 and c=512 in bfloat16), and K3
-   ``dense_covariance`` at the dense cell's shapes (N=10,000 x 10,000 and
-   10,000 x 500, D=3; Matérn-3/2 and Wendland; float32 and float64) — each
-   against its plain PyTorch version, with errors, times, the bound and,
-   where one exists, one library call's time; then K4's own path, its ops
-   entry point ``block_spmv`` as a user calls it (its only caller, as in
-   the JAX package);
+   ``dense_covariance`` at the dense cell's shapes (N=10,000 x 10,000 on
+   one tensor — as the journey calls it — and on two, 10,000 x 500 and
+   500 x 500, D=3; Matérn-3/2 and Wendland; float32 and float64) — each against its plain PyTorch version, with errors, times,
+   the bound and, where one exists, one library call's time; K4's launch
+   path (the schedule kept on the caller's rows tensor, numpy rows, an X
+   that needs no copy, ragged n, 1-D X) and K3 at the shapes that break a
+   tiled body (ragged and unaligned n2, every D, the symmetric route
+   against the full one bit for bit); then K4's own path, its ops entry
+   point ``block_spmv`` as a user calls it (its only caller, as in the JAX
+   package);
 4. gp2Scale cross-check: the public journey at N=10,000 on CUDA (float32,
    and float32 with bfloat16 tile streaming) against the CPU in float64,
    with the same probes;
@@ -141,6 +145,25 @@ def spmm_record(err, ms, plain_ms, n_bytes, n_products, dtype, library_ms):
 def share(rec):
     return (f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
             f"{100.0 * rec['bound_ms'] / rec['ms']:.1f}% of it")
+
+
+def ptxas_summary(build_log):
+    """One line per kernel of nvcc's ``-Xptxas -v`` report: the kernel's
+    name with its mangled template arguments, registers and spills."""
+    import re
+    out, name = [], None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '\w*?((?:segment_mma|"
+                      r"chunk_sums_wgmma|dense_cov)_kernelI\w*?E)Ev", line)
+        if m:
+            name = m.group(1)
+        elif name and "spill" in line:
+            spill = line.strip()
+        elif name and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out.append(f"{name}: {regs} registers; {spill}")
+            name = None
+    return out
 
 
 def launch_counts():
@@ -354,6 +377,7 @@ def kernel_phase(device):
                                  f"version: {err} > {tol}")
         if name == "float32":
             records["block_spmv"] = rec
+            k4_launch_path_cases(r, c, tiles, X, nb, B, N)
             spmv_launches = spmv_entry_path(r, c, tiles, Xk, nb, B)
         del tiles
     # ---- K1 at the N=1M journey's structure (its 100 launches' shape) --
@@ -390,6 +414,45 @@ def kernel_phase(device):
     return records, spmv_launches
 
 
+def k4_launch_path_cases(r, c, tiles, X, nb, B, N):
+    """K4's launch path at the N=50k structure (float32): the schedule is
+    found again on the caller's rows tensor, rows and cols as numpy arrays,
+    an X of nb·B rows and 16 columns (no copy of X), ragged n, ``n`` shorter
+    than X, and a 1-D X — each against the plain version."""
+    import torch
+
+    from fvgp_tpu_torch.ops import hopper_kernels as hk
+
+    def check(label, got, ref):
+        err = float((got - ref).abs().max())
+        tol = KERNEL_RTOL * float(ref.abs().max())
+        log(f"K4 launch path [{label}]: shape {tuple(got.shape)}, "
+            f"max_abs_err {err:.3e} (tol {tol:.3e})")
+        if got.shape != ref.shape or not (err <= tol):
+            raise AssertionError(f"K4 launch path ({label}) disagrees with "
+                                 f"its plain version: {err} > {tol}")
+
+    X16 = X[:, :16].contiguous()                      # nb*B rows, k % 8 == 0
+    kept = getattr(r, "_fvgp_row_segments", None)
+    got = hk.block_spmv(r, c, tiles, X16, nb, B)
+    if kept is None or r._fvgp_row_segments is not kept:
+        raise AssertionError("block_spmv did not find the schedule kept on "
+                             "the caller's rows tensor")
+    check("rows tensor reused, n = nb*B, k = 16",
+          got, hk.block_spmv_reference(r, c, tiles, X16, nb, B))
+    r_np, c_np = r.cpu().numpy(), c.cpu().numpy()
+    check("numpy rows and cols, ragged n, k = 17",
+          hk.block_spmv(r_np, c_np, tiles, X[:N], nb, B),
+          hk.block_spmv_reference(r_np, c_np, tiles, X[:N], nb, B))
+    check("n shorter than X", hk.block_spmv(r, c, tiles, X[:N], nb, B,
+                                            n=N - 1000),
+          hk.block_spmv_reference(r, c, tiles, X[:N], nb, B, n=N - 1000))
+    x1d = X[:N, 0].contiguous()
+    check("1-D X, ragged n", hk.block_spmv(r, c, tiles, x1d, nb, B),
+          hk.block_spmv_reference(r, c, tiles, x1d, nb, B))
+    torch.cuda.synchronize()
+
+
 def spmv_entry_path(rows, cols, tiles, X, nb, B):
     """K4's own path: its ops entry point ``block_spmv``, its only caller
     (as in the JAX package), called as a user calls it — a 2-D X and a 1-D
@@ -424,9 +487,21 @@ def dense_cell_data(N, seed=7):
     return x, y, xp
 
 
+def k3_bound_record(err, ms, plain_ms, n1, n2, D, dname):
+    """K3's record: the inputs and the hyperparameters once, the output
+    once; ~3D + 7 operations per element (differences, squares, sums, sqrt,
+    the polynomial, exp, the variance)."""
+    item = 4 if dname == "float32" else 8
+    return record(err, ms, plain_ms,
+                  (n1 + n2) * D * item + (1 + D) * item + n1 * n2 * item,
+                  n1 * n2 * (3 * D + 7), dname, None)
+
+
 def dense_kernel_phase(device):
-    """K3 at the dense cell's shapes: k(X, X) at N=10,000 and k(X, x*) at
-    10,000 x 500, Matérn-3/2 and Wendland, float32 and float64."""
+    """K3 at the dense cell's shapes: k(X, X) at N=10,000 on one tensor (as
+    the journey calls it: the wrapper picks the route, symmetric in float64)
+    and on two (the full route), k(X, x*) at 10,000 x 500 and k(x*, x*) at
+    500 x 500, Matérn-3/2 and Wendland, float32 and float64."""
     import torch
 
     from fvgp_tpu_torch.ops import hopper_kernels as hk
@@ -434,41 +509,118 @@ def dense_kernel_phase(device):
     records = {}
     for dname, dt in (("float32", torch.float32), ("float64", torch.float64)):
         X = torch.as_tensor(x, dtype=dt).to(device)
+        X2 = X.clone()
         XP = torch.as_tensor(xp, dtype=dt).to(device)
         hps = torch.as_tensor([1.0, 1.5, 1.5, 1.5], dtype=dt).to(device)
         for kind in ("matern32", "wendland"):
-            for shape, x2 in (("N x N", X), ("N x 500", XP)):
-                got = hk.dense_covariance(X, x2, hps, kind=kind)
-                ref = hk.dense_covariance_reference(X, x2, hps, kind=kind)
+            for shape, a, b in (("N x N one tensor", X, X),
+                                ("N x N two tensors", X, X2),
+                                ("N x 500", X, XP),
+                                ("500 x 500 one tensor", XP, XP)):
+                got = hk.dense_covariance(a, b, hps, kind=kind)
+                ref = hk.dense_covariance_reference(a, b, hps, kind=kind)
                 torch.cuda.synchronize()
                 err = float((got - ref).abs().max())
                 tol = K3_RTOL[dname] * float(hps[0])
-                if x2 is X and not bool(torch.all(
-                        torch.diagonal(got) == hps[0])):
-                    raise AssertionError("K3 diagonal is not exactly the "
-                                         "signal variance")
-                ms = cuda_ms(lambda: hk.dense_covariance(X, x2, hps,
+                if a is b and not (bool(torch.all(
+                        torch.diagonal(got) == hps[0]))
+                        and torch.equal(got, got.T)):
+                    raise AssertionError("K3's k(X, X) is not exactly "
+                                         "symmetric with the signal variance"
+                                         " on its diagonal")
+                ms = cuda_ms(lambda: hk.dense_covariance(a, b, hps,
                                                          kind=kind))
                 plain_ms = cuda_ms(lambda: hk.dense_covariance_reference(
-                    X, x2, hps, kind=kind), reps=3)
+                    a, b, hps, kind=kind), reps=3)
+                rec = k3_bound_record(err, ms, plain_ms, len(a), len(b), 3,
+                                      dname)
                 log(f"K3 dense_covariance [{kind}, {dname}, {shape}, D=3]: "
                     f"max_abs_err {err:.3e} (tol {tol:.3e}); kernel "
-                    f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+                    f"{ms:.4f} ms, plain {plain_ms:.4f} ms; {share(rec)}")
                 if not (err <= tol):
                     raise AssertionError(f"K3 ({kind}, {dname}, {shape}) "
                                          f"disagrees with its plain version"
                                          f": {err} > {tol}")
-                if (kind, dname, shape) == ("matern32", "float32", "N x N"):
-                    n1, n2, item = len(x), len(x), 4
-                    # inputs once, the output once; ~3D + 7 operations per
-                    # element (differences, squares, sums, sqrt, the
-                    # polynomial, exp, the variance)
-                    records["dense_covariance"] = record(
-                        err, ms, plain_ms,
-                        (n1 + n2) * 3 * item + 4 * item + n1 * n2 * item,
-                        n1 * n2 * (3 * 3 + 7), dname, None)
+                if (kind, dname, shape) == ("matern32", "float32",
+                                            "N x N one tensor"):
+                    records["dense_covariance"] = rec
                 del got, ref
+        if dname == "float64":
+            # the 3D + 7 count takes exp and sqrt as one operation each; in
+            # float64 they are software: ~30 and ~10 fused multiply-adds
+            n_el = len(x) ** 2
+            ops = n_el * (3 * 3 + 5 + 2 * (30 + 10))
+            log(f"K3 float64 N x N with exp as 30 and sqrt as 10 fused "
+                f"multiply-adds: {ops / PEAK_FLOPS['float64'] * 1e3:.4f} ms "
+                f"of operations (Matérn-3/2, two tensors; on one tensor the "
+                f"symmetric route computes half of them)")
+    k3_edge_cases(device)
     return records
+
+
+def k3_edge_cases(device):
+    """K3 at the shapes that break a tiled body, each against the plain
+    version at K3_RTOL: n1, n2 in {1, 33, 129, 1000}, an odd n2 and one with
+    n2 % 4 == 2 (rows of the output not 16-byte aligned), D in {1, 2, 8, 17,
+    32}; and k(X, X) on one tensor exactly symmetric, its diagonal exactly
+    the signal variance, and one result bit for bit by the symmetric route,
+    by the full route, through the wrapper and for X against a copy of X.
+    Both kinds, both dtypes."""
+    import torch
+
+    from fvgp_tpu_torch.ops import hopper_kernels as hk
+    rng = np.random.default_rng(17)
+    sizes = (1, 33, 129, 1000)
+    n_cases, worst = 0, {"float32": 0.0, "float64": 0.0}
+    for dname, dt in (("float32", torch.float32), ("float64", torch.float64)):
+        for D in (1, 2, 8, 17, 32):
+            xs = {n: torch.as_tensor(rng.uniform(0, 4, (n, D)),
+                                     dtype=dt).to(device)
+                  for n in sizes + (999, 1002)}
+            hps = torch.as_tensor(
+                np.concatenate([[1.3], rng.uniform(1.0, 3.0, D)]),
+                dtype=dt).to(device)
+            tol = K3_RTOL[dname] * float(hps[0])
+            for kind in ("matern32", "wendland"):
+                pairs = [(n1, n2) for n1 in sizes for n2 in sizes] \
+                    + [(129, 999), (1000, 1002)]
+                for n1, n2 in pairs:
+                    a = xs[n1]
+                    b = xs[n2].clone()           # another tensor: full route
+                    got = hk.dense_covariance(a, b, hps, kind=kind)
+                    ref = hk.dense_covariance_reference(a, b, hps, kind=kind)
+                    err = float((got - ref).abs().max())
+                    worst[dname] = max(worst[dname], err)
+                    n_cases += 1
+                    if got.shape != (n1, n2) or not (err <= tol):
+                        raise AssertionError(
+                            f"K3 ({kind}, {dname}, {n1} x {n2}, D={D}) "
+                            f"disagrees with its plain version: {err} > "
+                            f"{tol}")
+                for n in sizes + (999, 1002):
+                    a = xs[n]
+                    sym = hk._launch_dense_covariance(a, a, hps, kind, True)
+                    full = hk._launch_dense_covariance(a, a, hps, kind,
+                                                       False)
+                    n_cases += 1
+                    if not (torch.equal(sym, full)
+                            and torch.equal(sym, hk.dense_covariance(
+                                a, a, hps, kind=kind))
+                            and torch.equal(sym, hk.dense_covariance(
+                                a, a.clone(), hps, kind=kind))
+                            and torch.equal(sym, sym.T)
+                            and bool(torch.all(torch.diagonal(sym)
+                                               == hps[0]))):
+                        raise AssertionError(
+                            f"K3 symmetric route ({kind}, {dname}, n={n}, "
+                            f"D={D}) is not the full route's result, bit "
+                            f"for bit, symmetric with the variance on the "
+                            f"diagonal")
+    torch.cuda.synchronize()
+    log(f"K3 edge cases: {n_cases} passed; worst max_abs_err float32 "
+        f"{worst['float32']:.3e}, float64 {worst['float64']:.3e} (tol "
+        f"{K3_RTOL['float32']:g} / {K3_RTOL['float64']:g} x the variance "
+        f"1.3)")
 
 
 def journey_data(N, seed=1):
@@ -754,9 +906,8 @@ def main():
         # change the gp2Scale structure pass being measured
         raise RuntimeError("the native host runtime did not build (backend "
                            f"{native!r})")
-    for line in build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    for line in ptxas_summary(build_log):
+        log(f"  ptxas: {line}")
 
     t0 = time.time()
     records, spmv_launches = kernel_phase("cuda")

@@ -17,9 +17,15 @@
 //   tile list given as CSR row offsets, so out IS the (nb * B, k) product, in
 //   float32.  Replaces the Pallas chunked_spmm (fvgp_tpu/ops/pallas_kernels.py,
 //   _chunked_spmm_call).
-// * fvgp_block_spmv (K4): the same product written in X's type; row blocks
-//   that own no tile have an empty segment and are written as zero.  Replaces
-//   the Pallas block_spmv (_block_spmv_call).
+// * fvgp_block_spmv (K4): the same product written in X's type, over the
+//   caller's own index tensors: row blocks that own no tile have an empty
+//   segment and are written as zero, sentinel rows (>= nb) lie past the last
+//   row offset and are skipped, sentinel columns are clamped where X is
+//   read.  X may end inside its last block and the output inside the last
+//   row block: the X slices are copied with cp.async's zero-fill predicate
+//   past X's last row, and rows past the output's length are not stored, so
+//   the wrapper pads nothing along the rows.  Replaces the Pallas block_spmv
+//   (_block_spmv_call).
 // * fvgp_row_chunk_sums (K2): segments are fixed runs of C tiles of a
 //   row-aligned schedule; out[s] is the chunk's float32 partial sum.  Replaces
 //   the Pallas row_chunk_sums (_chunk_sums_call).
@@ -59,16 +65,35 @@
 // them as float32 straight from there.
 //
 // Dense covariance (K3, fvgp_dense_covariance).  K[i, j] = var * poly(d_ij)
-// with d_ij = |z1_i - z2_j| from exact per-dimension differences of the
-// whitened inputs (never the |a|^2 + |b|^2 - 2ab expansion, which loses the
-// diagonal to cancellation), poly = Matern-3/2 or the C4 Wendland polynomial.
-// Replaces the Pallas dense_covariance (_dense_cov_call).  Float32 or float64
-// throughout (the TPU version ran float32 only).  A 32 x 32 output tile per
-// thread block; the tile's 32 whitened rows and 32 columns (D <= 32) sit in
-// shared memory, one thread computes 4 output elements of one column, and a
-// warp writes 32 consecutive elements of an output row.  Bound: the output
-// write (n1 * n2 elements) — the inputs are (n1 + n2) * D elements and the
-// arithmetic is ~3 D + 7 operations per element, far below the ridge.
+// with d_ij = |x1_i / l - x2_j / l| from exact per-dimension differences of
+// the whitened inputs (never the |a|^2 + |b|^2 - 2ab expansion, which loses
+// the diagonal to cancellation), poly = Matern-3/2 or the C4 Wendland
+// polynomial.  Replaces the Pallas dense_covariance (_dense_cov_call).
+// Float32 or float64 throughout (the TPU version ran float32 only).  The
+// function is a write-only stream: (n1 + n2) * D inputs against n1 * n2
+// outputs.  In float32 at small D the output write bounds it, and in the
+// time the stores take the card's schedulers start only ~35 instructions
+// per element, so the body is built to spend few; float64 (software exp and
+// sqrt) and float32 at larger D are bound by the arithmetic.  A block of
+// 256 threads owns a square tile (128 x 128 float32, 64 x 64 float64) of a
+// 1-D grid.  It whitens the tile's rows and columns while loading them (one
+// IEEE division per coordinate, so the wrapper launches nothing else), then
+// every thread keeps the coordinates of its 4 (float64: 2) columns in
+// registers for the whole tile — D is a template parameter for D = 1..4, a
+// run-time loop up to 32 — and walks the rows: one shared-memory broadcast
+// per dimension, and one 16-byte streaming store per row.  Where n2 is not a
+// multiple of 4 (2) the rows of the output are not 16-byte aligned, and a
+// scalar-store instance of the same kernel runs, with a warp's columns
+// interleaved so that its stores stay contiguous.  The float32 body takes
+// the hardware's approximate rsqrt and exp (error below).  For k(X, X) on
+// one tensor the kernel can compute only the tiles on and above the
+// diagonal and write each tile above it a second time, transposed, below
+// it — 32 rows at a time through a swizzled shared-memory buffer, in full
+// 128-byte lines.  (a - b)^2 == (b - a)^2 exactly, so that result is bit for
+// bit the full computation's, exactly symmetric, with the diagonal exactly
+// var.  It halves the arithmetic and adds stores that coalesce less well,
+// so the wrapper asks for it where the arithmetic sets the time (float64,
+// or D > 4) and not for float32 at D <= 4.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -224,12 +249,17 @@ __device__ __forceinline__ void mma_stage(const float* sA, const float* sX, int 
 // ((i * n_row_tiles) + row tile) * n_col_tiles + col tile for the i-th
 // segment of the launch order (order[i], or i without one), and the column
 // tiles of one slice are neighbours that share its tiles through L2.
+// The ring's shared memory lets at most 4 blocks share an SM, so the bound
+// gives ptxas 128 registers: without it the compiler aims at more blocks,
+// keeps ~70 registers and the float32 body runs 17% longer (measured: 0.664
+// against 0.563 ms at N = 50k).
 template <typename T, typename OutT, int NF>
-__global__ void __launch_bounds__(kMmaThreads)
+__global__ void __launch_bounds__(kMmaThreads, 4)
 segment_mma_kernel(const T* __restrict__ tiles, const T* __restrict__ X,
                    const int* __restrict__ seg_ptr, const int* __restrict__ order, int chunk,
                    const int* __restrict__ cols, OutT* __restrict__ out, int B, int k,
-                   int ldx, int nb, int n_row_tiles, int n_col_tiles) {
+                   int ldx, int nb, long long x_rows, long long out_rows, int n_row_tiles,
+                   int n_col_tiles) {
   constexpr int NT = 8 * NF;
   constexpr int KD = k_depth<T>();
   constexpr int ALD = a_ld<T>();
@@ -249,6 +279,7 @@ segment_mma_kernel(const T* __restrict__ tiles, const T* __restrict__ X,
   const long long seg = order != nullptr ? order[bid / n_row_tiles] : bid / n_row_tiles;
   const int row0 = rt * kMmaRows;
   const int col0 = ct * NT;
+  if (seg * B + row0 >= out_rows) return;   // a slice wholly past the ragged end
   long long t_begin, t_end;
   if (seg_ptr != nullptr) {
     t_begin = seg_ptr[seg];
@@ -285,11 +316,15 @@ segment_mma_kernel(const T* __restrict__ tiles, const T* __restrict__ X,
       cp_async16(smem_u32(sA + r * ALD + ch * EPC),
                  ok ? gA + static_cast<long long>(r) * B + ch * EPC : tiles, ok);
     }
-    const T* gX = X + (static_cast<long long>(col_cur) * B + l0) * ldx + col0;
+    // rows of X at or past x_rows (the ragged end of its last block) land
+    // as zeros, like the slices past B: x_live rows of this slice are read
+    const long long xr0 = static_cast<long long>(col_cur) * B + l0;
+    const int x_live = static_cast<int>(min(static_cast<long long>(B - l0), x_rows - xr0));
+    const T* gX = X + xr0 * ldx + col0;
 #pragma unroll
     for (int e = threadIdx.x; e < KD * X_CPR; e += kMmaThreads) {
       const int r = e / X_CPR, ch = e % X_CPR;
-      const bool ok = l0 + r < B && col0 + ch * EPC < ldx;
+      const bool ok = r < x_live && col0 + ch * EPC < ldx;
       cp_async16(smem_u32(sX + r * XLD + ch * EPC),
                  ok ? gX + static_cast<long long>(r) * ldx + ch * EPC : X, ok);
     }
@@ -325,13 +360,15 @@ segment_mma_kernel(const T* __restrict__ tiles, const T* __restrict__ X,
   cp_async_wait<0>();
 
   OutT* o = out + seg * static_cast<long long>(B) * k;
+  // rows of this segment that the output holds (it may end inside the last)
+  const int o_live = static_cast<int>(min(static_cast<long long>(B), out_rows - seg * B));
   const int g = lane / 4, t4 = lane % 4;
 #pragma unroll
   for (int f = 0; f < NF; ++f)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = row0 + warp * 16 + g + 8 * h;
-      if (r >= B) continue;
+      if (r >= o_live) continue;
 #pragma unroll
       for (int q = 0; q < 2; ++q) {
         const int j = col0 + f * 8 + 2 * t4 + q;
@@ -355,7 +392,8 @@ cudaError_t resident_blocks(Kernel kern, int threads, int smem, long long* cap) 
 template <typename T, typename OutT, int NF>
 int launch_mma_nf(const void* tiles, const void* X, const int* seg_ptr, const int* order,
                   int chunk, const int* cols, void* out, long long n_seg, int B, int k,
-                  int ldx, int nb, cudaStream_t stream) {
+                  int ldx, int nb, long long x_rows, long long out_rows,
+                  cudaStream_t stream) {
   auto kern = segment_mma_kernel<T, OutT, NF>;
   const int smem = kMmaStages * mma_stage_elems<T, NF>() * static_cast<int>(sizeof(T));
   cudaError_t err =
@@ -377,20 +415,25 @@ int launch_mma_nf(const void* tiles, const void* X, const int* seg_ptr, const in
   }
   kern<<<static_cast<unsigned>(blocks), kMmaThreads, smem, stream>>>(
       static_cast<const T*>(tiles), static_cast<const T*>(X), seg_ptr, order, chunk, cols,
-      static_cast<OutT*>(out), B, k, ldx, nb, n_row_tiles, n_col_tiles);
+      static_cast<OutT*>(out), B, k, ldx, nb, x_rows, out_rows, n_row_tiles, n_col_tiles);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Column tile of 8 * NF: NF = ceil(k / 8) up to 4 (k = 17 takes 3), else 8.
+// X holds x_rows <= nb * B rows and out out_rows <= n_seg * B: what lies past
+// them is read as zero and not written.
 template <typename T, typename OutT>
 int launch_mma(const void* tiles, const void* X, const int* seg_ptr, const int* order,
                int chunk, const int* cols, void* out, long long n_seg, int B, int k, int ldx,
-               int nb, cudaStream_t s) {
-  if (B < 32 || B % 32 != 0 || k < 1 || ldx < k || ldx % 8 != 0 || nb < 1 || n_seg < 0)
+               int nb, long long x_rows, long long out_rows, cudaStream_t s) {
+  if (B < 32 || B % 32 != 0 || k < 1 || ldx < k || ldx % 8 != 0 || nb < 1 || n_seg < 0 ||
+      x_rows < 0 || x_rows > static_cast<long long>(nb) * B || out_rows < 0 ||
+      out_rows > n_seg * B)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (n_seg == 0) return static_cast<int>(cudaSuccess);
-#define FVGP_LAUNCH_MMA(NF) \
-  launch_mma_nf<T, OutT, NF>(tiles, X, seg_ptr, order, chunk, cols, out, n_seg, B, k, ldx, nb, s)
+  if (n_seg == 0 || out_rows == 0) return static_cast<int>(cudaSuccess);
+#define FVGP_LAUNCH_MMA(NF)                                                                  \
+  launch_mma_nf<T, OutT, NF>(tiles, X, seg_ptr, order, chunk, cols, out, n_seg, B, k, ldx, nb, \
+                             x_rows, out_rows, s)
   switch ((k + 7) / 8) {
     case 1: return FVGP_LAUNCH_MMA(1);
     case 2: return FVGP_LAUNCH_MMA(2);
@@ -764,16 +807,46 @@ int launch_chunk_sums_bf16(const void* tiles, const void* X, const int* cols, fl
 // K3: dense covariance
 // ---------------------------------------------------------------------------
 
-constexpr int kCovCols = 32;                   // output columns per block (one warp)
-constexpr int kCovRowThreads = 8;              // thread rows per block
-constexpr int kCovRowsPerThread = 4;
-constexpr int kCovRows = kCovRowThreads * kCovRowsPerThread;   // 32 output rows
+constexpr int kCovThreads = 256;   // 8 warps
+constexpr int kCovPassRows = 32;   // rows of one pass over the tile: 4 per warp
 constexpr int kCovMaxD = 32;
 
-__device__ __forceinline__ float dev_sqrt(float v) { return sqrtf(v); }
+// Float32 takes the hardware's approximate reciprocal square root and
+// exponential (v > 0 is the caller's guard): the precise sqrtf and expf are
+// ~8 instructions each, which kept the float32 body bound by its
+// instruction count, not by its stores (10^4 x 10^4 Matern: 0.170 ms
+// precise, 0.128 ms so).  Against the plain version the result moves from 1.8e-7 to 3.0e-7 of
+// the variance, against float64 from 3.7e-7 to 4.0e-7: float32's own
+// rounding either way.  Float64 stays on sqrt and exp.
+__device__ __forceinline__ float dev_sqrt(float v) { return v * rsqrtf(v); }
 __device__ __forceinline__ double dev_sqrt(double v) { return sqrt(v); }
-__device__ __forceinline__ float dev_exp(float v) { return expf(v); }
+__device__ __forceinline__ float dev_exp(float v) { return __expf(v); }
 __device__ __forceinline__ double dev_exp(double v) { return exp(v); }
+__device__ __forceinline__ float dev_fma(float a, float b, float c) { return __fmaf_rn(a, b, c); }
+__device__ __forceinline__ double dev_fma(double a, double b, double c) {
+  return __fma_rn(a, b, c);
+}
+
+// 16 bytes of T: 4 floats or 2 doubles.  hint: the streaming (evict-first)
+// store, for an output that nothing reads back through L2.
+__device__ __forceinline__ void store16(float* p, const float (&v)[4], bool hint) {
+  const float4 q = make_float4(v[0], v[1], v[2], v[3]);
+  if (hint) __stcs(reinterpret_cast<float4*>(p), q);
+  else *reinterpret_cast<float4*>(p) = q;
+}
+__device__ __forceinline__ void store16(double* p, const double (&v)[2], bool hint) {
+  const double2 q = make_double2(v[0], v[1]);
+  if (hint) __stcs(reinterpret_cast<double2*>(p), q);
+  else *reinterpret_cast<double2*>(p) = q;
+}
+__device__ __forceinline__ void load16(const float* p, float (&v)[4]) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+__device__ __forceinline__ void load16(const double* p, double (&v)[2]) {
+  const double2 q = *reinterpret_cast<const double2*>(p);
+  v[0] = q.x; v[1] = q.y;
+}
 
 // kind 0: Matern-3/2 (1 + a) exp(-a), a = sqrt(3) d.
 // kind 1: C4 Wendland (1 - d)^8 (32 d^3 + 25 d^2 + 8 d + 1) on d clipped at 1.
@@ -792,65 +865,229 @@ __device__ __forceinline__ T cov_poly(T d) {
                       static_cast<T>(8) * d + one);
 }
 
-template <typename T, int KIND>
-__global__ void __launch_bounds__(kCovCols * kCovRowThreads)
-dense_cov_kernel(const T* __restrict__ z1, const T* __restrict__ z2,
-                 const T* __restrict__ var, T* __restrict__ out, int n1, int n2, int D) {
-  __shared__ T z1s[kCovRows][kCovMaxD];
-  __shared__ T z2s[kCovMaxD][kCovCols];
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int tid = ty * kCovCols + tx;
-  const int row0 = blockIdx.y * kCovRows;
-  const int col0 = blockIdx.x * kCovCols;
-  for (int e = tid; e < kCovRows * D; e += kCovCols * kCovRowThreads) {
-    const int i = e / D, d = e % D;
-    const int r = row0 + i;
-    z1s[i][d] = r < n1 ? z1[static_cast<long long>(r) * D + d] : static_cast<T>(0);
+// The staging buffer of the mirrored write holds one pass (32 rows x TC
+// columns) in 16-byte chunks, chunk c of row r at chunk c ^ ((r / V) & 7):
+// both the row-wise writes and the V x V block reads of the transposition
+// then spread over all banks.
+template <int V>
+__device__ __forceinline__ int cov_stage_at(int r, int c, int tc) {
+  return r * tc + V * ((c / V) ^ ((r / V) & 7)) + c % V;
+}
+
+// One square output tile of TC = 32 * V columns and as many rows per block
+// (V = 4 float32 or 2 float64 values in 16 bytes: 128 x 128 or 64 x 64).
+// DT > 0: D == DT at compile time and the thread's columns live in
+// registers; DT == 0: D <= 32 at run time, columns re-read from shared
+// memory.  VST: one 16-byte store per thread and row (the caller guarantees
+// n2 % V == 0), the thread owning V neighbouring columns; otherwise scalar
+// stores, the thread owning columns lane, lane + 32, ..., so that a warp's
+// store is one contiguous run either way.  sym: x2 is x1; the block index
+// walks the tiles on and above the diagonal, and a tile above it is written
+// a second time, transposed, below it.
+template <typename T, int KIND, int DT, bool VST>
+__global__ void __launch_bounds__(kCovThreads)
+dense_cov_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
+                 const T* __restrict__ hps, T* __restrict__ out, int n1, int n2, int d_rt,
+                 int n_ct, int sym, int hint) {
+  constexpr int V = 16 / static_cast<int>(sizeof(T));
+  constexpr int TC = 32 * V;
+  constexpr int TR = TC;
+  constexpr int NP = TR / kCovPassRows;
+  const int D = DT > 0 ? DT : d_rt;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* z1s = reinterpret_cast<T*>(smem_raw);   // [TR][D] whitened rows
+  T* z2s = z1s + TR * D;                     // [D][TC] whitened columns
+  T* stg = z2s + D * TC;                     // [32][TC], sym only
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+
+  int ti, tj;
+  if (sym) {
+    // tile row ti holds the n_ct - ti tiles tj >= ti and starts at index
+    // ti * n_ct - ti (ti - 1) / 2
+    const long long p = blockIdx.x, nt = n_ct;
+    const double b = 2.0 * nt + 1.0;
+    long long t = static_cast<long long>((b - sqrt(b * b - 8.0 * p)) * 0.5);
+    t = t < 0 ? 0 : (t > nt - 1 ? nt - 1 : t);
+    while (t > 0 && t * nt - t * (t - 1) / 2 > p) --t;
+    while ((t + 1) * nt - (t + 1) * t / 2 <= p) ++t;
+    ti = static_cast<int>(t);
+    tj = ti + static_cast<int>(p - (t * nt - t * (t - 1) / 2));
+  } else {
+    ti = blockIdx.x / n_ct;
+    tj = blockIdx.x % n_ct;
   }
-  for (int e = tid; e < kCovCols * D; e += kCovCols * kCovRowThreads) {
-    const int j = e / D, d = e % D;
-    const int c = col0 + j;
-    z2s[d][j] = c < n2 ? z2[static_cast<long long>(c) * D + d] : static_cast<T>(0);
+  const long long row0 = static_cast<long long>(ti) * TR;
+  const long long col0 = static_cast<long long>(tj) * TC;
+
+  // whiten while loading: one IEEE division per coordinate, x / l, never a
+  // product with 1 / l, so the values are those of the plain version
+  const long long lim1 = (n1 - row0) * D;
+  for (int e = tid; e < TR * D; e += kCovThreads) {
+    const int d = e % D;
+    z1s[e] = e < lim1 ? x1[row0 * D + e] / hps[1 + d] : static_cast<T>(0);
+  }
+  const long long lim2 = (n2 - col0) * D;
+  for (int e = tid; e < TC * D; e += kCovThreads) {
+    const int j = e / D, d = e - j * D;
+    z2s[d * TC + j] = e < lim2 ? x2[col0 * D + e] / hps[1 + d] : static_cast<T>(0);
   }
   __syncthreads();
-  const int col = col0 + tx;
-  if (col >= n2) return;
-  const T v = var[0];
+
+  int cj[V];
 #pragma unroll
-  for (int r = 0; r < kCovRowsPerThread; ++r) {
-    const int i = ty + r * kCovRowThreads;
-    const int row = row0 + i;
-    if (row >= n1) break;
-    T d2 = static_cast<T>(0);
-    for (int d = 0; d < D; ++d) {
-      const T diff = z1s[i][d] - z2s[d][tx];
-      d2 += diff * diff;
+  for (int q = 0; q < V; ++q) cj[q] = VST ? V * lane + q : lane + 32 * q;
+  T zc[V][DT > 0 ? DT : 1];
+  if constexpr (DT > 0) {
+#pragma unroll
+    for (int q = 0; q < V; ++q)
+#pragma unroll
+      for (int d = 0; d < DT; ++d) zc[q][d] = z2s[d * TC + cj[q]];
+  }
+  const T var = hps[0];
+  const bool mirror = sym && ti != tj;
+  const bool stream = hint != 0;
+
+  for (int ps = 0; ps < NP; ++ps) {
+#pragma unroll
+    for (int i = 0; i < kCovPassRows / 8; ++i) {
+      const int rl = warp * (kCovPassRows / 8) + i;   // row of the pass
+      const int r = ps * kCovPassRows + rl;           // row of the tile
+      T d2[V];
+#pragma unroll
+      for (int q = 0; q < V; ++q) d2[q] = static_cast<T>(0);
+      if constexpr (DT > 0) {
+#pragma unroll
+        for (int d = 0; d < DT; ++d) {
+          const T a = z1s[r * DT + d];
+#pragma unroll
+          for (int q = 0; q < V; ++q) {
+            const T diff = a - zc[q][d];
+            d2[q] = dev_fma(diff, diff, d2[q]);
+          }
+        }
+      } else {
+        for (int d = 0; d < D; ++d) {
+          const T a = z1s[r * D + d];
+#pragma unroll
+          for (int q = 0; q < V; ++q) {
+            const T diff = a - z2s[d * TC + cj[q]];
+            d2[q] = dev_fma(diff, diff, d2[q]);
+          }
+        }
+      }
+      T v[V];
+#pragma unroll
+      for (int q = 0; q < V; ++q) {
+        const T dist = d2[q] > static_cast<T>(0) ? dev_sqrt(d2[q]) : static_cast<T>(0);
+        v[q] = var * cov_poly<T, KIND>(dist);
+      }
+      const long long row = row0 + r;
+      if (row < n1) {
+        T* o = out + row * n2 + col0;   // the row's offset once, in 64 bits
+        if (VST) {
+          if (col0 + cj[0] < n2) store16(o + cj[0], v, stream);
+        } else {
+#pragma unroll
+          for (int q = 0; q < V; ++q)
+            if (col0 + cj[q] < n2) o[cj[q]] = v[q];
+        }
+      }
+      if (mirror) {
+        if (VST) {
+          store16(stg + cov_stage_at<V>(rl, cj[0], TC), v, false);
+        } else {
+#pragma unroll
+          for (int q = 0; q < V; ++q) stg[cov_stage_at<V>(rl, cj[q], TC)] = v[q];
+        }
+      }
     }
-    const T dist = d2 > static_cast<T>(0) ? dev_sqrt(d2) : static_cast<T>(0);
-    out[static_cast<long long>(row) * n2 + col] = v * cov_poly<T, KIND>(dist);
+    if (mirror) {   // the same for the whole block
+      __syncthreads();
+      // V x V blocks of the pass, transposed in registers: output row
+      // col0 + c gets the V values of rows V * rq ... of this pass
+      constexpr int RQ = kCovPassRows / V;
+      for (int blk = tid; blk < RQ * 32; blk += kCovThreads) {
+        const int rq = blk % RQ, cc = blk / RQ;
+        T m[V][V];
+#pragma unroll
+        for (int q = 0; q < V; ++q)
+          load16(stg + cov_stage_at<V>(V * rq + q, V * cc, TC), m[q]);
+        const long long c_out = row0 + ps * kCovPassRows + V * rq;
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const long long r_out = col0 + V * cc + j;
+          if (r_out >= n1) continue;
+          T w[V];
+#pragma unroll
+          for (int q = 0; q < V; ++q) w[q] = m[q][j];
+          T* o = out + r_out * n2 + c_out;
+          if (VST) {
+            if (c_out < n2) store16(o, w, stream);
+          } else {
+#pragma unroll
+            for (int q = 0; q < V; ++q)
+              if (c_out + q < n2) o[q] = w[q];
+          }
+        }
+      }
+      __syncthreads();
+    }
   }
 }
 
+template <typename T, int KIND, int DT, bool VST>
+int launch_cov_one(const T* x1, const T* x2, const T* hps, T* out, int n1, int n2, int D,
+                   bool sym, bool hint, cudaStream_t stream) {
+  constexpr int TC = 32 * (16 / static_cast<int>(sizeof(T)));
+  const long long n_ct = (static_cast<long long>(n2) + TC - 1) / TC;
+  const long long n_rt = (static_cast<long long>(n1) + TC - 1) / TC;
+  const long long blocks = sym ? n_ct * (n_ct + 1) / 2 : n_rt * n_ct;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int smem = (2 * TC * D + (sym ? kCovPassRows * TC : 0)) * static_cast<int>(sizeof(T));
+  dense_cov_kernel<T, KIND, DT, VST>
+      <<<static_cast<unsigned>(blocks), kCovThreads, smem, stream>>>(
+          x1, x2, hps, out, n1, n2, D, static_cast<int>(n_ct), sym ? 1 : 0, hint ? 1 : 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int KIND, bool VST>
+int launch_cov_d(const T* x1, const T* x2, const T* hps, T* out, int n1, int n2, int D,
+                 bool sym, bool hint, cudaStream_t s) {
+#define FVGP_LAUNCH_COV(DT) \
+  launch_cov_one<T, KIND, DT, VST>(x1, x2, hps, out, n1, n2, D, sym, hint, s)
+  switch (D) {
+    case 1: return FVGP_LAUNCH_COV(1);
+    case 2: return FVGP_LAUNCH_COV(2);
+    case 3: return FVGP_LAUNCH_COV(3);
+    case 4: return FVGP_LAUNCH_COV(4);
+    default: return FVGP_LAUNCH_COV(0);
+  }
+#undef FVGP_LAUNCH_COV
+}
+
+// flags: 1 = x2 is x1 (the symmetric route), 2 = 16-byte stores (n2 must be
+// a multiple of 16 / sizeof(T)), 4 = the streaming store hint.
 template <typename T>
-int launch_cov(const void* z1, const void* z2, const void* var, void* out, int n1,
-               int n2, int D, int kind, cudaStream_t stream) {
-  if (n1 < 0 || n2 < 0 || D < 1 || D > kCovMaxD || (kind != 0 && kind != 1))
+int launch_cov(const void* x1, const void* x2, const void* hps, void* out, int n1, int n2,
+               int D, int kind, int flags, cudaStream_t s) {
+  constexpr int V = 16 / static_cast<int>(sizeof(T));
+  const bool sym = flags & 1, vst = flags & 2, hint = flags & 4;
+  if (n1 < 0 || n2 < 0 || D < 1 || D > kCovMaxD || (kind != 0 && kind != 1) ||
+      (sym && (n1 != n2 || x1 != x2)) ||
+      (vst && (n2 % V != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n1 == 0 || n2 == 0) return static_cast<int>(cudaSuccess);
-  const long long gy = (static_cast<long long>(n1) + kCovRows - 1) / kCovRows;
-  if (gy > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const dim3 grid((n2 + kCovCols - 1) / kCovCols, static_cast<unsigned>(gy));
-  const dim3 block(kCovCols, kCovRowThreads);
-  const T* a = static_cast<const T*>(z1);
-  const T* b = static_cast<const T*>(z2);
-  const T* v = static_cast<const T*>(var);
+  const T* a = static_cast<const T*>(x1);
+  const T* b = static_cast<const T*>(x2);
+  const T* h = static_cast<const T*>(hps);
   T* o = static_cast<T*>(out);
-  if (kind == 0)
-    dense_cov_kernel<T, 0><<<grid, block, 0, stream>>>(a, b, v, o, n1, n2, D);
-  else
-    dense_cov_kernel<T, 1><<<grid, block, 0, stream>>>(a, b, v, o, n1, n2, D);
-  return static_cast<int>(cudaGetLastError());
+  if (kind == 0) {
+    if (vst) return launch_cov_d<T, 0, true>(a, b, h, o, n1, n2, D, sym, hint, s);
+    return launch_cov_d<T, 0, false>(a, b, h, o, n1, n2, D, sym, hint, s);
+  }
+  if (vst) return launch_cov_d<T, 1, true>(a, b, h, o, n1, n2, D, sym, hint, s);
+  return launch_cov_d<T, 1, false>(a, b, h, o, n1, n2, D, sym, hint, s);
 }
 
 }  // namespace
@@ -864,12 +1101,13 @@ extern "C" int fvgp_chunked_spmm(const void* tiles, const void* X, const int* ro
                                  const int* order, const int* cols, float* out, int nb,
                                  int B, int k, int ldx, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long n = static_cast<long long>(nb) * B;
   if (dtype == 0)
     return launch_mma<float, float>(tiles, X, row_ptr, order, 0, cols, out, nb, B, k, ldx,
-                                    nb, s);
+                                    nb, n, n, s);
   if (dtype == 1)
     return launch_mma<bf16, float>(tiles, X, row_ptr, order, 0, cols, out, nb, B, k, ldx,
-                                   nb, s);
+                                   nb, n, n, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -885,33 +1123,38 @@ extern "C" int fvgp_row_chunk_sums(const void* tiles, const void* X, const int* 
   if (n_chunks == 0) return static_cast<int>(cudaSuccess);
   if (dtype == 0)
     return launch_mma<float, float>(tiles, X, nullptr, nullptr, C, cols, out, n_chunks, B, c,
-                                    ldx, nb, s);
+                                    ldx, nb, static_cast<long long>(nb) * B, n_chunks * B, s);
   if (dtype == 1)
     return launch_chunk_sums_bf16(tiles, X, cols, out, n_chunks, C, nb, B, c, ldx, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// K4: out (nb * B, k) in X's type (dtype 0 = float32, 1 = bfloat16).
+// K4: X (x_rows, ldx) and out (out_rows, k) in X's type (dtype 0 = float32,
+// 1 = bfloat16), both at most nb * B rows: the rows of X's last block past
+// x_rows are read as zero, the rows of the product past out_rows are not
+// written.  rows of the tile list >= nb lie past row_ptr[nb] and are skipped.
 extern "C" int fvgp_block_spmv(const void* tiles, const void* X, const int* row_ptr,
                                const int* order, const int* cols, void* out, int nb, int B,
-                               int k, int ldx, int dtype, void* stream) {
+                               int k, int ldx, long long x_rows, long long out_rows,
+                               int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_mma<float, float>(tiles, X, row_ptr, order, 0, cols, out, nb, B, k, ldx,
-                                    nb, s);
+                                    nb, x_rows, out_rows, s);
   if (dtype == 1)
     return launch_mma<bf16, bf16>(tiles, X, row_ptr, order, 0, cols, out, nb, B, k, ldx, nb,
-                                  s);
+                                  x_rows, out_rows, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// K3: z1 (n1, D), z2 (n2, D) whitened, var (1,), out (n1, n2); all of one type,
-// dtype 0 = float32, 2 = float64; kind 0 = Matern-3/2, 1 = Wendland.
-extern "C" int fvgp_dense_covariance(const void* z1, const void* z2, const void* var,
+// K3: x1 (n1, D), x2 (n2, D), hps (>= 1 + D: the signal variance, then the D
+// lengthscales), out (n1, n2); all of one type, dtype 0 = float32, 2 =
+// float64; kind 0 = Matern-3/2, 1 = Wendland; flags as for launch_cov.
+extern "C" int fvgp_dense_covariance(const void* x1, const void* x2, const void* hps,
                                      void* out, int n1, int n2, int D, int kind,
-                                     int dtype, void* stream) {
+                                     int dtype, int flags, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_cov<float>(z1, z2, var, out, n1, n2, D, kind, s);
-  if (dtype == 2) return launch_cov<double>(z1, z2, var, out, n1, n2, D, kind, s);
+  if (dtype == 0) return launch_cov<float>(x1, x2, hps, out, n1, n2, D, kind, flags, s);
+  if (dtype == 2) return launch_cov<double>(x1, x2, hps, out, n1, n2, D, kind, flags, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

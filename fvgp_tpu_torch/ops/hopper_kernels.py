@@ -25,15 +25,27 @@ with ``ctypes`` through a plain C interface):
   body with chunks as segments.
 * ``dense_covariance`` (K3) replaces the Pallas ``dense_covariance`` —
   ``K = σ²·poly(‖(x1−x2)/ℓ‖)`` (Matérn-3/2 or Wendland) from exact
-  per-dimension differences, one 32 × 32 output tile per thread block with
-  the whitened rows and columns in shared memory, float32 or float64.
-  Bound by the output write.  The dense GP's default kernel
-  (``kernels.default_matern_ard``) calls it for every covariance built
-  while autograd does not record.
+  per-dimension differences, float32 or float64.  A write-only stream,
+  bound by the output write in float32 and by the arithmetic in float64:
+  one launch whitens the inputs while loading them (the IEEE ``x / ℓ`` of
+  the plain version), a block owns a 128 × 128 (float64: 64 × 64) tile,
+  a thread keeps its 4 (2) columns' coordinates in registers and writes
+  one 16-byte store per row; an ``n2`` whose rows are not 16-byte aligned
+  takes the scalar-store instance of the same kernel.  ``x2`` that IS
+  ``x1`` (one storage, decided on the host) computes, where the arithmetic
+  and not the stores sets the time (float64, or D > 4), the tiles on and
+  above the diagonal only and writes each twice, the second time
+  transposed: bit for bit the full result, exactly symmetric.  The dense
+  GP's default kernel (``kernels.default_matern_ard``) calls it for every
+  covariance built while autograd does not record.
 * ``block_spmv`` (K4) replaces the Pallas ``block_spmv`` — ``y = A·X`` over
-  a row-sorted tile list with the JAX wrapper's contract (padding, clamped
-  indices, zero rows without tiles, ragged ``n``, 1-D ``X``); K1's body
-  over CSR row offsets, float32 accumulation, output in X's dtype.
+  a row-sorted tile list with the JAX wrapper's contract (zero rows without
+  tiles, ragged ``n``, 1-D ``X``, sentinel padding); K1's body over CSR row
+  offsets, float32 accumulation, output in X's dtype.  Its launch path
+  copies nothing it does not have to: the caller's index tensors go to the
+  kernel as they are (the row offsets are kept on the rows tensor, so a
+  structure pays the sortedness check's host sync once), and the ragged
+  ends of X and of the output are handled in the kernel.
 
 The SpMM wrappers pad X's columns to a multiple of 8 (a copy where they are
 not), so that every row of X is 16-byte aligned for the asynchronous copies.
@@ -106,10 +118,10 @@ def build_kernels(verbose=False):
                                         i32, i32, i32, vp]
     lib.fvgp_row_chunk_sums.restype = i32
     lib.fvgp_block_spmv.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32,
-                                    i32, i32, vp]
+                                    i32, i64, i64, i32, vp]
     lib.fvgp_block_spmv.restype = i32
     lib.fvgp_dense_covariance.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32,
-                                          i32, vp]
+                                          i32, i32, vp]
     lib.fvgp_dense_covariance.restype = i32
     _lib = lib
     return time.time() - t0, log
@@ -406,6 +418,12 @@ row_chunk_sums.launches = 0
 _COV_KINDS = {"matern32": 0, "wendland": 1}
 _COV_DTYPES = {torch.float32: 0, torch.float64: 2}
 _COV_MAX_DIM = 32
+_COV_VECTOR = {torch.float32: 4, torch.float64: 2}    # values in 16 bytes
+# the launch flags of fvgp_dense_covariance: x2 is x1; 16-byte stores; the
+# streaming (evict-first) store hint, which the wrapper always gives (the
+# output passes through L2 once; measured 4% faster at 10^4 x 10^4 float32,
+# chip_profile.py k3)
+_COV_SYMMETRIC, _COV_VECTOR_STORES, _COV_STREAMING = 1, 2, 4
 
 
 def _cov_operands(x1, x2, hyperparameters):
@@ -430,11 +448,64 @@ def dense_covariance_reference(x1, x2, hyperparameters, kind="matern32"):
     return hps[0] * _wendland_poly(d)
 
 
+def _cov_vector_stores(n2, dtype):
+    """True when K3 may write 16-byte vectors: a row of the output starts
+    ``n2 * itemsize`` bytes after the last, so every row is 16-byte aligned
+    only for ``n2 % 4 == 0`` (float32) or ``n2 % 2 == 0`` (float64).  Other
+    ``n2`` take the scalar-store instance of the same kernel."""
+    return n2 % _COV_VECTOR[dtype] == 0
+
+
+def _same_storage(a, b):
+    """True when ``b`` is ``a``'s very data: one device, dtype, address,
+    shape and strides.  Decided from the tensors' descriptions on the host,
+    never by comparing values: equal values in another tensor do not
+    count."""
+    return a is b or (a.device == b.device and a.dtype == b.dtype
+                      and a.data_ptr() == b.data_ptr()
+                      and a.shape == b.shape and a.stride() == b.stride())
+
+
+def _cov_symmetric_route(x1, x2):
+    """True when K3 computes only the tiles on and above the diagonal and
+    mirrors them: ``x2`` is ``x1`` (:func:`_same_storage`) and the arithmetic,
+    not the output write, sets the time — float64, or float32 at D > 4 (the
+    run-time-D instance).  Float32 at D <= 4 is bound by its stores, and
+    there the mirrored second write costs more than the halved arithmetic
+    saves (measured: ``chip_profile.py k3``).  Either route gives the same
+    result bit for bit."""
+    return _same_storage(x1, x2) and (x1.dtype == torch.float64
+                                      or x1.shape[1] > 4)
+
+
+def _launch_dense_covariance(x1, x2, hps, kind, symmetric):
+    """One K3 launch on contiguous CUDA operands of one dtype; ``symmetric``
+    needs ``x2`` to be ``x1``."""
+    n1, D = x1.shape
+    n2 = x2.shape[0]
+    out = torch.empty((n1, n2), dtype=x1.dtype, device=x1.device)
+    flags = _COV_STREAMING | (_COV_SYMMETRIC if symmetric else 0) \
+        | (_COV_VECTOR_STORES if _cov_vector_stores(n2, x1.dtype) else 0)
+    lib = _kernels()
+    with torch.cuda.device(x1.device):
+        err = lib.fvgp_dense_covariance(
+            _ptr(x1), _ptr(x2), _ptr(hps), _ptr(out), n1, n2, D,
+            _COV_KINDS[kind], _COV_DTYPES[x1.dtype], flags, _stream(x1))
+    if err != 0:
+        raise RuntimeError(f"dense_covariance: kernel launch failed with CUDA "
+                           f"error {err}")
+    dense_covariance.launches += 1
+    return out
+
+
 def dense_covariance(x1, x2, hyperparameters, kind="matern32"):
     """``K = k(x1, x2)`` (see :func:`dense_covariance_reference`).  CPU
     tensors take the plain version; float32/float64 CUDA tensors launch the
-    K3 kernel.  The kernel has no backward: it refuses inputs for which
-    autograd records."""
+    K3 kernel, once: it whitens the inputs itself.  ``x2`` that is ``x1``
+    gives an exactly symmetric result with the signal variance exactly on
+    the diagonal, by whichever route :func:`_cov_symmetric_route` picks.
+    The kernel has no backward: it refuses inputs for which autograd
+    records."""
     if x1.device.type == "cpu":
         return dense_covariance_reference(x1, x2, hyperparameters, kind)
     if kind not in _COV_KINDS:
@@ -444,30 +515,23 @@ def dense_covariance(x1, x2, hyperparameters, kind="matern32"):
         raise TypeError("dense_covariance: the kernel takes float32 or "
                         "float64 x1 and x2 of one dtype on one device, got "
                         f"{x1.dtype} / {x2.dtype}")
-    hps, ls = _cov_operands(x1, x2, hyperparameters)
+    hps, _ = _cov_operands(x1, x2, hyperparameters)
     if torch.is_grad_enabled() and (x1.requires_grad or x2.requires_grad
                                     or hps.requires_grad):
         raise RuntimeError("dense_covariance: the kernel has no backward; "
                            "evaluate the plain formula under autograd")
-    n1, D = x1.shape
-    n2 = x2.shape[0]
+    D = x1.shape[1]
     if D > _COV_MAX_DIM:
         raise ValueError(f"dense_covariance: the kernel takes D <= "
                          f"{_COV_MAX_DIM}, got {D}")
-    z1 = (x1 / ls).contiguous()
-    z2 = (x2 / ls).contiguous()
-    var = hps[:1].contiguous()
-    out = torch.empty((n1, n2), dtype=x1.dtype, device=x1.device)
-    lib = _kernels()
-    with torch.cuda.device(x1.device):
-        err = lib.fvgp_dense_covariance(
-            _ptr(z1), _ptr(z2), _ptr(var), _ptr(out), n1, n2, D,
-            _COV_KINDS[kind], _COV_DTYPES[x1.dtype], _stream(x1))
-    if err != 0:
-        raise RuntimeError(f"dense_covariance: kernel launch failed with CUDA "
-                           f"error {err}")
-    dense_covariance.launches += 1
-    return out
+    if hps.dim() != 1 or hps.shape[0] < 1 + D:
+        raise ValueError("dense_covariance: hyperparameters must hold the "
+                         f"signal variance and {D} lengthscales")
+    same = _same_storage(x1, x2)
+    symmetric = _cov_symmetric_route(x1, x2)
+    x1 = x1.contiguous()
+    x2 = x1 if same else x2.contiguous()
+    return _launch_dense_covariance(x1, x2, hps.contiguous(), kind, symmetric)
 
 
 dense_covariance.launches = 0
@@ -517,32 +581,58 @@ def block_spmv(rows, cols, tiles, X, nb, block_size, n=None):
     """``y = A @ X`` over a row-sorted tile list (the contract of
     :func:`block_spmv_reference`).  CPU tensors and float64 take the plain
     version; float32/bfloat16 CUDA tensors (tiles of X's dtype) launch the
-    K4 kernel, which writes the rows without tiles as zero itself."""
+    K4 kernel, which writes the rows without tiles as zero itself.
+
+    The launch path copies only what it must.  ``rows`` and ``cols`` go to
+    the kernel as the caller's tensors (int32 and contiguous as they come
+    from the structure pass; anything else is cast): the kernel clamps the
+    columns where it reads X, and rows ``>= nb`` lie past the last row
+    offset.  The row offsets and the launch order are kept on the rows
+    tensor (:func:`_row_segments`), so the sortedness check's host sync is
+    paid on the first call with a structure and not again until the tensor
+    is written in place; rows given as a list or a numpy array make a new
+    tensor on every call and pay it every time.  X is copied only where
+    its rows are not 16-byte aligned (``k % 8 != 0``; a 1-D X is one padded
+    copy): the rows past its length are read as zero by the kernel, and the
+    output is allocated at its final length.
+
+    One difference from the JAX wrapper, which clamps a sentinel (row or
+    column ``== nb``) into the last block and multiplies its zero tile: here
+    a sentinel ROW's tile is skipped, not multiplied, so a non-finite value
+    in X's last block no longer reaches the last row block through
+    ``0 · inf``.  Finite inputs give the same result."""
     if X.device.type == "cpu" or X.dtype == torch.float64:
         return block_spmv_reference(rows, cols, tiles, X, nb, block_size, n)
     B = block_size
     _check_kernel_inputs("block_spmv", tiles, X, B)
-    Xp, r, c, squeeze = _spmv_operands(rows, cols, X, nb, B)
+    squeeze = X.dim() == 1
+    X2 = X[:, None] if squeeze else X
+    if X2.dim() != 2 or X2.shape[0] > nb * B:
+        raise ValueError(f"block_spmv: X must be (n,) or (n, k) with n <= "
+                         f"nb*B={nb * B}, got {tuple(X.shape)}")
+    r = torch.as_tensor(rows, device=X.device)
+    c = torch.as_tensor(cols, device=X.device).to(torch.int32).contiguous()
     if tiles.shape[0] != r.shape[0] or c.shape[0] != r.shape[0]:
         raise ValueError("block_spmv: rows, cols and tiles must list the same "
                          "number of tiles")
     row_ptr, order = _row_segments("block_spmv", r, nb)
-    k = Xp.shape[1]
-    Xp = _pad_cols("block_spmv", Xp)
-    tiles = _aligned("block_spmv", tiles)
-    c = c.contiguous()
-    out = torch.empty((nb * B, k), dtype=X.dtype, device=X.device)
-    lib = _kernels()
-    with torch.cuda.device(X.device):
-        err = lib.fvgp_block_spmv(
-            _ptr(tiles), _ptr(Xp), _ptr(row_ptr), _ptr(order), _ptr(c),
-            _ptr(out), nb, B, k, Xp.shape[1], _KERNEL_DTYPES[X.dtype],
-            _stream(X))
-    if err != 0:
-        raise RuntimeError(f"block_spmv: kernel launch failed with CUDA error "
-                           f"{err}")
-    block_spmv.launches += 1
-    return _spmv_result(out, X, n, squeeze)
+    n_x, k = X2.shape
+    n_out = max(0, min(n_x if n is None else n, nb * B))
+    out = torch.empty((n_out, k), dtype=X.dtype, device=X.device)
+    if n_out > 0:
+        Xp = _pad_cols("block_spmv", X2)
+        tiles = _aligned("block_spmv", tiles)
+        lib = _kernels()
+        with torch.cuda.device(X.device):
+            err = lib.fvgp_block_spmv(
+                _ptr(tiles), _ptr(Xp), _ptr(row_ptr), _ptr(order), _ptr(c),
+                _ptr(out), nb, B, k, Xp.shape[1], n_x, n_out,
+                _KERNEL_DTYPES[X.dtype], _stream(X))
+        if err != 0:
+            raise RuntimeError(f"block_spmv: kernel launch failed with CUDA "
+                               f"error {err}")
+        block_spmv.launches += 1
+    return out[:, 0] if squeeze else out
 
 
 block_spmv.launches = 0

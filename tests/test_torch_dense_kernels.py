@@ -102,6 +102,111 @@ def test_k4_plain_accumulates_float32_and_returns_x_dtype(rng):
     np.testing.assert_array_equal(got[B:2 * B].float().numpy(), 0.0)
 
 
+@pytest.mark.parametrize("kind", ["matern32", "wendland"])
+@pytest.mark.parametrize("D", [1, 2, 3, 8, 32])
+@pytest.mark.parametrize("n", [1, 33, 301])
+def test_k3_plain_matches_pallas_over_shapes(n, D, kind):
+    """The plain K3 against the Pallas kernel in interpret mode (float64,
+    1e-12) over the dimensions the card's kernel treats apart — a template
+    parameter for D <= 4, a run-time loop up to 32 — and sizes of one
+    element, just past a tile edge and ragged; x2 seven rows shorter."""
+    rng = np.random.default_rng(100 * D + n)
+    x1 = rng.uniform(0, 4, (n, D))
+    x2 = rng.uniform(0, 4, (max(1, n - 7), D))
+    hps = np.concatenate([[1.3], rng.uniform(1.0, 3.0, D)])
+    K = HK.dense_covariance_reference(T(x1), T(x2), T(hps), kind=kind)
+    ref = np.asarray(PK.dense_covariance(x1, x2, hps, kind=kind, tile=64))
+    assert K.shape == ref.shape and K.dtype == torch.float64
+    np.testing.assert_allclose(K.numpy(), ref, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("n2,dtype,vector", [
+    (10_000, torch.float32, True), (500, torch.float32, True),
+    (1002, torch.float32, False), (999, torch.float32, False),
+    (1, torch.float32, False), (1002, torch.float64, True),
+    (999, torch.float64, False), (1, torch.float64, False)])
+def test_k3_store_instance_follows_n2_and_dtype(n2, dtype, vector):
+    """Which instance of the card's kernel a shape takes: 16-byte stores only
+    where every row of the output starts 16-byte aligned (n2 % 4 == 0 in
+    float32, n2 % 2 == 0 in float64), the scalar-store instance elsewhere."""
+    assert HK._cov_vector_stores(n2, dtype) is vector
+
+
+def test_k3_symmetric_route_is_decided_by_storage_not_values():
+    """``x2`` counts as ``x1`` only when it is the same data: one address,
+    shape, strides, dtype.  Equal values in another tensor, a shorter view,
+    a strided view or another dtype's view of the bytes do not."""
+    x = torch.arange(24.0).reshape(6, 4)
+    assert HK._same_storage(x, x)
+    assert HK._same_storage(x, x[:])                  # a full view
+    assert HK._same_storage(x, x.view(6, 4))
+    assert not HK._same_storage(x, x.clone())         # equal values
+    assert not HK._same_storage(x, x[:5])             # same address, shorter
+    assert not HK._same_storage(x, x[1:])
+    assert not HK._same_storage(x[:, ::2], x[:, :2])  # same address and shape
+    assert not HK._same_storage(x, x.view(torch.int32))      # another dtype
+    wide = x[:, ::2]
+    assert HK._same_storage(wide, x[:, ::2])          # the same strided view
+
+
+def test_k3_symmetric_route_is_taken_where_the_arithmetic_sets_the_time():
+    """One tensor takes the symmetric route in float64 and, in float32,
+    past the templated D <= 4; two tensors never do."""
+    for D, dtype, symmetric in ((3, torch.float32, False),
+                                (4, torch.float32, False),
+                                (5, torch.float32, True),
+                                (32, torch.float32, True),
+                                (1, torch.float64, True),
+                                (3, torch.float64, True)):
+        x = torch.zeros((6, D), dtype=dtype)
+        assert HK._cov_symmetric_route(x, x) is symmetric
+        assert HK._cov_symmetric_route(x, x[:]) is symmetric
+        assert not HK._cov_symmetric_route(x, x.clone())
+
+
+@pytest.mark.parametrize("dtype,rtol", [(np.float64, 1e-12),
+                                        (np.float32, 1e-5)])
+@pytest.mark.parametrize("x_shape", ["2-D", "1-D"])
+def test_k4_plain_with_unclamped_sentinels_matches_pallas_with_clamped(
+        rng, dtype, rtol, x_shape):
+    """The contract K4's launch path relies on: sentinels (row == col == nb,
+    zero tiles) passed as they are give what the Pallas ``block_spmv`` gives
+    for sentinels clamped into the last block — float64 at 1e-12, float32
+    at 1e-5 of the output scale; a row block without tiles, ragged n."""
+    B, nb = 16, 5
+    n = nb * B - 7
+    rows = np.array([0, 0, 1, 1, 3, 3, 4, nb, nb, nb], np.int32)
+    cols = np.array([0, 1, 1, 3, 0, 4, 4, nb, nb, nb], np.int32)
+    tiles = rng.standard_normal((len(rows), B, B)).astype(dtype)
+    tiles[-3:] = 0.0
+    X = rng.standard_normal((n, 4) if x_shape == "2-D" else n).astype(dtype)
+    ref = np.asarray(PK.block_spmv(np.minimum(rows, nb - 1),
+                                   np.minimum(cols, nb - 1),
+                                   jnp.asarray(tiles), X, nb, B))
+    got = HK.block_spmv(T(rows), T(cols), T(tiles), T(X), nb, B)
+    assert got.shape == ref.shape == X.shape
+    assert got.numpy().dtype == dtype
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+                               atol=rtol * float(np.abs(ref).max()))
+    np.testing.assert_array_equal(got[2 * B:3 * B].numpy(), 0.0)
+
+
+def test_k4_plain_takes_lists_and_numpy_indices(rng):
+    """Rows and cols as lists or numpy arrays reach the same product as
+    tensors (the card's wrapper makes a new tensor from them on each call
+    and so pays the schedule each time)."""
+    B, nb = 8, 3
+    rows, cols = [0, 1, 2, nb], [2, 1, 0, nb]
+    tiles = rng.standard_normal((4, B, B))
+    tiles[-1] = 0.0
+    X = rng.standard_normal((nb * B, 2))
+    want = HK.block_spmv(T(np.array(rows, np.int32)),
+                         T(np.array(cols, np.int32)), T(tiles), T(X), nb, B)
+    for r, c in ((rows, cols), (np.array(rows), np.array(cols))):
+        got = HK.block_spmv(r, c, T(tiles), T(X), nb, B)
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
 def test_dense_covariance_reference_checks_its_inputs():
     with pytest.raises(ValueError, match="kind"):
         HK.dense_covariance_reference(T(np.ones((2, 2))), T(np.ones((2, 2))),

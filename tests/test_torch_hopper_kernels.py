@@ -217,3 +217,35 @@ def test_row_segments_offsets_order_and_refusal():
         HK._row_segments("t", rows, nb)
     with pytest.raises(ValueError, match="row-sorted"):
         HK._row_segments("t", torch.tensor([1, 0], dtype=torch.int32), nb)
+
+
+def test_row_segments_are_found_again_on_the_callers_rows_tensor():
+    """K1's and K4's wrappers build the schedule from the caller's rows
+    tensor and keep it there: the second call returns the kept tensors (no
+    sortedness check, no host sync), another ``nb`` or an in-place write of
+    ``rows`` — even one that leaves it sorted — drops them."""
+    nb = 5
+    rows = torch.tensor([0, 0, 1, 3, 3, 3, 5, 5], dtype=torch.int32)
+    row_ptr, order = HK._row_segments("t", rows, nb)
+    assert row_ptr.tolist() == [0, 2, 3, 3, 6, 6]     # sentinels past the end
+    assert order.tolist() == [3, 0, 1, 2, 4]
+    kept = rows._fvgp_row_segments
+    again = HK._row_segments("t", rows, nb)
+    assert again[0] is row_ptr and again[1] is order
+    assert rows._fvgp_row_segments is kept
+    wider = HK._row_segments("t", rows, nb + 1)       # another nb: rebuilt
+    assert wider[0].tolist() == [0, 2, 3, 3, 6, 6, 8]
+    rows[2] = 2                                       # in place, still sorted
+    fresh = HK._row_segments("t", rows, nb)
+    assert fresh[0] is not row_ptr
+    assert fresh[0].tolist() == [0, 2, 2, 3, 6, 6]
+    assert HK._row_segments("t", rows, nb)[0] is fresh[0]
+
+
+def test_row_segments_of_int64_rows_are_kept_on_the_original():
+    """An int64 rows tensor is cast for the kernel, but the schedule stays
+    on the tensor the caller holds."""
+    rows = torch.tensor([0, 1, 1, 2], dtype=torch.int64)
+    row_ptr, _ = HK._row_segments("t", rows, 3)
+    assert row_ptr.dtype == torch.int32 and row_ptr.tolist() == [0, 1, 3, 4]
+    assert HK._row_segments("t", rows, 3)[0] is row_ptr

@@ -284,3 +284,175 @@ def test_dense_journey_on_card_matches_cpu(cuda_device):
     assert np.linalg.norm(g1 - g0) / np.linalg.norm(g0) < 1e-3
     np.testing.assert_allclose(m1, m0, rtol=0, atol=1e-3)
     np.testing.assert_allclose(s1, s0, rtol=0, atol=1e-3)
+
+
+def _k3_inputs(rng, n1, n2, D, dtype, device):
+    x1 = torch.as_tensor(rng.uniform(0, 4, (n1, D)), dtype=dtype).to(device)
+    x2 = torch.as_tensor(rng.uniform(0, 4, (n2, D)), dtype=dtype).to(device)
+    hps = torch.as_tensor(np.concatenate([[1.3], rng.uniform(1.0, 3.0, D)]),
+                          dtype=dtype).to(device)
+    return x1, x2, hps
+
+
+_K3_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["matern32", "wendland"])
+@pytest.mark.parametrize("D", [1, 2, 3, 4, 8, 17, 32])
+@pytest.mark.parametrize("n1,n2", [(1, 1), (33, 1000), (129, 33), (1000, 129),
+                                   (129, 130), (301, 6), (1000, 1000)])
+def test_k3_shapes_on_card(cuda_device, n1, n2, D, kind, dtype):
+    """Where the tiled body breaks: one element, tile edges (33, 129), an
+    n2 whose rows are not 16-byte aligned (odd, and n2 % 4 == 2: the
+    scalar-store instance in float32, the vector one in float64), every
+    templated D and the run-time loop (8, 17, 32)."""
+    x1, x2, hps = _k3_inputs(np.random.default_rng(21), n1, n2, D, dtype,
+                             cuda_device)
+    before = HK.dense_covariance.launches
+    got = HK.dense_covariance(x1, x2, hps, kind=kind)
+    assert HK.dense_covariance.launches == before + 1
+    ref = HK.dense_covariance_reference(x1, x2, hps, kind=kind)
+    assert got.shape == (n1, n2) and got.dtype == dtype
+    torch.testing.assert_close(got, ref, rtol=0,
+                               atol=_K3_TOL[dtype] * float(hps[0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["matern32", "wendland"])
+@pytest.mark.parametrize("D", [1, 3, 8, 32])
+@pytest.mark.parametrize("n", [1, 33, 129, 130, 1000, 1024])
+def test_k3_symmetric_route_on_card(cuda_device, n, D, kind, dtype):
+    """k(X, X) by the symmetric route (tiles on and above the diagonal,
+    mirrored): exactly symmetric, the diagonal exactly the signal variance,
+    and bit for bit the full route's result — whichever of the two the
+    wrapper picks for one tensor, a view of it, or a copy of it."""
+    x, _, hps = _k3_inputs(np.random.default_rng(22), n, 1, D, dtype,
+                           cuda_device)
+    sym = HK._launch_dense_covariance(x, x, hps, kind, True)
+    full = HK._launch_dense_covariance(x, x, hps, kind, False)
+    assert torch.equal(sym, full)
+    for x2 in (x, x[:], x.clone()):
+        assert torch.equal(sym, HK.dense_covariance(x, x2, hps, kind=kind))
+    assert torch.equal(sym, sym.T)
+    assert torch.all(torch.diagonal(sym) == hps[0])
+    ref = HK.dense_covariance_reference(x, x, hps, kind=kind)
+    torch.testing.assert_close(sym, ref, rtol=0,
+                               atol=_K3_TOL[dtype] * float(hps[0]))
+
+
+@pytest.mark.cuda
+def test_k3_takes_non_contiguous_inputs_and_host_hyperparameters(cuda_device):
+    rng = np.random.default_rng(23)
+    wide = torch.as_tensor(rng.uniform(0, 4, (200, 6))).to(cuda_device)
+    x = wide[:, ::2]                                 # strided columns
+    hps = np.array([0.9, 1.5, 2.0, 2.5])
+    got = HK.dense_covariance(x, x, hps)
+    ref = HK.dense_covariance_reference(x.contiguous(), x.contiguous(), hps)
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-12)
+    assert torch.equal(got, got.T)
+    with pytest.raises(ValueError, match="lengthscales"):
+        HK.dense_covariance(x, x, hps[:3])
+
+
+def _k4_case(rng, nb, B, dtype, device):
+    """Row-sorted tiles with an empty row block (2) and three unclamped
+    sentinels (row == col == nb, zero tiles) at the tail."""
+    rows = np.sort(rng.integers(0, nb, 30)).astype(np.int32)
+    rows[rows == 2] = 3
+    cols = rng.integers(0, nb, 30).astype(np.int32)
+    rows = np.concatenate([rows, [nb] * 3]).astype(np.int32)
+    cols = np.concatenate([cols, [nb] * 3]).astype(np.int32)
+    tiles = rng.standard_normal((33, B, B))
+    tiles[-3:] = 0.0
+    t = torch.as_tensor(tiles, dtype=dtype).to(device)
+    return rows, cols, t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", ["full-k16", "full-k17", "ragged-k16",
+                                   "ragged-k17", "ragged-1d", "full-1d",
+                                   "short-n"])
+def test_k4_launch_path_on_card(cuda_device, dtype, shape):
+    """K4's own launch path: X with nb·B rows and k % 8 == 0 (no copy at
+    all), a k that needs the column padding, an X that ends inside its last
+    block (read as zero past its end, the output cut there), 1-D X, and
+    ``n`` shorter than X."""
+    rng = np.random.default_rng(31)
+    nb, B = 6, 64
+    rows, cols, t = _k4_case(rng, nb, B, dtype, cuda_device)
+    r, c = (torch.as_tensor(a).to(cuda_device) for a in (rows, cols))
+    n_x = nb * B if shape.startswith("full") else nb * B - 45
+    k = {"k16": 16, "k17": 17, "1d": None, "n": 5}[shape.split("-")[1]]
+    X = rng.standard_normal(n_x if k is None else (n_x, k))
+    x = torch.as_tensor(X, dtype=dtype).to(cuda_device)
+    n = n_x - 70 if shape == "short-n" else None
+    before = HK.block_spmv.launches
+    got = HK.block_spmv(r, c, t, x, nb, B, n=n)
+    assert HK.block_spmv.launches == before + 1
+    ref = HK.block_spmv_reference(r, c, t, x, nb, B, n=n)
+    assert got.shape == ref.shape and got.dtype == dtype
+    _close_to_plain(got, ref, 1e-4 if dtype == torch.float32 else 1e-2)
+    assert torch.all(got[2 * B:3 * B] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("index_type", ["int32 tensor", "int64 tensor",
+                                        "numpy", "cpu tensor"])
+def test_k4_keeps_its_schedule_on_the_callers_rows_on_card(cuda_device,
+                                                           index_type):
+    """The row offsets are kept on the caller's rows tensor: a second call
+    finds them (no new entry), an in-place write drops them; rows that are
+    not a tensor on the card make a new tensor each call and still give the
+    right product."""
+    rng = np.random.default_rng(32)
+    nb, B = 6, 64
+    rows, cols, t = _k4_case(rng, nb, B, torch.float32, cuda_device)
+    x = torch.as_tensor(rng.standard_normal((nb * B - 9, 17)),
+                        dtype=torch.float32).to(cuda_device)
+    if index_type == "numpy":
+        r, c = rows, cols
+    elif index_type == "cpu tensor":
+        r, c = torch.as_tensor(rows), torch.as_tensor(cols)
+    else:
+        dt = torch.int32 if index_type.startswith("int32") else torch.int64
+        r, c = (torch.as_tensor(a).to(dt).to(cuda_device)
+                for a in (rows, cols))
+    ref = HK.block_spmv_reference(r, c, t, x, nb, B)
+    got = HK.block_spmv(r, c, t, x, nb, B)
+    _close_to_plain(got, ref)
+    if index_type.endswith("tensor") and index_type != "cpu tensor":
+        kept = r._fvgp_row_segments
+        again = HK.block_spmv(r, c, t, x, nb, B)
+        assert r._fvgp_row_segments is kept
+        assert torch.equal(again, got)
+        r[-1] = nb                    # in place, same values: a new version
+        HK.block_spmv(r, c, t, x, nb, B)
+        assert r._fvgp_row_segments is not kept
+    else:
+        assert not hasattr(r, "_fvgp_row_segments")
+        assert torch.equal(HK.block_spmv(r, c, t, x, nb, B), got)
+
+
+@pytest.mark.cuda
+def test_k4_skips_a_sentinel_rows_tile_on_card(cuda_device):
+    """A sentinel row's tile is skipped, not multiplied: a non-finite value
+    in X's last block stays out of the last row block (the plain version,
+    like the JAX wrapper, clamps and multiplies: 0 * inf)."""
+    rng = np.random.default_rng(33)
+    nb, B = 6, 64
+    rows, cols, t = _k4_case(rng, nb, B, torch.float32, cuda_device)
+    cols[:30] = np.minimum(cols[:30], nb - 2)    # no live tile reads block 5
+    r, c = (torch.as_tensor(a).to(cuda_device) for a in (rows, cols))
+    X = rng.standard_normal((nb * B, 8))
+    X[-1, 0] = np.inf
+    x = torch.as_tensor(X, dtype=torch.float32).to(cuda_device)
+    got = HK.block_spmv(r, c, t, x, nb, B)
+    assert bool(torch.isfinite(got).all())
+    ref = HK.block_spmv_reference(r, c, t, x, nb, B)
+    assert not bool(torch.isfinite(ref).all())
+    x[-1, 0] = 0.0
+    _close_to_plain(got, HK.block_spmv_reference(r, c, t, x, nb, B))
