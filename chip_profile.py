@@ -5,6 +5,7 @@ Run from the root of the repository:
 
     python3 chip_profile.py [N]             # the dense journey
     python3 chip_profile.py gp2scale [N]    # the gp2Scale journey
+    python3 chip_profile.py stored [N]      # the stored-K gp2Scale journey
     python3 chip_profile.py k1              # K1's launch order and wrapper
     python3 chip_profile.py k3              # K3's launch and store variants
     python3 chip_profile.py k4              # K4's wrapper, launch by launch
@@ -22,6 +23,13 @@ solver), warms it up, then traces (a) one LML + gradient evaluation,
 500 points (the committed tile assembly and the c = 8 solve) and (c)
 ``posterior_covariance(variance_only=True)`` on the same points (the
 c = 512 solve).
+
+stored: builds the smoke's stored-K model (``chip_smoke.stored_model`` on
+``journey_data``: N = 1,000,000, B = 128, bfloat16 tile storage,
+``gp2Scale_traced_lml=False``, sparseCGpre), warms it up, then traces
+(a) the assembly of ``gp.K``, (b) one trial ``log_likelihood(hps)``, and on
+the committed K+V (c) one preconditioned CG solve and (d) one SLQ
+log-determinant.
 
 For each window it prints the wall time, the device time summed over
 kernels, the device's idle share (1 − device time / wall time) and the ten
@@ -89,6 +97,8 @@ def main():
     args = sys.argv[1:]
     if args and args[0] == "gp2scale":
         return gp2scale(int(args[1]) if len(args) > 1 else 1_000_000)
+    if args and args[0] == "stored":
+        return stored(int(args[1]) if len(args) > 1 else 1_000_000)
     if args and args[0] == "k1":
         return k1_order()
     if args and args[0] == "k3":
@@ -303,6 +313,42 @@ def k3_launch():
             hD = torch.cat([torch.ones(1), 1.0 + 2.0 * torch.rand(
                 D, generator=gen)]).to(dt).cuda()
             time_variants("N x N, x2 is x1", XD, XD, hD, "matern32", routes)
+    return 0
+
+
+def stored(N):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+    print(f"card: {cs.smi_line()}; stored-K gp2Scale N={N}", flush=True)
+    gp, _, _, _, hps = cs.stored_journey_model(N)
+    gp.log_likelihood(hps * 1.001)            # builds the kernels, warms up
+    KV = gp.kv.addKV(gp.K, gp.V)
+    ym = gp.kv._y_minus(gp.m)
+    torch.cuda.synchronize()
+
+    def assemble():
+        gp.prior.K = None
+        return gp.K
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    windows = (("assemble gp.K", assemble),
+               ("trial log_likelihood(hps)",
+                lambda: gp.log_likelihood(hps * 1.002)),
+               ("preconditioned CG on the committed K+V",
+                lambda: gp.kv._solve_with("sparseCGpre", KV, ym)),
+               ("SLQ logdet on the committed K+V",
+                lambda: gp.kv._random_logdet(KV)))
+    for label, fn in windows:
+        with profile(activities=acts) as prof:
+            t0 = time.time()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        device_table(prof, wall, label)
+    print(f"CG iterations {gp.kv.last_solve_info['iterations']}, SLQ probes "
+          f"{gp.kv.last_logdet_info['num_samples']}", flush=True)
     return 0
 
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Chip smoke for fvgp_tpu_torch on one CUDA card: the gp2Scale journey
-and the dense exact GP, with every hand-written kernel held against its
-plain PyTorch version.
+"""Chip smoke for fvgp_tpu_torch on one CUDA card: the gp2Scale journey,
+the dense exact GP and the stored-K gp2Scale journey, with every
+hand-written kernel held against its plain PyTorch version.
 
 Run from the root of the repository, with no arguments:
 
@@ -18,7 +18,7 @@ line is never printed):
    real assembly), K1 again at the N=1M journey's structure (B=128, k=17,
    bfloat16: the shape of its launches on that path), K2 ``row_chunk_sums``
    at committed-solver shapes (B=128, C=8; c=128 in bfloat16 and float32,
-   and the journey's widths c=8 and c=512 in bfloat16), and K3
+   and the journeys' widths c=8, c=512 and c=64 in bfloat16), and K3
    ``dense_covariance`` at the dense cell's shapes (N=10,000 x 10,000 on
    one tensor — as the journey calls it — and on two, 10,000 x 500 and
    500 x 500, D=3; Matérn-3/2 and Wendland; float32 and float64) — each against its plain PyTorch version, with errors, times,
@@ -43,11 +43,28 @@ line is never printed):
 7. the gp2Scale journey at full size through the public GP: N=1,000,000,
    D=3, bfloat16 solver, 16 probes — construction, LML+gradient (1 + 3
    timed), train(method="local", max_iter=2), posterior_mean and
-   posterior_covariance(variance_only=True) on 500 points.
+   posterior_covariance(variance_only=True) on 500 points;
+8. stored-K cross-check: the stored-K path (``gp2Scale_traced_lml=False``)
+   at N=10,240 on CUDA (float32, and bfloat16 tile storage) against the CPU
+   in float64 — K @ X, the trial LML (CG + SLQ at the same probes), a full
+   posterior covariance, an aligned ``update_gp_data(append=True)``, and a
+   few ``train(method="mcmc")`` steps with warm starts on the card;
+9. the stored-K journey at full width through the public GP: the same
+   N=1,000,000 configuration with ``gp2Scale_traced_lml=False``,
+   ``linalg_mode="sparseCGpre"`` and bfloat16 tile storage — assemble
+   ``gp.K``, a trial ``log_likelihood(hps)``, the committed
+   ``log_likelihood()`` with its variance, a full ``posterior_covariance``
+   on 64 points, and one misaligned ``update_gp_data(append=True)``: public
+   calls only while the launches are counted.  Before the counts are set to
+   0, on a model of the same configuration: ``K @ X`` at k=1, at the SLQ
+   batch width and at 64 columns on K1 against the plain ``matmat``
+   (float32 and float64, with the BSR library call beside it), and CG with
+   and without the preconditioner and the SLQ log-determinant timed alone;
+   after they are read, ``K @ X`` at k=1 on the appended K.
 
-K4's entry point and phases 6 and 7 are the paths: every kernel's launch
+K4's entry point and phases 6, 7 and 9 are the paths: every kernel's launch
 counter is reset just before each and read just after it, and the
-``launches`` of a kernel is its sum over the three.  The line before the
+``launches`` of a kernel is its sum over the four.  The line before the
 last is
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
 Exits non-zero without a CUDA device.
@@ -88,6 +105,20 @@ HBM_BYTES_PER_S = 3.35e12
 # relative 2-norm for the gradient, absolute for posteriors of O(1) scale)
 BOUNDS = {"float32": {"lml": 1e-4, "grad": 1e-3, "mean": 1e-3, "var": 1e-3},
           "bfloat16": {"lml": 5e-3, "grad": 5e-2, "mean": 5e-2, "var": 5e-2}}
+
+
+# the stored-K path on CUDA vs the CPU in float64 (same probes, same CG
+# tolerance): K @ X of the output scale (float32 tiles round at 6e-8, the
+# float32 sums of ~30 tiles x 128 terms at ~1e-5; bfloat16 storage rounds
+# every covariance at 2^-9 = 2e-3 relative, the random-sign sum of a row's
+# ~4000 terms stays below 1e-2 of the scale), the trial LML relative, the
+# full posterior covariance absolute (entries of O(1))
+STORED_BOUNDS = {"float32": {"matmat": 1e-4, "lml": 1e-4, "S": 1e-3},
+                 "bfloat16": {"matmat": 1e-2, "lml": 5e-3, "S": 5e-2}}
+# K1 from BlockSparseMatrix under bfloat16 storage: X enters as two bfloat16
+# halves (16 mantissa bits, 2^-17 relative), so against the float64 product
+# of the SAME stored tiles only the float32 summation remains
+STORED_K1_F64_RTOL = 1e-4
 
 
 def log(msg):
@@ -391,15 +422,17 @@ def kernel_phase(device):
             torch.bfloat16)
     del tiles, X1, r, c
     torch.cuda.empty_cache()
-    # ---- K2 at committed-solver shapes: c=128 in both dtypes, and the
-    # N=1M journey's widths (posterior mean 8, variance 512) in bfloat16
+    # ---- K2 at committed-solver shapes: c=128 in both dtypes, and in
+    # bfloat16 the N=1M journey's widths (posterior mean 8, variance 512)
+    # and the stored-K journey's (a 64-point full covariance: 64)
     B, C = 128, 8
     hps2 = np.array([1.0, 2.0, 2.0, 2.0])
     x, nb, rows_p, cols_p = bench_structure(N, B, hps2, seed=1)
     live = rows_p < nb
     rows_a, cols_a, rowsc, n_chunks = hk.row_aligned_schedule(
         rows_p[live], cols_p[live], nb, C=C)
-    for name, tdt, widths in (("bfloat16", torch.bfloat16, (128, 8, 512)),
+    for name, tdt, widths in (("bfloat16", torch.bfloat16,
+                               (128, 8, 512, 64)),
                               ("float32", torch.float32, (128,))):
         tiles, r, cc = assemble(x, nb, B, rows_a, cols_a, hps2, tdt,
                                 torch.float32, device)
@@ -829,6 +862,7 @@ def full_journey(N):
     times["first_lml_grad_s"] = time.time() - t0
     if not (np.isfinite(val) and np.all(np.isfinite(grad))):
         raise AssertionError(f"non-finite LML/grad: {val} {grad}")
+    lml_at_hps = val
     t0 = time.time()
     for i in range(3):
         val, grad = ml.log_likelihood_value_and_gradient(
@@ -873,7 +907,318 @@ def full_journey(N):
     if launches["block_spmv"] != 0:
         raise AssertionError("block_spmv launched on the gp2Scale journey, "
                              "which has no call to it")
-    return launches
+    return launches, lml_at_hps
+
+
+def stored_model(x, y, hps, device, extra):
+    """The stored-K gp2Scale model: the traced LML off, sparseCGpre."""
+    from fvgp_tpu_torch import GP
+    return GP(x, y, init_hyperparameters=hps,
+              noise_variances=np.full(len(x), 1e-2), gp2Scale=True,
+              compute_device=device, linalg_mode="sparseCGpre",
+              args={"gp2Scale_block_size": 128, "gp2Scale_traced_lml": False,
+                    "sparse_cg_tol": 1e-5, "sparse_cg_maxiter": 500,
+                    "gp2Scale_structure_cache_dir": False, **extra})
+
+
+def stored_cross_check():
+    """The stored-K path at N=10,240 (80 tiles of 128, so the append is
+    aligned): CUDA float32 and bfloat16 storage against the CPU in
+    float64."""
+    import torch
+    N, n_new = 10_240, 256
+    x, y, xp = journey_data(N + n_new, seed=4)
+    xp = xp[:64]
+    hps = np.array([1.0, 2.0, 2.0, 2.0])
+    trial = hps * 1.02
+    X = np.random.default_rng(5).standard_normal((N, 4))
+    out = {}
+    for name, device, extra in (
+            ("cpu", "cpu", {}), ("float32", "cuda", {}),
+            ("bfloat16", "cuda", {"gp2Scale_storage_dtype": "bfloat16"})):
+        t0 = time.time()
+        gp = stored_model(x[:N], y[:N], hps, device, extra)
+        K = gp.K
+        KX = K.matmat(torch.as_tensor(X, dtype=gp.prior.dtype)
+                      .to(gp.device)).double().cpu().numpy()
+        lml = gp.log_likelihood(trial)
+        its = gp.kv.last_solve_info["iterations"]
+        S = gp.posterior_covariance(xp)["S"]
+        gp.update_gp_data(x[N:], y[N:], append=True,
+                          noise_variances_new=np.full(n_new, 1e-2))
+        K2 = gp.K
+        if K2.shape != (N + n_new, N + n_new) or K2.nnz <= K.nnz:
+            raise AssertionError("the aligned append did not extend K")
+        ones = torch.ones(N + n_new, dtype=gp.prior.dtype, device=gp.device)
+        row_sums = K2.matmat(ones).double().cpu().numpy()
+        out[name] = (KX, lml, S, row_sums, str(K.tiles.dtype), its)
+        if name == "float32":
+            stored_mcmc_steps(gp, hps)
+        log(f"stored-K cross-check N={N} {name}: tiles {K.tiles.dtype}, "
+            f"live {K.nnz // 128 ** 2}, trial lml {lml:.6f} (CG {its} "
+            f"iterations), {time.time() - t0:.2f} s")
+    ref = out["cpu"]
+    for name in ("float32", "bfloat16"):
+        got = out[name]
+        scale = float(np.abs(ref[0]).max())
+        errs = {"matmat": float(np.abs(got[0] - ref[0]).max()) / scale,
+                "lml": abs(got[1] - ref[1]) / abs(ref[1]),
+                "S": float(np.abs(got[2] - ref[2]).max()),
+                "append": float(np.abs(got[3] - ref[3]).max())
+                / float(np.abs(ref[3]).max())}
+        bounds = dict(STORED_BOUNDS[name],
+                      append=STORED_BOUNDS[name]["matmat"])
+        log(f"stored-K cross-check N={N} CUDA {name} vs CPU float64: "
+            + ", ".join(f"{k} {errs[k]:.3e} (bound {bounds[k]:g})"
+                        for k in errs))
+        bad = [k for k in errs if not errs[k] <= bounds[k]]
+        if bad:
+            raise AssertionError(f"stored-K cross-check {name} out of "
+                                 f"bounds: {bad}")
+
+
+def stored_mcmc_steps(gp, hps):
+    """A few MCMC steps on the stored-K model on the card: every step is a
+    trial solve, with warm starts and preconditioner reuse switched on (the
+    sequential linear-algebra state that only this method may carry)."""
+    gp.args.update({"sparse_krylov_warm_start": True,
+                    "sparse_preconditioner_refresh_interval": 4})
+    bounds = np.array([[0.5, 2.0]] + [[1.8, 2.2]] * 3)
+    np.random.seed(3)
+    t0 = time.time()
+    trained = gp.train(hyperparameter_bounds=bounds, method="mcmc",
+                       max_iter=8, init_hyperparameters=hps)
+    info = gp.kv.last_solve_info
+    log(f"stored-K cross-check: train(method='mcmc', max_iter=8) on CUDA "
+        f"{time.time() - t0:.2f} s, hps "
+        f"{np.array2string(trained, precision=4)}; last trial solve "
+        f"{info['iterations']} CG iterations, warm start "
+        f"{info['warm_start']}, preconditioner reuse counter "
+        f"{gp.kv.Preconditioner_reuse_counter}")
+    if not (np.all(np.isfinite(trained)) and info["warm_start"]
+            and info["preconditioned"]):
+        raise AssertionError("MCMC on the stored-K path did not carry its "
+                             "warm start and preconditioner")
+
+
+def stored_matmat_case(K, k, gen):
+    """``K @ X`` on K1 (bfloat16 storage: X as two bfloat16 halves) against
+    the plain ``matmat`` in float32 and in float64 on the same stored tiles,
+    timed beside the plain version and the BSR library call.  The bound
+    counts the live tiles, the indices, X and the float32 output once; the
+    kernel multiplies 2k columns for k (the two halves)."""
+    import torch
+
+    from fvgp_tpu_torch.ops import hopper_kernels as hk
+    from fvgp_tpu_torch.parallel import block_sparse as bs
+    n, nb, B = K.n, K.nb, K.block_size
+    X = torch.randn((n, k), generator=gen, dtype=torch.float32).to(K.device)
+    before = hk.chunked_spmm.launches
+    got = K.matmat(X)
+    if hk.chunked_spmm.launches != before + 1:
+        raise AssertionError("BlockSparseMatrix.matmat did not launch K1 "
+                             "once")
+    s = K._store
+    ref = bs._bsm_matmat_plain(s.rows, s.cols, s.tiles, X, nb, B)
+    ref64 = bs._bsm_matmat_plain(s.rows, s.cols, s.tiles, X.double(), nb, B)
+    scale = float(ref64.abs().max())
+    err = float((got - ref).abs().max())
+    err64 = float((got.double() - ref64).abs().max())
+    plain64 = float((ref.double() - ref64).abs().max())
+    del ref, ref64
+    ms = cuda_ms(lambda: K.matmat(X))
+    plain_ms = cuda_ms(lambda: bs._bsm_matmat_plain(s.rows, s.cols, s.tiles,
+                                                    X, nb, B), reps=3)
+    Xp = torch.zeros((nb * B, k), dtype=torch.float32, device=K.device)
+    Xp[:n] = X
+    lib_ms = bsr_library_ms(s.rows, s.cols, s.tiles, Xp, nb, B)
+    live = K.nnz // (B * B)
+    halves = 2 if s.tiles.dtype == torch.bfloat16 else 1
+    rec = spmm_record(err, ms, plain_ms,
+                      live * B * B * s.tiles.element_size()
+                      + 2 * n * k * 4 + 8 * live,
+                      2 * live * B * B * k * halves, str(s.tiles.dtype)[6:],
+                      lib_ms)
+    per_row = np.bincount(s.rows_h[s.rows_h < nb], minlength=nb)
+    log(f"K1 from BlockSparseMatrix.matmat [{s.tiles.dtype}, B={B}, k={k}, "
+        f"live {live}, tiles per row block median "
+        f"{int(np.median(per_row))} / max {int(per_row.max())}]: vs plain "
+        f"float32 {err:.3e} (tol "
+        f"{KERNEL_RTOL * scale:.3e}), vs plain float64 {err64:.3e} (tol "
+        f"{STORED_K1_F64_RTOL * scale:.3e} = {STORED_K1_F64_RTOL:g} x "
+        f"max|ref| {scale:.3e}; the plain float32 version is {plain64:.3e} "
+        f"off float64); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"library {lib_ms} ms; {share(rec)}")
+    if not (err <= KERNEL_RTOL * scale and err64 <= STORED_K1_F64_RTOL
+            * scale):
+        raise AssertionError(f"matmat on K1 (k={k}) disagrees with the plain "
+                             f"matmat: {err} / {err64}")
+    return rec
+
+
+def stored_journey_model(N):
+    """The stored-K journey's data and its public GP on the card: bfloat16
+    tile storage, CG to 1e-4; returns (gp, x, y, 64 prediction points,
+    hps)."""
+    x, y, xp = journey_data(N)
+    hps = np.array([1.0, 2.0, 2.0, 2.0])
+    gp = stored_model(x, y, hps, "cuda",
+                      {"gp2Scale_storage_dtype": "bfloat16",
+                       "gp2Scale_solver_dtype": "bfloat16",
+                       "sparse_cg_tol": 1e-4})
+    return gp, x, y, xp[:64], hps
+
+
+def stored_journey(N, traced_lml):
+    """The stored-K journey at full width through the public GP (the main
+    path of K1's second caller).  The kernel-vs-plain comparisons and the
+    timings of the pieces run first, on a model of their own; only public
+    calls run between the reset of the launch counts and their reading."""
+    import torch
+
+    from fvgp_tpu_torch.ops import hopper_kernels as hk
+    times = {}
+    records = stored_pieces(stored_journey_model(N)[0], times)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    hk.reset_launch_counts()
+    gp, x, y, xp, hps = stored_journey_model(N)
+    t0 = time.time()
+    K = gp.K
+    torch.cuda.synchronize()
+    times["assemble_K_s"] = time.time() - t0
+    ml = gp.marginal_likelihood
+    t0 = time.time()
+    trial = gp.log_likelihood(hps * 1.001)
+    torch.cuda.synchronize()
+    times["trial_lml_s"] = time.time() - t0
+    trial_info = dict(gp.kv.last_solve_info)
+    trial_var = ml.log_likelihood_variance()
+    trial_pre = (gp.kv.Preconditioner_operator is not None,
+                 gp.kv.Last_preconditioner_error)
+    t0 = time.time()
+    committed = gp.log_likelihood()
+    torch.cuda.synchronize()
+    times["committed_lml_s"] = time.time() - t0
+    var = ml.log_likelihood_variance()
+    info = dict(gp.kv.last_logdet_info)
+    t0 = time.time()
+    cov = gp.posterior_covariance(xp)
+    torch.cuda.synchronize()
+    times["posterior_covariance_64_s"] = time.time() - t0
+    # one append: N is not a multiple of 128, so K is recomputed
+    rng = np.random.default_rng(6)
+    x_new = rng.uniform(0, x.max(), (1000, 3))
+    y_new = np.sin(0.2 * x_new[:, 0])
+    t0 = time.time()
+    gp.update_gp_data(x_new, y_new, noise_variances_new=np.full(1000, 1e-2),
+                      append=True)
+    K2 = gp.K
+    torch.cuda.synchronize()
+    times["append_1000_s"] = time.time() - t0
+    launches = launch_counts()
+
+    # ---- what the path gave ----------------------------------------------
+    live = K.nnz // 128 ** 2
+    log(f"stored N={N}: K {K.shape}, tiles {tuple(K.tiles.shape)} "
+        f"{K.tiles.dtype} ({K.tiles.numel() * 2 / 2**30:.2f} GiB), live "
+        f"{live}, fill {K.sparsity():.3e}")
+    if K.tiles.dtype != torch.bfloat16 or N % 128 == 0:
+        raise AssertionError("the stored journey needs bfloat16 tiles and a "
+                             "misaligned N")
+    if float(K.tiles[live:].float().abs().max()) != 0.0:
+        raise AssertionError("the padding tiles are not exactly zero")
+    if not trial_pre[0] or trial_pre[1] is not None:
+        raise AssertionError("the trial solve ran without its preconditioner:"
+                             f" {trial_pre[1]}")
+    log(f"stored N={N}: trial lml {trial:.4f} (variance {trial_var:.4e}, CG "
+        f"{trial_info['iterations']} iterations, preconditioned "
+        f"{trial_info['preconditioned']}); committed lml {committed:.4f} "
+        f"(variance {var:.4e}, SLQ {info['num_samples']} probes of degree "
+        f"{info['degree']}, relative error {info['relative_error']:.2e}); "
+        f"traced mBCG lml at the same hyperparameters {traced_lml:.4f}")
+    if not (np.isfinite(trial) and np.isfinite(committed) and var > 0
+            and trial_var > 0):
+        raise AssertionError("non-finite stored-K LML or no SLQ variance")
+    # two estimators of one number: bfloat16 tiles in both, SLQ noise
+    # sqrt(var) here, 32 CG iterations and 16 probes there
+    if abs(committed - traced_lml) > 2e-2 * abs(traced_lml):
+        raise AssertionError("the stored-K LML and the traced mBCG LML "
+                             f"disagree: {committed} vs {traced_lml}")
+    S, v = cov["S"], cov["v(x)"]
+    if not (S.shape == (64, 64) and np.all(np.isfinite(S))
+            and np.abs(S - S.T).max() <= 1e-2 and np.all(v >= 0.0)
+            and np.allclose(np.diag(S), v)):
+        raise AssertionError("the full posterior covariance is not a finite "
+                             "symmetric 64 x 64 matrix")
+    log(f"stored N={N}: posterior covariance 64 x 64, variance range "
+        f"[{v.min():.3e}, {v.max():.3e}], asymmetry "
+        f"{np.abs(S - S.T).max():.2e}")
+    del K, cov
+    rs = K2.matmat(torch.ones(N + 1000, device="cuda"))
+    if not (K2.shape == (N + 1000, N + 1000) and K2.nnz > live * 128 ** 2
+            and bool(torch.isfinite(rs).all()) and float(rs.min()) >= 1.0):
+        raise AssertionError("update_gp_data(append=True) did not give the "
+                             "covariance of the extended data")
+    log(f"stored N={N} peak device memory: "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches on "
+        f"this path (public calls only): {json.dumps(launches)}")
+    # K1 serves the stored operator's CG and SLQ, K2 the committed fast
+    # solver behind the committed LML and the posterior covariance
+    for name in ("chunked_spmm", "row_chunk_sums"):
+        if launches[name] < 1:
+            raise AssertionError(f"{name} never launched on the stored-K "
+                                 "path")
+    if launches["block_spmv"] != 0 or launches["dense_covariance"] != 0:
+        raise AssertionError("a kernel with no call on the stored-K journey "
+                             "launched on it")
+    # the appended points are not sorted in space, so the last row blocks
+    # of the recomputed K own many more tiles than the others
+    gen = torch.Generator().manual_seed(10)
+    records["k1_appended"] = stored_matmat_case(K2, 1, gen)
+    log(f"stored N={N} phase times: " + json.dumps(
+        {k: round(v, 4) for k, v in times.items()}))
+    return launches, records
+
+
+def stored_pieces(gp, times):
+    """Outside the counted journey, on a model of the same configuration:
+    ``K @ X`` on K1 against the plain ``matmat`` at k = 1, the SLQ batch
+    width and the 64 columns of a posterior solve, then the pieces of the
+    LML on the committed K+V timed alone — CG with and without the
+    preconditioner, the SLQ log-determinant."""
+    import torch
+    K = gp.K
+    n = K.n
+    gen = torch.Generator().manual_seed(9)
+    T = int(K.tiles.shape[0])
+    k_slq = max(4, min(32, (1 << 28) // max(T * 128 * 4, 1)))
+    records = {f"k{k}": stored_matmat_case(K, k, gen)
+               for k in (1, k_slq, 64)}
+    torch.cuda.empty_cache()
+    KV = gp.kv.KV
+    ym = gp.kv._y_minus(gp.kv._m_vec)
+    iters = {}
+    for mode in ("sparseCGpre", "sparseCG"):
+        t0 = time.time()
+        sol = gp.kv._solve_with(mode, KV, ym)
+        torch.cuda.synchronize()
+        times[f"{mode}_s"] = time.time() - t0
+        iters[mode] = gp.kv.last_solve_info["iterations"]
+        res = float(torch.linalg.norm(KV.matmat(sol) - ym)
+                    / torch.linalg.norm(ym))
+        log(f"stored N={n}: {mode} {iters[mode]} iterations, "
+            f"{times[mode + '_s']:.3f} s, true relative residual {res:.2e}")
+        if not res <= 1e-3:
+            raise AssertionError(f"{mode} did not solve K+V: residual {res}")
+    if not iters["sparseCGpre"] < iters["sparseCG"]:
+        raise AssertionError(f"the preconditioner did not cut the "
+                             f"iterations: {iters}")
+    t0 = time.time()
+    gp.kv._random_logdet(KV)
+    torch.cuda.synchronize()
+    times["slq_logdet_s"] = time.time() - t0
+    return records
 
 
 def main():
@@ -923,12 +1268,27 @@ def main():
     dense_launches = dense_journey(10_000)
     log(f"dense journey phase: {time.time() - t0:.1f} s")
     t0 = time.time()
-    sparse_launches = full_journey(1_000_000)
+    sparse_launches, traced_lml = full_journey(1_000_000)
     log(f"gp2Scale journey phase: {time.time() - t0:.1f} s")
-    # each kernel's launches on the three paths, each read just after its
-    # run: K4's ops entry, the dense journey, the gp2Scale journey
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    stored_cross_check()
+    log(f"stored-K cross-check phase: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    stored_launches, stored_records = stored_journey(1_000_000, traced_lml)
+    log(f"stored-K journey phase: {time.time() - t0:.1f} s")
+    # each kernel's launches on the four paths, each read just after its
+    # run: K4's ops entry, the dense journey, the gp2Scale journey, the
+    # stored-K journey
     launches = {name: spmv_launches[name] + dense_launches[name]
-                + sparse_launches[name] for name in REPLACES}
+                + sparse_launches[name] + stored_launches[name]
+                for name in REPLACES}
+    for kern, name in (("K1", "chunked_spmm"), ("K2", "row_chunk_sums")):
+        log(f"{kern} launches by path: " + json.dumps(
+            {"gp2Scale journey": sparse_launches[name],
+             "stored-K journey": stored_launches[name]}))
+    log("K1 from BlockSparseMatrix at the stored-K journey's shapes: "
+        + json.dumps(stored_records))
 
     kernels = [{"name": name, "route": "cuda", "source": SOURCE,
                 "replaces": REPLACES[name], "launches": launches[name],

@@ -9,14 +9,20 @@ it or JAX.  Two journeys run through the public ``GP``, on the card unless
   ``"mcmc"``, posterior means, covariances and variances in the ``Chol``,
   ``CholInv`` and ``Inv`` modes, and ``update_gp_data``;
 * the gp2Scale engine (``GP(x, y, gp2Scale=True)``): the differentiable
-  sparse LML and its gradient, ``posterior_mean`` and
-  ``posterior_covariance(variance_only=True)``.
+  sparse LML and its gradient, posterior means, variances and covariances,
+  and — off the traced path — the stored block-sparse covariance
+  (``gp.K``, ``update_gp_data``) with the Krylov / SLQ / preconditioner
+  solves of the sparse linalg modes.
 
-Every TPU kernel of the JAX package has a hand-written Hopper counterpart
-in ``ops/hopper_kernels.py`` (K1-K4).
+``gpMCMC`` and ``ProposalDistribution`` are the adaptive Metropolis sampler
+behind ``train(method="mcmc")``, usable on their own.  Every TPU kernel of
+the JAX package has a hand-written Hopper counterpart in
+``ops/hopper_kernels.py`` (K1-K4).
 """
 
 from .interop import gp_from_numpy_state
 from .models.gp import GP, NotPortedError
+from .models.gp_mcmc import ProposalDistribution, gpMCMC
 
-__all__ = ["GP", "NotPortedError", "gp_from_numpy_state"]
+__all__ = ["GP", "NotPortedError", "ProposalDistribution", "gpMCMC",
+           "gp_from_numpy_state"]

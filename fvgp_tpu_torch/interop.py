@@ -8,6 +8,7 @@ properties — as numpy, so this module never imports JAX — and builds a port
 import numpy as np
 
 from .models.gp import GP
+from .parallel.block_sparse import from_numpy_state
 from .parallel.ordering import morton_order
 
 __all__ = ["gp_from_numpy_state"]
@@ -18,7 +19,11 @@ def gp_from_numpy_state(state, compute_device="cuda"):
     ``noise_variances`` (or None), ``hyperparameters``, ``args`` and
     optionally ``gp2Scale`` (default True), ``linalg_mode`` and
     ``gp2Scale_batch_size``.  The default kernel, mean and noise of the
-    model kind are used.
+    model kind are used.  A gp2Scale state may carry ``K``: the numpy dict
+    that the JAX ``BlockSparseMatrix.__getstate__`` gives (``n``,
+    ``n_cols``, ``block_size``, ``rows``, ``cols``, ``tiles``, ``diag``),
+    which becomes the model's stored covariance, so both packages solve
+    against one stored operator.
 
     A gp2Scale model's ``x_data`` is already Morton-ordered, so the port
     keeps that order (``gp2Scale_reorder=False``) after checking that the
@@ -38,11 +43,14 @@ def gp_from_numpy_state(state, compute_device="cuda"):
             raise ValueError("gp_from_numpy_state: x_data is not in Morton "
                              "order; pass the gp2Scale model's own x_data")
         args["gp2Scale_reorder"] = False
-    return GP(x, y,
-              init_hyperparameters=np.asarray(state["hyperparameters"],
-                                              dtype=np.float64),
-              noise_variances=None if nv is None else np.asarray(
-                  nv, dtype=np.float64),
-              compute_device=compute_device, gp2Scale=gp2Scale,
-              gp2Scale_batch_size=state.get("gp2Scale_batch_size", 10000),
-              linalg_mode=state.get("linalg_mode"), args=args)
+    gp = GP(x, y,
+            init_hyperparameters=np.asarray(state["hyperparameters"],
+                                            dtype=np.float64),
+            noise_variances=None if nv is None else np.asarray(
+                nv, dtype=np.float64),
+            compute_device=compute_device, gp2Scale=gp2Scale,
+            gp2Scale_batch_size=state.get("gp2Scale_batch_size", 10000),
+            linalg_mode=state.get("linalg_mode"), args=args)
+    if gp2Scale and state.get("K") is not None:
+        gp.prior.K = from_numpy_state(state["K"], device=gp.device)
+    return gp

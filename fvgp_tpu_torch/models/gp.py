@@ -8,7 +8,12 @@ kernel (its covariances built by the K3 kernel), the ``Chol`` / ``CholInv``
 covariances and variances, and ``update_gp_data``.  ``GP(x, y,
 gp2Scale=True)`` runs the block-sparse engine: the differentiable mBCG LML
 (K1 SpMM) and posterior means and variances through the committed-state
-solver (K2 SpMM).  ``compute_device="cpu"`` runs the same code with the
+solver (K2 SpMM); off the traced path (``args["gp2Scale_traced_lml"] =
+False``, a multi-column y, a prior mean function, ``gp.K``,
+``update_gp_data``, a full posterior covariance) it stores the covariance as
+a ``BlockSparseMatrix`` and solves against it with the Krylov / SLQ /
+preconditioner stack, the stored product again on K1.
+``compute_device="cpu"`` runs the same code with the
 kernels' plain versions, in float64 by default.  The methods below that
 raise ``NotImplementedError`` arrive with the ROADMAP items they name.
 """
@@ -191,11 +196,10 @@ class GP:
         only the new (old × new) and (new × new) covariance blocks, and the
         factor (or inverse) is extended by a blocked rank-n update
         (``rank_n_update``, default ``append``) unless the old-data block
-        moved.  ``append=False`` replaces the dataset."""
-        if self.gp2Scale:
-            raise NotImplementedError(
-                "fvgp_tpu_torch: update_gp_data under gp2Scale is not ported "
-                "yet (ROADMAP item 1.3)")
+        moved.  ``append=False`` replaces the dataset.  Under gp2Scale a
+        stored K is extended by the new tile sets when the old point count is
+        a multiple of the tile size and recomputed otherwise; the linear
+        algebra state stays lazy."""
         if not isinstance(x_new, (list, np.ndarray)):
             raise AssertionError("wrong format in x_new")
         if not (isinstance(y_new, np.ndarray) and y_new.ndim in (1, 2)):
@@ -272,6 +276,14 @@ class GP:
             raise NotImplementedError(
                 f"fvgp_tpu_torch: train(method={method!r}) is not ported yet "
                 "(ROADMAP item 1.5); use 'global', 'local' or 'mcmc'")
+        if self.gp2Scale and method != "mcmc" \
+                and not self.marginal_likelihood._sparse_traced_ready():
+            # off the traced path the sparse LML has a value and no gradient
+            warnings.warn("gp2Scale off the traced LML path (a kernel that "
+                          "does not run on tensors, a mean function, a "
+                          "multi-column y or gp2Scale_traced_lml=False). "
+                          "Method switched to MCMC!")
+            method = "mcmc"
         if hyperparameter_bounds is None:
             hyperparameter_bounds = self._get_default_hyperparameter_bounds()
             warnings.warn("Default hyperparameter_bounds initialized because "

@@ -1,22 +1,32 @@
 """Linear-algebra state (counterpart of ``fvgp_tpu/models/gp_kv.py``).
 
-* Dense models (``gp2Scale=False``): the K+V factorization committed at
-  every ``set_hyperparameters`` / ``update_gp_data`` in one of the modes
-  ``Chol`` (default; Cholesky factor), ``CholInv`` (factor + explicit
-  inverse) or ``Inv`` (explicit inverse), through ``ops/dense``.  An append
-  extends the factor or inverse by a blocked rank-n update unless the
-  old-data block itself moved (the drift check).  ``KVinvY`` and the
-  log-determinant are lazy.
-* gp2Scale: the lazy committed state, the auto mode, and the
-  committed-state fast solver that assembles the covariance tiles at the
-  committed hyperparameters and runs the wide preconditioned CG of
-  ``ops/sparse_lml.make_committed_solver`` — on the card with the fused K2
-  SpMM for float32/bfloat16 solves.  Single device, block-Jacobi.
+Owns the K+V factorization state and the reuse policy.  Modes:
 
-Not ported yet: the stored-operator Krylov modes and the dense direct solves
-below ``sparse_direct_dense_cutoff`` (ROADMAP item 1.4), and custom
-``[factor, solve, logdet]`` callables; a solve that needs them raises
-``NotImplementedError``.
+* ``Chol`` / ``CholInv`` / ``Inv`` — dense factorizations through
+  ``ops/dense`` (``torch.linalg``).  An append extends the factor or inverse
+  by a blocked rank-n update unless the old-data block itself moved.
+* ``sparseCG`` / ``sparseMINRES`` / ``sparseCGpre`` / ``sparseMINRESpre`` —
+  matrix-free Krylov (``ops/krylov``) over a dense or block-sparse matvec
+  (the stored ``BlockSparseMatrix`` product runs on the K1 kernel on the
+  card), the log-determinant by stochastic Lanczos quadrature
+  (``ops/slq``), preconditioners from ``ops/precond``
+  (``sparseCGpre_<type>`` picks one).
+* ``sparseLU`` / ``sparseSolve`` — direct semantics: below
+  ``args['sparse_direct_dense_cutoff']`` (default 20000) they densify and
+  use the exact Cholesky; above it, tight-tolerance preconditioned CG and
+  an SLQ logdet.
+
+Under gp2Scale everything is lazy: the stored K+V materializes on first
+access, and committed solves go through the committed-state fast solver
+(tiles assembled at the committed hyperparameters, the wide preconditioned
+CG of ``ops/sparse_lml.make_committed_solver`` on the K2 kernel) wherever
+that applies, without touching the stored K+V.  The O(nnz) matrix
+fingerprint (trace + Frobenius norm) and the drift-based invalidation of
+cached preconditioners and warm starts follow the JAX package, as does the
+``sequential_linalg_state`` gate that restricts the reuse to MCMC.
+
+Not ported yet: custom ``[factor, solve, logdet]`` callables (ROADMAP item
+1.2) and structured (scipy / block-sparse) noise (item 1.6).
 """
 
 import contextlib
@@ -27,6 +37,9 @@ import torch
 
 from .. import config
 from ..ops import dense as dops
+from ..ops import krylov, slq
+from ..ops.precond import build_preconditioner_op
+from ..parallel.block_sparse import is_block_sparse
 
 # ---------------------------------------------------------------------------
 # sequential-state gate
@@ -70,34 +83,85 @@ def sequential_linalg_state(args, method):
 _FAST_MODES = {"sparseCG", "sparseCGpre", "sparseMINRES", "sparseMINRESpre",
                "sparseLU", "sparseSolve"}
 _DENSE_MODES = {"Chol", "CholInv", "Inv"}
+_ALLOWED_MODES = ["Chol", "CholInv", "Inv", "sparseMINRES", "sparseCG",
+                  "sparseLU", "sparseMINRESpre", "sparseCGpre",
+                  "sparseMINRESpre_<type>", "sparseCGpre_<type>",
+                  "sparseSolve"]
+_PRECOND_TYPES = ("block_jacobi", "ilu", "ichol", "ic", "incomplete_cholesky",
+                  "ichol0", "native_ic", "native_ichol", "legacy_ic",
+                  "legacy_ichol", "legacy_incomplete_cholesky", "schwarz",
+                  "additive_schwarz", "amg", "native_incomplete_cholesky")
+_PRECONDITIONED_MODES = {"sparseMINRESpre", "sparseCGpre"}
+
+
+def resolve_linalg_mode(mode, args):
+    """``sparseCGpre_amg`` → mode ``sparseCGpre`` with
+    ``args['sparse_preconditioner_type'] = 'amg'`` (in a copy of args)."""
+    for base in ("sparseCGpre", "sparseMINRESpre"):
+        prefix = base + "_"
+        if mode.startswith(prefix):
+            ptype = mode[len(prefix):]
+            if ptype not in _PRECOND_TYPES:
+                raise Exception(f"Unknown preconditioner type alias: {ptype}")
+            args = dict(args or {})
+            args["sparse_preconditioner_type"] = ptype
+            return base, args
+    return mode, args
 
 
 class GPkv:
     def __init__(self, data, prior, likelihood, linalg_mode=None):
-        served = _FAST_MODES if data.gp2Scale else _DENSE_MODES
-        if linalg_mode is not None and (not isinstance(linalg_mode, str)
-                                        or linalg_mode not in served):
+        if linalg_mode is not None and not isinstance(linalg_mode, str):
             raise NotImplementedError(
-                f"fvgp_tpu_torch: linalg_mode={linalg_mode!r} is not ported "
-                f"yet for {'gp2Scale' if data.gp2Scale else 'dense'} models "
-                f"(ROADMAP item 1.4); this path serves {sorted(served)}")
+                "fvgp_tpu_torch: custom [factor, solve, logdet] linalg modes "
+                "are not ported yet (ROADMAP item 1.2)")
         self.data = data
         self.prior = prior
         self.likelihood = likelihood
+        if linalg_mode is not None:
+            linalg_mode, self.data.args = resolve_linalg_mode(linalg_mode,
+                                                              self.data.args)
+            if linalg_mode not in _DENSE_MODES | _FAST_MODES:
+                raise Exception(f"No Mode. Choose from: {_ALLOWED_MODES}")
         self.linalg_mode = linalg_mode
         self.last_solve_info = None
+        self.last_logdet_variance = None
+        self.last_logdet_info = {}
+        self.Warm_start_fingerprint = None
         self._fast_solver_ctx = None
-        self.KV = None
+        self._KV = None
+        self._KV_dirty = False
         self.KVinv = None
         self.Chol_factor = None
         self._KVinvY = None
         self._logdet_KV = None
+        self._x0_hint = None
         self._m_vec = None
-        if data.gp2Scale:
-            self.mode = None          # resolved lazily from the structure
-        else:
-            self.mode = linalg_mode or "Chol"
-            self._refresh(rank_n_update=False)
+        self._reset_sparse_preconditioner()
+        # under gp2Scale the mode is resolved lazily, with the structure
+        self.mode = None if data.gp2Scale else (linalg_mode or "Chol")
+        self._refresh(rank_n_update=False)
+
+    # ------------------------------------------------------------------
+    # lazy KV materialization (gp2Scale): the traced sparse LML and the
+    # committed fast solver assemble their own tiles, so the stored K / K+V
+    # pair is built only when a consumer (a stored-operator solve, the
+    # logdet, a fingerprint) touches it
+    # ------------------------------------------------------------------
+    @property
+    def KV(self):
+        if self._KV is None and self._KV_dirty:
+            self._KV_dirty = False
+            kv_mat = self.addKV(self.prior.K, self.likelihood.V)
+            self._m_vec = self.prior.m
+            if self.mode is None:
+                self.mode = self._resolved_mode(kv_mat)
+            self.set_KV(kv_mat)
+        return self._KV
+
+    @KV.setter
+    def KV(self, value):
+        self._KV = value
 
     @property
     def args(self):
@@ -136,8 +200,136 @@ class GPkv:
             return "Chol"
         return "sparseCGpre"
 
+    def _resolved_mode(self, KV):
+        """The mode of a solve against ``KV``: the committed one, or under
+        lazy gp2Scale the auto pick from KV's size and sparsity."""
+        if not self.gp2Scale:
+            return self.mode
+        nnz = KV.nnz if is_block_sparse(KV) else KV.numel()
+        return self._auto_mode(len(self.x_data), nnz)
+
     def _direct_dense_ok_n(self, n):
         return n <= int(self.args.get("sparse_direct_dense_cutoff", 20000))
+
+    def _direct_dense_ok(self, KV):
+        return self._direct_dense_ok_n(KV.shape[0])
+
+    # ------------------------------------------------------------------
+    # fingerprints + drift policy
+    # ------------------------------------------------------------------
+    @staticmethod
+    def matrix_fingerprint(KV):
+        """O(nnz) summary (shape, nnz, trace, fro) that detects a moved
+        K+V."""
+        if KV is None:
+            return None
+        if is_block_sparse(KV):
+            trace, fro = KV.trace_and_fro()
+            return (tuple(KV.shape), int(KV.nnz), float(trace), float(fro))
+        return (tuple(KV.shape), int(KV.numel()), float(torch.trace(KV)),
+                float(torch.linalg.norm(KV)))
+
+    @staticmethod
+    def _fingerprint_drift(old, new):
+        if old is None or new is None:
+            return np.inf
+        if old[0] != new[0]:
+            return np.inf
+        drift = 0.0
+        for ov, nv in ((old[2], new[2]), (old[3], new[3])):
+            scale = max(abs(ov), abs(nv), 1e-300)
+            drift = max(drift, abs(nv - ov) / scale)
+        return drift
+
+    def _matrix_drift(self, KV):
+        return self._fingerprint_drift(self.Preconditioner_fingerprint,
+                                       self.matrix_fingerprint(KV))
+
+    def _max_matrix_drift(self):
+        return float(self.args.get("sparse_preconditioner_max_matrix_drift",
+                                   0.1))
+
+    def _validated_warm_start(self, KV, x0):
+        """Drop a warm start computed for a materially different K+V."""
+        if x0 is None:
+            return None
+        if self.Warm_start_fingerprint is None:
+            return x0
+        if self._fingerprint_drift(
+                self.Warm_start_fingerprint,
+                self.matrix_fingerprint(KV)) > self._max_matrix_drift():
+            return None
+        return x0
+
+    def _preconditioner_refresh_interval(self):
+        value = self.args.get("sparse_preconditioner_refresh_interval", None)
+        if value is None:
+            return None
+        return max(1, int(value))
+
+    def _preconditioner_signature(self):
+        relevant = {k: v for k, v in self.args.items()
+                    if k.startswith("sparse_preconditioner_")}
+        return tuple(sorted(relevant.items()))
+
+    def _reset_sparse_preconditioner(self):
+        self.Preconditioner_operator = None
+        self.Preconditioner_signature = None
+        self.Preconditioner_KV_shape = None
+        self.Preconditioner_fingerprint = None
+        self.Preconditioner_reuse_counter = 0
+        self.Last_preconditioner_error = None
+
+    def _can_reuse_sparse_preconditioner(self, KV, mode=None):
+        if (mode or self.mode) not in _PRECONDITIONED_MODES:
+            return False
+        if self.Preconditioner_operator is None:
+            return False
+        if self.Preconditioner_KV_shape != tuple(KV.shape):
+            return False
+        if self.Preconditioner_signature != self._preconditioner_signature():
+            return False
+        interval = self._preconditioner_refresh_interval()
+        if interval is not None \
+                and self.Preconditioner_reuse_counter >= interval - 1:
+            return False
+        if self._matrix_drift(KV) > self._max_matrix_drift():
+            return False
+        return True
+
+    def _get_or_refresh_preconditioner(self, KV, force_refresh=False,
+                                       mode=None):
+        """Cached or fresh preconditioner ``(apply_fn, data)`` for KV.
+        ``mode`` is the RESOLVED mode of the current solve: under lazy
+        gp2Scale the committed ``self.mode`` is still None on trial
+        evaluations, and gating on it alone would run those solves
+        unpreconditioned."""
+        if (mode or self.mode) not in _PRECONDITIONED_MODES:
+            return None
+        if not force_refresh and self._can_reuse_sparse_preconditioner(
+                KV, mode=mode):
+            self.Preconditioner_reuse_counter += 1
+            return self.Preconditioner_operator
+        try:
+            operator = build_preconditioner_op(KV, args=self.args)
+        except RuntimeError as exc:
+            # a factorization that fails after the shift ladder, or the
+            # device out of memory; reset FIRST, the reset clears the error
+            # slot and the recorded reason must survive for diagnostics
+            self._reset_sparse_preconditioner()
+            self.Last_preconditioner_error = f"{type(exc).__name__}: {exc}"
+            warnings.warn(
+                f"Failed to build preconditioner for mode "
+                f"{mode or self.mode}; falling back to the unpreconditioned "
+                f"iterative solve. Reason: {self.Last_preconditioner_error}.")
+            return None
+        self.Preconditioner_operator = operator
+        self.Preconditioner_signature = self._preconditioner_signature()
+        self.Preconditioner_KV_shape = tuple(KV.shape)
+        self.Preconditioner_fingerprint = self.matrix_fingerprint(KV)
+        self.Preconditioner_reuse_counter = 0
+        self.Last_preconditioner_error = None
+        return operator
 
     # ------------------------------------------------------------------
     # state transitions
@@ -150,10 +342,17 @@ class GPkv:
 
     def _refresh(self, rank_n_update):
         self._fast_solver_ctx = None        # data/hyperparameters moved
+        # the old solution survives as a warm-start hint for the next solve
+        self._x0_hint = self._KVinvY if rank_n_update else None
         self._KVinvY = None
         self._logdet_KV = None
         if self.gp2Scale:
-            return                          # everything is lazy
+            # defer everything: KV materializes on first access, KVinvY and
+            # the logdet on first use
+            self._KV = None
+            self._KV_dirty = True
+            self._m_vec = None
+            return
         from ..utils.logging import phase_timer
         KV = self.addKV(self.prior.K, self.likelihood.V)
         with phase_timer(f"KV factorization ({self.mode}, "
@@ -168,11 +367,12 @@ class GPkv:
     def KVinvY(self):
         """(K+V)⁻¹(y - m) at the committed state, shape (N, n_y)."""
         if self._KVinvY is None:
-            m = self._m_vec if self._m_vec is not None else \
-                self.prior.compute_mean(self.x_data,
-                                        self.prior.hyperparameters)
-            y_mean = self._y_minus(m)
-            self._KVinvY = self.solve(y_mean).reshape(y_mean.shape)
+            if self._m_vec is None:
+                self._m_vec = self.prior.m
+            y_mean = self._y_minus(self._m_vec)
+            self._KVinvY = self.solve(
+                y_mean, x0=self._x0_hint).reshape(y_mean.shape)
+            self._x0_hint = None
         return self._KVinvY
 
     @property
@@ -182,18 +382,37 @@ class GPkv:
         return self._logdet_KV
 
     # ------------------------------------------------------------------
-    # dense factorizations
+    # factorizations
     # ------------------------------------------------------------------
+    @staticmethod
+    def _densify(KV):
+        return KV.to_dense() if is_block_sparse(KV) else KV
+
     def set_KV(self, KV):
         """Full factorization refresh in the committed mode."""
-        self.KV = KV
+        mode = self.mode
         self.Chol_factor = self.KVinv = None
-        if self.mode in ("Chol", "CholInv"):
-            self.Chol_factor = dops.cholesky_factor(KV)
-        if self.mode == "CholInv":
-            self.KVinv = dops.inv_from_chol(self.Chol_factor)
-        if self.mode == "Inv":
-            self.KVinv = dops.calculate_inv(KV)
+        if mode in _DENSE_MODES:
+            KVd = self._densify(KV)
+            self.KV = KVd
+            if mode in ("Chol", "CholInv"):
+                self.Chol_factor = dops.cholesky_factor(KVd)
+            if mode == "CholInv":
+                self.KVinv = dops.inv_from_chol(self.Chol_factor)
+            if mode == "Inv":
+                self.KVinv = dops.calculate_inv(KVd)
+        elif mode in ("sparseCG", "sparseMINRES"):
+            self.KV = KV
+        elif mode in _PRECONDITIONED_MODES:
+            self.KV = KV
+            self._get_or_refresh_preconditioner(KV, force_refresh=True)
+        elif mode in ("sparseLU", "sparseSolve"):
+            # direct semantics: the exact Cholesky below the dense cutoff
+            self.KV = KV
+            if self._direct_dense_ok(KV):
+                self.Chol_factor = dops.cholesky_factor(self._densify(KV))
+        else:
+            raise Exception(f"No Mode. Choose from: {_ALLOWED_MODES}")
 
     def _top_left_drifted(self, KV, n_old):
         """True when the appended matrix's old-data block no longer matches
@@ -201,8 +420,8 @@ class GPkv:
         assumes that block is unchanged, but e.g. the default noise
         ``(0.01·mean|y|)²`` moves with the new y mean, and extending the
         stale factor would corrupt logdet and solves."""
-        old = self.KV
-        if old is None or old.shape[0] != n_old:
+        old = self._KV
+        if old is None or is_block_sparse(old) or old.shape[0] != n_old:
             return True
         diff = float(torch.max(torch.abs(KV[:n_old, :n_old] - old)))
         scale = float(torch.max(torch.abs(torch.diagonal(KV)[:n_old]))) \
@@ -211,28 +430,46 @@ class GPkv:
 
     def update_KV(self, KV):
         """Rank-n update after an append: blocked trailing updates of the
-        factor / explicit inverse, or a full refresh when the old-data block
-        itself moved."""
-        if self.mode in ("Chol", "CholInv"):
+        dense factor / explicit inverse, or a full refresh when the old-data
+        block itself moved; the sparse modes swap the operator."""
+        mode = self.mode
+        if mode in ("Chol", "CholInv"):
+            KVd = self._densify(KV)
             n_old = self.Chol_factor.shape[0]
-            if KV.shape[0] <= n_old or self._top_left_drifted(KV, n_old):
-                self.Chol_factor = dops.cholesky_factor(KV)
+            if KVd.shape[0] <= n_old or self._top_left_drifted(KVd, n_old):
+                self.Chol_factor = dops.cholesky_factor(KVd)
             else:
                 self.Chol_factor = dops.update_chol_factor(self.Chol_factor,
-                                                           KV)
-            if self.mode == "CholInv":
+                                                           KVd)
+            self.KV = KVd
+            if mode == "CholInv":
                 self.KVinv = dops.inv_from_chol(self.Chol_factor)
-        else:
+        elif mode == "Inv":
+            KVd = self._densify(KV)
             n_old = self.KVinv.shape[0]
-            if KV.shape[0] <= n_old or self._top_left_drifted(KV, n_old):
-                self.KVinv = dops.calculate_inv(KV)
+            if KVd.shape[0] <= n_old or self._top_left_drifted(KVd, n_old):
+                self.KVinv = dops.calculate_inv(KVd)
             else:
-                self.KVinv = dops.update_inv(self.KVinv, KV)
-        self.KV = KV
+                self.KVinv = dops.update_inv(self.KVinv, KVd)
+            self.KV = KVd
+        else:
+            self.set_KV(KV)
 
     @staticmethod
     def addKV(K, V):
-        """K + V for a dense K and a per-point vector or dense matrix V."""
+        """K + V for a dense or block-sparse K and a per-point vector or
+        dense matrix V."""
+        if is_block_sparse(K):
+            from scipy.sparse import issparse
+            if issparse(V) or is_block_sparse(V):
+                raise NotImplementedError(
+                    "fvgp_tpu_torch: structured (scipy / block-sparse) noise "
+                    "on a block-sparse K is not ported yet (ROADMAP item "
+                    "1.6)")
+            if not torch.is_tensor(V) or V.dim() != 1:
+                raise AssertionError("K is block-sparse; expected a 1-d "
+                                     "diagonal V")
+            return K.add_diagonal(V)
         if K.dim() != 2 or K.shape[0] != K.shape[1]:
             raise AssertionError("K must be a square 2-d matrix")
         if V.dim() == 1:
@@ -241,40 +478,139 @@ class GPkv:
             return K + V
         raise Exception("K+V not possible with the given formats")
 
-    # -- trial solves (nothing committed) ----------------------------------
-    def _solve_with(self, KV, b, chol=None):
-        if self.mode in ("Chol", "CholInv"):
-            L = chol if chol is not None else dops.cholesky_factor(KV)
+    # ------------------------------------------------------------------
+    # solve / logdet against a given K+V
+    # ------------------------------------------------------------------
+    def _matvec_op(self, KV):
+        """(matvec_fn, operator) of KV for the solvers' operator
+        convention."""
+        if is_block_sparse(KV):
+            from ..parallel.block_sparse import bsm_matvec_factory
+            return bsm_matvec_factory(KV.nb, KV.block_size, KV.n,
+                                      KV.diag is not None), KV
+        return krylov.dense_matvec, KV
+
+    def _tols(self):
+        cg_tol = float(self.args.get("sparse_cg_tol", 1e-5))
+        mr_tol = float(self.args.get("sparse_minres_tol", 1e-5))
+        maxiter = self.args.get("sparse_krylov_maxiter", None)
+        cg_max = self.args.get("sparse_cg_maxiter", maxiter)
+        mr_max = self.args.get("sparse_minres_maxiter", maxiter)
+        return cg_tol, mr_tol, cg_max, mr_max
+
+    def _cg_logged(self, *args, **kwargs):
+        """CG with the iteration count recorded as ``last_solve_info`` —
+        the measurable payoff of the warm-start and preconditioner-reuse
+        policy."""
+        x, info = krylov.cg(*args, with_info=True, **kwargs)
+        self.last_solve_info = dict(
+            info, method="cg", warm_start=kwargs.get("x0") is not None,
+            preconditioned=kwargs.get("M") is not None)
+        return x
+
+    def _solve_with(self, mode, KV, b, x0=None, chol=None):
+        cg_tol, mr_tol, cg_max, mr_max = self._tols()
+        if mode in ("Chol", "CholInv"):
+            L = chol if chol is not None \
+                else dops.cholesky_factor(self._densify(KV))
             return dops.cholesky_solve(L, b)
-        return dops.calculate_inv(KV) @ b
+        if mode == "Inv":
+            return dops.calculate_inv(self._densify(KV)) @ b
+        fn, data = self._matvec_op(KV)
+        if mode in ("sparseLU", "sparseSolve"):
+            if self._direct_dense_ok(KV):
+                L = chol if chol is not None \
+                    else dops.cholesky_factor(self._densify(KV))
+                return dops.cholesky_solve(L, b)
+            m_fn, m_data = build_preconditioner_op(KV, args=self.args)
+            return self._cg_logged(fn, b, x0=x0, M=m_fn, tol=1e-10,
+                                   operator=data, m_operator=m_data)
+        if mode == "sparseCG":
+            return self._cg_logged(fn, b, x0=x0, tol=cg_tol, maxiter=cg_max,
+                                   operator=data)
+        if mode == "sparseMINRES":
+            return krylov.minres(fn, b, x0=x0, tol=mr_tol, maxiter=mr_max,
+                                 operator=data)
+        if mode in _PRECONDITIONED_MODES:
+            M = self._get_or_refresh_preconditioner(KV, mode=mode)
+            m_fn, m_data = M if M is not None else (None, None)
+            if mode == "sparseCGpre":
+                return self._cg_logged(fn, b, x0=x0, M=m_fn, tol=cg_tol,
+                                       maxiter=cg_max, operator=data,
+                                       m_operator=m_data)
+            return krylov.minres(fn, b, x0=x0, M=m_fn, tol=mr_tol,
+                                 maxiter=mr_max, operator=data,
+                                 m_operator=m_data)
+        raise Exception(f"No mode: {mode}")
 
-    def _logdet_with(self, KV, chol=None):
-        if self.mode in ("Chol", "CholInv"):
-            L = chol if chol is not None else dops.cholesky_factor(KV)
+    def _logdet_with(self, mode, KV, chol=None):
+        if mode in ("Chol", "CholInv") or (
+                mode in ("sparseLU", "sparseSolve")
+                and self._direct_dense_ok(KV)):
+            L = chol if chol is not None \
+                else dops.cholesky_factor(self._densify(KV))
             return float(dops.cholesky_logdet(L))
-        return float(dops.calculate_logdet(KV))
+        if mode == "Inv":
+            return float(dops.calculate_logdet(self._densify(KV)))
+        return self._random_logdet(KV)
 
-    def _require_dense(self):
-        if self.gp2Scale:
-            raise NotImplementedError(
-                "fvgp_tpu_torch: trial solves under gp2Scale need the stored "
-                "trial K+V, which is not ported yet (ROADMAP item 1.4)")
+    def _random_logdet(self, KV):
+        """SLQ log-determinant; its variance is kept for
+        ``log_likelihood_variance``."""
+        info = {}
+        fn, data = self._matvec_op(KV)
+        # the probe batch of a block-sparse operator follows the JAX
+        # package's rule (there a bound on the (T, B, k) product of the plain
+        # SpMM), so both packages draw the same number of probes
+        batch = None
+        if is_block_sparse(KV):
+            T = int(KV.tiles.shape[0])
+            batch = max(4, min(32, (1 << 28) // max(T * KV.block_size * 4,
+                                                    1)))
+        args = self.args
+        result = slq.slq_logdet(
+            fn, KV.shape[0], dtype=self.dtype, device=self.data.device,
+            operator=data, batch=batch,
+            degree=int(args.get("random_logdet_lanczos_degree", 20)),
+            min_num_samples=int(args.get("random_logdet_min_num_samples",
+                                         10)),
+            max_num_samples=int(args.get("random_logdet_max_num_samples",
+                                         5000)),
+            error_rtol=float(args.get("random_logdet_error_rtol", 0.01)),
+            info_out=info)
+        self.last_logdet_variance = info.get("variance", None)
+        self.last_logdet_info = info
+        return result
 
-    def compute_new_KVinvY(self, KV, m):
+    # -- trial solves (nothing committed) ----------------------------------
+    def _trial_chol(self, mode, KV):
+        """The Cholesky factor that a trial's solve and logdet share, or
+        None in the iterative modes."""
+        if mode in ("Chol", "CholInv") or (
+                mode in ("sparseLU", "sparseSolve")
+                and self._direct_dense_ok(KV)):
+            return dops.cholesky_factor(self._densify(KV))
+        return None
+
+    def compute_new_KVinvY(self, KV, m, x0=None):
         """KVinvY for a trial (KV, m) without committing state."""
-        self._require_dense()
+        x0 = self._validated_warm_start(KV, x0)
+        self.Warm_start_fingerprint = self.matrix_fingerprint(KV)
         y_mean = self._y_minus(m)
-        return self._solve_with(KV, y_mean).reshape(y_mean.shape)
+        mode = self._resolved_mode(KV)
+        return self._solve_with(mode, KV, y_mean, x0=x0).reshape(y_mean.shape)
 
-    def compute_new_KVlogdet_KVinvY(self, K, V, m):
+    def compute_new_KVlogdet_KVinvY(self, K, V, m, x0=None):
         """KVinvY and log|KV| of a trial, sharing one factorization."""
-        self._require_dense()
         KV = self.addKV(K, V)
+        x0 = self._validated_warm_start(KV, x0)
+        self.Warm_start_fingerprint = self.matrix_fingerprint(KV)
         y_mean = self._y_minus(m)
-        chol = dops.cholesky_factor(KV) \
-            if self.mode in ("Chol", "CholInv") else None
-        KVinvY = self._solve_with(KV, y_mean, chol=chol)
-        return KVinvY.reshape(y_mean.shape), self._logdet_with(KV, chol=chol)
+        mode = self._resolved_mode(KV)
+        chol = self._trial_chol(mode, KV)
+        KVinvY = self._solve_with(mode, KV, y_mean, x0=x0, chol=chol)
+        return KVinvY.reshape(y_mean.shape), \
+            self._logdet_with(mode, KV, chol=chol)
 
     # ------------------------------------------------------------------
     # committed-state fast sparse solver (in-place tiles; no stored KV)
@@ -542,36 +878,48 @@ class GPkv:
             "chunks": len(widths)}
         return out[:, 0] if squeeze else out
 
-    def solve(self, b):
-        """(K+V)⁻¹ b against the committed state: the dense factorization,
-        or under gp2Scale the committed-state fast solver."""
+    def _fast_solve_or_none(self, b):
+        """A committed-state solve through the fast path, or None."""
         if not self.gp2Scale:
-            if self.mode == "Chol":
-                return dops.cholesky_solve(self.Chol_factor, b)
-            return self.KVinv @ b
+            return None
         if self.mode is not None and self.mode not in _FAST_MODES:
-            raise NotImplementedError(
-                f"fvgp_tpu_torch: mode {self.mode!r} needs the stored K+V, "
-                "which is not ported yet (ROADMAP items 1.2 and 1.4)")
+            return None
         ctx = self._fast_sparse_solver()
         if ctx is None:
-            mode = (self._fast_solver_ctx or {}).get("mode")
-            raise NotImplementedError(
-                f"fvgp_tpu_torch: this committed solve (mode {mode!r}) needs "
-                "the stored K+V — dense direct below "
-                "args['sparse_direct_dense_cutoff'], or an unpruned / "
-                "untraceable kernel — which is not ported yet (ROADMAP items "
-                "1.2 and 1.4); pass linalg_mode='sparseCGpre'")
+            return None
         if self.mode is None:
+            # lazy gp2Scale: commit the auto mode WITHOUT materializing KV
             self.mode = ctx["mode"]
         return self._fast_solve(ctx, b)
 
+    def solve(self, b, x0=None):
+        """(K+V)⁻¹ b against the committed state.  Under gp2Scale with a
+        kernel that runs on tensors this goes through the committed-state
+        fast solver and never materializes the stored K+V (``x0`` is
+        ignored there); otherwise the committed factorization or the
+        stored-operator Krylov solve serves it."""
+        fast = self._fast_solve_or_none(b)
+        if fast is not None:
+            return fast
+        if self.mode is None and self.gp2Scale:
+            _ = self.KV            # lazy materialization resolves the mode
+        mode = self.mode
+        if mode == "Chol" or (mode in ("sparseLU", "sparseSolve")
+                              and self.Chol_factor is not None):
+            return dops.cholesky_solve(self.Chol_factor, b)
+        if mode in ("CholInv", "Inv"):
+            return self.KVinv @ b
+        return self._solve_with(mode, self.KV, b, x0=x0)
+
     def logdet(self):
-        """log|K+V| in the committed dense mode."""
-        if self.gp2Scale:
-            raise NotImplementedError(
-                "fvgp_tpu_torch: the committed gp2Scale logdet needs the "
-                "stored K+V (ROADMAP item 1.4); the LML estimates it")
-        if self.mode in ("Chol", "CholInv"):
+        """log|K+V| in the committed mode."""
+        if self.mode is None and self.gp2Scale:
+            _ = self.KV            # lazy materialization resolves the mode
+        mode = self.mode
+        if mode in ("Chol", "CholInv") or (
+                mode in ("sparseLU", "sparseSolve")
+                and self.Chol_factor is not None):
             return float(dops.cholesky_logdet(self.Chol_factor))
-        return float(dops.calculate_logdet(self.KV))
+        if mode == "Inv":
+            return float(dops.calculate_logdet(self.KV))
+        return self._random_logdet(self.KV)

@@ -18,6 +18,13 @@ averaged over the columns of a multi-column y.
   (bounding-box candidates at inflated lengthscales, exact tile liveness) is
   cached under the JAX package's drift policy, and the tile schedule is
   row-sorted once per structure for the K1 kernel.
+* gp2Scale off the traced path (``args["gp2Scale_traced_lml"] = False``, a
+  multi-column y, a prior mean function, a kernel that does not run on
+  tensors): the stored-K LML — a trial K+V assembled as a
+  ``BlockSparseMatrix``, solved in the resolved sparse mode with warm starts
+  under ``args["sparse_krylov_warm_start"]``, the log-determinant exact
+  below the dense cutoff and by SLQ above it; its estimator variance is
+  ``log_likelihood_variance``.
 """
 
 import math
@@ -27,15 +34,11 @@ import torch
 
 from .. import config
 from ..ops import dense as dops
+from ..ops.slq import rademacher_probes as _rademacher_probes
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
 
-def _rademacher_probes(n, p, dtype, device, generator):
-    """(n, p) Rademacher probes (±1), drawn on the CPU from ``generator`` so
-    a CPU and a CUDA run of the same model see the same probes."""
-    bits = torch.randint(0, 2, (n, p), generator=generator, dtype=torch.int8)
-    return (2.0 * bits.to(dtype) - 1.0).to(device)
 
 
 class GPMarginalLikelihood:
@@ -48,6 +51,7 @@ class GPMarginalLikelihood:
         self._sparse_cache = {}
         self._candidate_cache = None
         self._filter_mask_cache = None
+        self._warm_start_KVinvY = None
 
     @property
     def args(self):
@@ -73,14 +77,8 @@ class GPMarginalLikelihood:
         return (self.data.gp2Scale and self.data.Euclidean
                 and self.y_data.shape[1] == 1
                 and self.prior.kernel_traceable
+                and self.prior._default_mean
                 and bool(self.args.get("gp2Scale_traced_lml", True)))
-
-    def _require_sparse(self):
-        if not self._sparse_traced_ready():
-            raise NotImplementedError(
-                "fvgp_tpu_torch: this LML needs the stored-K path (untraceable "
-                "kernel, multi-column y or gp2Scale_traced_lml=False), which "
-                "is not ported yet (ROADMAP item 1.4)")
 
     def _sparse_lml_eval(self, hyperparameters, want_grad=False):
         from ..ops.sparse_lml import make_padded_inputs, make_sparse_lml
@@ -344,40 +342,95 @@ class GPMarginalLikelihood:
     # ------------------------------------------------------------------
     def _require_gradient(self):
         if self.data.gp2Scale:
-            self._require_sparse()
+            if not self._sparse_traced_ready():
+                raise NotImplementedError(
+                    "fvgp_tpu_torch: the gp2Scale LML gradient exists on the "
+                    "traced path only (a kernel that runs on tensors, the "
+                    "default mean, one y column, gp2Scale_traced_lml on); the "
+                    "formula gradient engine is not ported yet (ROADMAP item "
+                    "1.6)")
         elif not self._traced_ready():
             raise NotImplementedError(
                 "fvgp_tpu_torch: LML gradients of host (numpy) kernel, mean "
                 "or noise callables need the formula gradient engine, which "
                 "is not ported yet (ROADMAP item 1.6)")
 
+    # ------------------------------------------------------------------
+    # warm-start plumbing of the iterative trial solves
+    # ------------------------------------------------------------------
+    def _warm_start_enabled(self):
+        return bool(self.args.get("sparse_krylov_warm_start", False))
+
+    def _iterative_initial_guess(self, target_shape):
+        """The last trial's solution, else the committed one, as the start
+        of the next trial solve (None unless warm starts are on)."""
+        if not self._warm_start_enabled():
+            return None
+        for candidate in (self._warm_start_KVinvY, self.kv.KVinvY):
+            if candidate is None:
+                continue
+            guess = candidate.reshape(-1, 1) if candidate.dim() == 1 \
+                else candidate
+            if guess.shape[0] != target_shape[0]:
+                continue
+            if guess.shape[1] == target_shape[1]:
+                return guess
+            if guess.shape[1] == 1 and target_shape[1] > 1:
+                return guess.repeat(1, target_shape[1])
+        return None
+
+    def _update_warm_start(self, KVinvY):
+        if self._warm_start_enabled():
+            self._warm_start_KVinvY = KVinvY.clone()
+
+    def compute_new_KVinvY(self, KV, m):
+        x0 = self._iterative_initial_guess(tuple(self.y_data.shape))
+        KVinvY = self.kv.compute_new_KVinvY(KV, m, x0=x0)
+        self._update_warm_start(KVinvY)
+        return KVinvY
+
+    def compute_new_KVlogdet_KVinvY(self, K, V, m):
+        x0 = self._iterative_initial_guess(tuple(self.y_data.shape))
+        KVinvY, KVlogdet = self.kv.compute_new_KVlogdet_KVinvY(K, V, m,
+                                                               x0=x0)
+        self._update_warm_start(KVinvY)
+        return KVinvY, KVlogdet
+
     def _trial_value(self, hyperparameters):
-        """The dense LML of host callables: a trial solve in the committed
-        mode."""
+        """The LML from a trial K+V in the resolved mode: the dense LML of
+        host callables, and the stored-K LML under gp2Scale."""
         prior = self.prior
         K = prior.compute_prior_covariance_matrix(self.x_data,
                                                   hyperparameters)
         V = self.likelihood.calculate_V(self.x_data, hyperparameters)
         m = prior.compute_mean(self.x_data, hyperparameters)
-        KVinvY, logdet = self.kv.compute_new_KVlogdet_KVinvY(K, V, m)
-        ym = self.kv._y_minus(m)
+        KVinvY, logdet = self.compute_new_KVlogdet_KVinvY(K, V, m)
+        return self._lml_value(self.kv._y_minus(m), KVinvY, logdet)
+
+    @staticmethod
+    def _lml_value(ym, KVinvY, logdet):
         l1 = float(torch.sum(ym * KVinvY)) / ym.shape[1]
         return -0.5 * (l1 + logdet + len(ym) * _LOG_2PI)
 
     def log_likelihood(self, hyperparameters=None):
         """Marginal log-likelihood (at the committed hyperparameters when
         None); -inf where K+V is not positive definite."""
-        if self.data.gp2Scale:
-            self._require_sparse()
-            hps = self.hyperparameters if hyperparameters is None \
-                else hyperparameters
-            val = self._sparse_lml_eval(np.asarray(hps))
-        elif hyperparameters is None:
-            ym = self.kv._y_minus(self.kv._m_vec)
-            l1 = float(torch.sum(ym * self.kv.KVinvY)) / ym.shape[1]
-            val = -0.5 * (l1 + self.kv.logdet_KV + len(ym) * _LOG_2PI)
+        if hyperparameters is None:
+            if self._sparse_traced_ready() \
+                    and self.kv._fast_sparse_solver() is not None:
+                # the committed state through the traced sparse program: the
+                # same estimator as the training evaluations, and the stored
+                # K+V never materializes.  Gated on the fast path, so the
+                # small-N dense modes keep their exact logdet
+                val = self._sparse_lml_eval(np.asarray(self.hyperparameters))
+            else:
+                KVinvY = self.kv.KVinvY
+                val = self._lml_value(self.kv._y_minus(self.kv._m_vec),
+                                      KVinvY, self.kv.logdet_KV)
         elif self._traced_ready():
             val, _ = self._traced_eval(hyperparameters)
+        elif self._sparse_traced_ready():
+            val = self._sparse_lml_eval(np.asarray(hyperparameters))
         else:
             try:
                 val = self._trial_value(np.asarray(hyperparameters))
@@ -388,8 +441,15 @@ class GPMarginalLikelihood:
     def neg_log_likelihood(self, hyperparameters=None):
         return -self.log_likelihood(hyperparameters=hyperparameters)
 
+    def log_likelihood_variance(self):
+        """Variance of the latest stochastic LML evaluation — the SLQ
+        estimator's variance scaled by 0.25; None for exact modes."""
+        v = self.kv.last_logdet_variance
+        return None if v is None else 0.25 * float(v)
+
     def log_likelihood_value_and_gradient(self, hyperparameters):
-        """(L, dL/dh) in one pass — the training hot loop calls this."""
+        """(L, dL/dh) in one pass — the training hot loop calls this.  Off
+        the traced paths the value exists but the gradient raises."""
         self._require_gradient()
         hyperparameters = np.asarray(hyperparameters)
         if not self.data.gp2Scale:

@@ -6,9 +6,11 @@ arrays with the JAX package's keys and task-major ``x_out`` layouts.
   comes from one einsum against the stored inverse (``CholInv``/``Inv``)
   when only the variance is asked for.  ``posterior_mean(hyperparameters=
   ...)`` solves a trial K+V without committing it.
-* gp2Scale: solves go through the committed-state fast solver; the mean's
-  kᵀ(K+V)⁻¹(y-m) product is fused into the chunked kernel sweep at scale,
-  and only the variance (``variance_only=True``) is served.
+* gp2Scale: solves go through the committed-state fast solver where it
+  applies, else against the stored K+V; the mean's kᵀ(K+V)⁻¹(y-m) product
+  is fused into the chunked kernel sweep at scale.  A cross covariance too
+  large for a dense sweep arrives as a rectangular ``BlockSparseMatrix``
+  and is densified one column chunk at a time.
 
 Posterior gradients and the information-theory suite are not ported yet
 (ROADMAP item 1.2); multi-task ``x_out`` models (fvGP) wait for item 1.6.
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from .. import config
+from ..parallel.block_sparse import is_block_sparse
 
 
 class GPposterior:
@@ -83,24 +86,56 @@ class GPposterior:
                 if prod is not None:
                     return config.to_numpy(prod)
         k = self._cross_cov(x_pred, hyperparameters)
+        if is_block_sparse(k):
+            return config.to_numpy(k.rmatmat(KVinvY))
         return config.to_numpy(k.T @ KVinvY)
 
+    def _dense_K(self):
+        """Dense K for the joint-covariance methods."""
+        K = self.prior.K
+        if not is_block_sparse(K):
+            return K
+        warnings.warn(
+            "This method assembles a joint covariance over data and "
+            "prediction points, which is dense in the number of data points. "
+            "Under the scale path that discards the sparse representation; "
+            "it is only usable on small problems. Consider "
+            "posterior_covariance instead.")
+        return K.to_dense()
+
     def _cross_solve_product(self, k, diag=False):
-        """kᵀ (K+V)⁻¹ k in column chunks (one chunk on the dense path, the
-        fast solver's column budget under gp2Scale); ``diag=True`` returns
-        only its diagonal (the variance path)."""
+        """kᵀ (K+V)⁻¹ k in column chunks; ``diag=True`` returns only its
+        diagonal (the variance path).  One chunk on the dense path; under
+        gp2Scale the fast solver's column budget, or — against the stored
+        K+V — the batch size bounded by the memory of the block-sparse
+        product where it is the plain one
+        (``BlockSparseMatrix.square_col_chunk``).  A block-sparse ``k`` is
+        densified one chunk at a time, so the (N, n_pred) dense array never
+        exists."""
         n_pred = k.shape[1]
         chunk_size = n_pred
         if self.gp2Scale:
-            chunk_size = self.kv.fast_solve_col_budget() \
-                or self.prior.batch_size
+            chunk_size = self.kv.fast_solve_col_budget()
+            if chunk_size is None:
+                # the stored K+V serves the solve (touching it is what
+                # materializes it, so only off the fast path)
+                chunk_size = self.prior.batch_size
+                KV = self.kv.KV
+                if is_block_sparse(KV):
+                    chunk_size = min(int(chunk_size), KV.square_col_chunk(
+                        n_pred, self.kv.dtype))
         chunk_size = max(1, min(int(chunk_size), n_pred))
+        sparse_k = is_block_sparse(k)
         parts = []
         for start in range(0, n_pred, chunk_size):
-            cols = k[:, start:start + chunk_size]
+            end = min(start + chunk_size, n_pred)
+            cols = k.dense_columns(start, end) if sparse_k \
+                else k[:, start:end]
             solved = self.kv.solve(cols)
             if diag:
                 parts.append(torch.sum(cols * solved, dim=0))
+            elif sparse_k:
+                parts.append(k.rmatmat(solved))
             else:
                 parts.append(k.T @ solved)
         return torch.cat(parts, dim=0 if diag else 1)
@@ -177,10 +212,6 @@ class GPposterior:
         """S = k(x*,x*) − k*ᵀ(K+V)⁻¹k* and its diagonal; with the explicit
         inverse stored and ``variance_only``, the variances come from one
         einsum."""
-        if self.gp2Scale and not variance_only:
-            raise NotImplementedError(
-                "fvgp_tpu_torch: the full posterior covariance under "
-                "gp2Scale is not ported yet (ROADMAP item 1.3)")
         x_orig, x_pred, x_out = self._product_space(x_pred, x_out)
         k = self._cross_cov(x_pred, self.hyperparameters)
         kk = self.prior.compute_covariances(x_pred, x_pred,
@@ -188,8 +219,9 @@ class GPposterior:
         single = self.y_data.shape[1] == 1
         S = None
         if self.kv.KVinv is not None and variance_only and single:
+            kd = k.to_dense() if is_block_sparse(k) else k
             v = config.to_numpy(torch.diagonal(kk) - torch.einsum(
-                "ji,jk,ki->i", k, self.kv.KVinv, k))
+                "ji,jk,ki->i", kd, self.kv.KVinv, kd))
         elif variance_only and self.gp2Scale and single:
             v = config.to_numpy(torch.diagonal(kk)
                                 - self._cross_solve_product(k, diag=True))
@@ -224,7 +256,7 @@ class GPposterior:
     def joint_gp_prior(self, x_pred, x_out=None):
         """The joint prior over data and prediction points: blocks K, k,
         kappa, the joint mean and covariance (1e-9 on the diagonals)."""
-        K = config.to_numpy(self.prior.K) + np.identity(len(self.x_data)) \
+        K = config.to_numpy(self._dense_K()) + np.identity(len(self.x_data)) \
             * 1e-9
         prior_mean_vec = config.to_numpy(self.prior.m)
         _, x_pred, _ = self._product_space(x_pred, x_out)

@@ -14,13 +14,18 @@ for ROADMAP item 1.6.
   tensors that autograd does not record — on the card the default kernel's
   K then comes from the K3 kernel.  An append computes only the new
   (old × new) and (new × new) blocks.
-* gp2Scale: the prior is lazy.  The stored block-sparse covariance is never
-  built on this path (the sparse LML and the committed solver assemble their
-  own tiles), so ``K`` raises until the stored path is ported (ROADMAP item
-  1.3); the default kernel is the anisotropic Wendland kernel.  Cross
-  covariances against prediction points run as chunked dense sweeps, and the
-  posterior-mean product ``kᵀv`` is fused into the sweep so the (N, n_pred)
-  cross covariance never exists.
+* gp2Scale: the prior is lazy.  The traced sparse LML and the committed
+  solver assemble their own tiles; the stored block-sparse covariance
+  (``parallel/sharded_cov.distributed_covariance``) is built on first access
+  to ``K`` — by the stored-operator solves, a trial evaluation off the
+  traced path, or the user.  An append stacks the new (old × new) and
+  (new × new) tile sets onto a stored K when the old point count is a
+  multiple of the tile size, and recomputes otherwise.  The default kernel
+  is the anisotropic Wendland kernel.  Cross covariances against prediction
+  points run as chunked dense sweeps where they fit the budget (else as a
+  rectangular block-sparse assembly), and the posterior-mean product
+  ``kᵀv`` is fused into the sweep so the (N, n_pred) cross covariance never
+  exists.
 """
 
 import inspect
@@ -96,11 +101,6 @@ class GPprior:
         if not (callable(prior_mean_function) or prior_mean_function is None):
             raise AssertionError("prior_mean_function must be callable or "
                                  "None")
-        if data.gp2Scale and callable(prior_mean_function):
-            raise NotImplementedError(
-                "fvgp_tpu_torch: a prior_mean_function under gp2Scale needs "
-                "the stored-K path, which is not ported yet (ROADMAP item "
-                "1.4)")
         self.data = data
         self.trainer = trainer
         self.batch_size = gp2Scale_batch_size
@@ -176,11 +176,6 @@ class GPprior:
 
     @property
     def K(self):
-        if self.gp2Scale:
-            raise NotImplementedError(
-                "fvgp_tpu_torch: the stored gp2Scale covariance "
-                "(BlockSparseMatrix, distributed_covariance) is not ported "
-                "yet (ROADMAP item 1.3)")
         if self._K is None:
             self._m, self._K = self._compute_prior(self.x_data,
                                                    self.hyperparameters)
@@ -194,9 +189,13 @@ class GPprior:
     def m(self):
         if self._m is None:
             if self.gp2Scale:
-                return self.compute_mean(self.x_data, self.hyperparameters)
-            self._m, self._K = self._compute_prior(self.x_data,
-                                                   self.hyperparameters)
+                # the mean alone: assembling K here would cost the stored
+                # tile set on paths that never read it
+                self._m = self.compute_mean(self._x_dev,
+                                            self.hyperparameters)
+            else:
+                self._m, self._K = self._compute_prior(self.x_data,
+                                                       self.hyperparameters)
         return self._m
 
     @m.setter
@@ -292,28 +291,30 @@ class GPprior:
                           dtype=self.dtype, device=self.device)
 
     def compute_prior_covariance_matrix(self, x, hyperparameters):
-        """The dense prior covariance K(x, x)."""
+        """The prior covariance K(x, x): dense, or block-sparse under
+        gp2Scale."""
         if self.gp2Scale:
-            return self.K
+            return self._gp2Scale_covariance(_host(x), _host(x),
+                                             hyperparameters, symmetric=True)
         return self.compute_covariances(x, x, hyperparameters)
 
     def compute_data_cross_covariance(self, x_pred, hyperparameters):
         """k(x_data, x_pred): under gp2Scale above the batch size a chunked
-        dense sweep, else one dense evaluation."""
+        dense sweep where it fits the budget and the device, else a
+        rectangular block-sparse assembly; below it one dense evaluation."""
         if self.gp2Scale and len(self.x_data) > self.batch_size:
             k = self._dense_cross_or_none(x_pred, hyperparameters)
             if k is not None:
                 return k
-            raise NotImplementedError(
-                "fvgp_tpu_torch: this cross covariance exceeds "
-                "args['gp2Scale_dense_cross_budget'] or device memory; the "
-                "block-sparse cross path is not ported yet (ROADMAP item "
-                "1.3)")
+            return self._gp2Scale_covariance(self.x_data, x_pred,
+                                             hyperparameters)
         return self.compute_covariances(self._x_dev, x_pred, hyperparameters)
 
     def _compute_prior(self, x_data, hyperparameters):
         m = self.compute_mean(self._x_dev, hyperparameters)
-        K = self.compute_prior_covariance_matrix(self._x_dev, hyperparameters)
+        # the block-sparse structure pass reads the host float64 points
+        K = self.compute_prior_covariance_matrix(
+            x_data if self.gp2Scale else self._x_dev, hyperparameters)
         if m.dim() != 1:
             raise AssertionError("mean function returned non-1-d result")
         return m, K
@@ -325,11 +326,38 @@ class GPprior:
             m = self.compute_mean(self.x_data, hyperparameters)
         else:
             m = torch.cat([self.m, self.compute_mean(x_new, hyperparameters)])
+        if self.gp2Scale:
+            return m, self._stacked_gp2Scale_K(x_old, x_new, hyperparameters)
         B = self.compute_covariances(x_old, x_new, hyperparameters)
         D = self.compute_covariances(x_new, x_new, hyperparameters)
         K = torch.cat([torch.cat([self.K, B], dim=1),
                        torch.cat([B.T, D], dim=1)], dim=0)
         return m, K
+
+    def _stacked_gp2Scale_K(self, x_old, x_new, hyperparameters):
+        """The stored K after an append, or None (stay lazy) when no K of
+        the old data is stored: [[K, B], [Bᵀ, D]] stacked from the new tile
+        sets when the old point count is a multiple of the tile size, a full
+        recompute otherwise."""
+        K_old = self._K
+        if K_old is None or K_old.n != len(x_old):
+            return None
+        from ..parallel.block_sparse import stack_augmented_covariance
+        if K_old.n % K_old.block_size != 0:
+            # append grid misaligned with the tile size: recompute fully
+            return self.compute_prior_covariance_matrix(self.x_data,
+                                                        hyperparameters)
+        B = self._gp2Scale_covariance(x_old, x_new, hyperparameters)
+        D = self._gp2Scale_covariance(x_new, x_new, hyperparameters,
+                                      symmetric=True)
+        return stack_augmented_covariance(K_old, B, D)
+
+    def _gp2Scale_covariance(self, x1, x2, hyperparameters, symmetric=False):
+        """The block-sparse covariance k(x1, x2) on the model's device."""
+        from ..parallel.sharded_cov import distributed_covariance
+        return distributed_covariance(
+            self, x1, x2, hyperparameters, batch_size=self.batch_size,
+            symmetric=symmetric, args=self.args)
 
     def _cross_scan_inputs(self, x_pred, hyperparameters):
         """(xc, xp_padded, hps, n_pred) for the chunked cross scans —

@@ -456,3 +456,233 @@ def test_k4_skips_a_sentinel_rows_tile_on_card(cuda_device):
     assert not bool(torch.isfinite(ref).all())
     x[-1, 0] = 0.0
     _close_to_plain(got, HK.block_spmv_reference(r, c, t, x, nb, B))
+
+
+# ---------------------------------------------------------------------------
+# K1's second caller: BlockSparseMatrix.matmat
+# ---------------------------------------------------------------------------
+
+def _symmetric_bsm(rng, n, B, dtype, device, frac=0.5):
+    """A symmetric tile set in row-sorted order with zeroed padding, as the
+    assembler stores it, plus two sentinel tiles."""
+    from fvgp_tpu_torch.parallel.block_sparse import BlockSparseMatrix
+    nb = -(-n // B)
+    valid = (np.arange(nb * B) < n).reshape(nb, B)
+    entries = {}
+    for i in range(nb):
+        for j in range(i, nb):
+            if i != j and rng.uniform() > frac:
+                continue
+            t = rng.standard_normal((B, B)) * (valid[i][:, None]
+                                               * valid[j][None, :])
+            entries[(i, j)] = t + t.T if i == j else t
+            if i != j:
+                entries[(j, i)] = t.T
+    keys = sorted(entries)
+    rows = np.array([k[0] for k in keys] + [nb, nb], np.int32)
+    cols = np.array([k[1] for k in keys] + [nb, nb], np.int32)
+    tiles = np.stack([entries[k] for k in keys]
+                     + [np.zeros((B, B))] * 2)
+    return BlockSparseMatrix(n, n, B, rows, cols,
+                             torch.as_tensor(tiles).to(dtype), device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 4, 17, 40])
+def test_bsm_matmat_on_k1_matches_plain_on_card(cuda_device, dtype, k):
+    """The stored product on the card launches K1 and agrees with the plain
+    ``matmat``: 1e-4 of the output scale in float32 (the same products,
+    summed in another order).  Under bfloat16 storage X goes in as two
+    bfloat16 halves, whose sum keeps 16 mantissa bits of the float32 X
+    (2^-17 relative per element, below the float32 summation error), so the
+    same 1e-4 holds against the plain product of the SAME stored tiles."""
+    from fvgp_tpu_torch.parallel import block_sparse as bs
+    rng = np.random.default_rng(21)
+    n, B = 5 * 64 - 7, 64
+    A = _symmetric_bsm(rng, n, B, dtype, cuda_device)
+    v = torch.as_tensor(rng.uniform(0.5, 1.0, n), dtype=torch.float32) \
+        .to(cuda_device)
+    KV = A.add_diagonal(v)
+    X = torch.as_tensor(rng.standard_normal((n, k)),
+                        dtype=torch.float32).to(cuda_device)
+    before = HK.chunked_spmm.launches
+    got = KV.matmat(X)
+    assert HK.chunked_spmm.launches == before + 1
+    s = A._store
+    ref = bs._bsm_matmat_plain(s.rows, s.cols, s.tiles, X, A.nb, B) \
+        + v[:, None] * X
+    assert got.shape == ref.shape == (n, k) and got.dtype == torch.float32
+    _close_to_plain(got, ref)
+    # a 1-d X, and the operator convention the solvers use
+    before = HK.chunked_spmm.launches
+    x1 = KV @ X[:, 0]
+    mv = bs.bsm_matvec_factory(KV.nb, B, n, True)
+    assert HK.chunked_spmm.launches == before + 1 and x1.shape == (n,)
+    _close_to_plain(mv(KV, X), ref)
+    _close_to_plain(x1, ref[:, 0])
+    # the rows tensor is the same object: its row offsets are kept
+    assert getattr(KV.rows, "_fvgp_row_segments", None) is not None
+    assert KV.rows is A.rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_matmat_on_k1_is_one_launch_on_card(cuda_device, dtype,
+                                                 monkeypatch):
+    """The plain product's per-tile memory bound does not split a wide X on
+    the kernel route (every launch streams the whole tile set): 64 columns
+    are one K1 launch where ``_col_chunk`` allows one column a pass; only
+    the (n, c) arrays' own size bounds a pass."""
+    from fvgp_tpu_torch.parallel import block_sparse as bs
+    rng = np.random.default_rng(24)
+    n, B, k = 5 * 64 - 7, 64, 64
+    A = _symmetric_bsm(rng, n, B, dtype, cuda_device, frac=1.0)
+    X = torch.as_tensor(rng.standard_normal((n, k)),
+                        dtype=torch.float32).to(cuda_device)
+    s = A._store
+    ref = bs._bsm_matmat_plain(s.rows, s.cols, s.tiles, X, A.nb, B)
+    monkeypatch.setattr(bs, "_MATMAT_BUDGET", 8 * n * 4 * k)
+    assert A._col_chunk(k, 4) < k
+    assert A.square_col_chunk(k, torch.float32) == k
+    assert A.square_col_chunk(k, torch.float64) == A._col_chunk(k, 8)
+    before = HK.chunked_spmm.launches
+    got = A.matmat(X)
+    assert HK.chunked_spmm.launches == before + 1
+    _close_to_plain(got, ref)
+    monkeypatch.setattr(bs, "_MATMAT_BUDGET", 8 * n * 4 * 16)
+    before = HK.chunked_spmm.launches
+    _close_to_plain(A.matmat(X), ref)
+    assert HK.chunked_spmm.launches == before + 4
+
+
+@pytest.mark.cuda
+def test_unsorted_merge_result_is_sorted_not_refused_on_card(cuda_device):
+    from fvgp_tpu_torch.parallel import block_sparse as bs
+    rng = np.random.default_rng(22)
+    n, B = 4 * 64, 64
+    A = _symmetric_bsm(rng, n, B, torch.float32, cuda_device)
+    M = bs.merge(A, A)
+    assert not np.all(np.diff(M._store.rows_h) >= 0)
+    X = torch.as_tensor(rng.standard_normal((n, 3)),
+                        dtype=torch.float32).to(cuda_device)
+    before = HK.chunked_spmm.launches
+    got = M.matmat(X)
+    assert HK.chunked_spmm.launches == before + 1
+    assert bool((M.rows[1:] >= M.rows[:-1]).all())
+    _close_to_plain(got, 2.0 * A.matmat(X))
+    _close_to_plain(got, M.to_dense() @ X)
+
+
+@pytest.mark.cuda
+def test_float64_and_rectangular_products_take_the_plain_path(cuda_device):
+    from fvgp_tpu_torch.parallel.block_sparse import BlockSparseMatrix
+    rng = np.random.default_rng(23)
+    n, B = 3 * 64, 64
+    A = _symmetric_bsm(rng, n, B, torch.float64, cuda_device)
+    X = torch.as_tensor(rng.standard_normal((n, 2))).to(cuda_device)
+    before = HK.chunked_spmm.launches
+    got = A.matmat(X)
+    A32 = _symmetric_bsm(np.random.default_rng(23), n, B, torch.float32,
+                         cuda_device)
+    got64 = A32.matmat(X)                 # a float64 X keeps float64
+    R = BlockSparseMatrix(2 * B, B, B, np.array([0, 1]), np.array([0, 0]),
+                          torch.as_tensor(rng.standard_normal((2, B, B)),
+                                          dtype=torch.float32),
+                          device=cuda_device)
+    Xr = torch.as_tensor(rng.standard_normal((B, 2)),
+                         dtype=torch.float32).to(cuda_device)
+    rect, back = R.matmat(Xr), R.rmatmat(R.matmat(Xr))
+    assert HK.chunked_spmm.launches == before
+    assert got.dtype == got64.dtype == torch.float64
+    torch.testing.assert_close(got, A.to_dense() @ X, rtol=0, atol=1e-10)
+    torch.testing.assert_close(got64, A32.to_dense().double() @ X, rtol=0,
+                               atol=1e-10)
+    _close_to_plain(rect, R.to_dense() @ Xr)
+    _close_to_plain(back, R.to_dense().T @ rect)
+
+
+@pytest.mark.cuda
+def test_stored_k_solve_and_logdet_on_card_match_the_cpu(cuda_device):
+    """The stored-K trial LML on the card (float32, and bfloat16 storage)
+    against the CPU in float64, through the public GP: the exact quadratic
+    term within the float32 bound, K1 launched by the CG and the SLQ."""
+    import warnings
+
+    from fvgp_tpu_torch import GP
+    rng = np.random.default_rng(24)
+    n = 1500
+    x = rng.uniform(0, 25, (n, 3))
+    y = np.sin(0.5 * x[:, 0]) + 0.05 * rng.standard_normal(n)
+    hps = np.array([1.0, 2.0, 2.0, 2.0])
+    out = {}
+    for name, dev, extra in (
+            ("cpu", "cpu", {}), ("f32", "cuda", {}),
+            ("bf16", "cuda", {"gp2Scale_storage_dtype": "bfloat16"})):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            gp = GP(x, y, init_hyperparameters=hps,
+                    noise_variances=np.full(n, 1e-2), gp2Scale=True,
+                    compute_device=dev, linalg_mode="sparseCGpre",
+                    args={"gp2Scale_block_size": 64,
+                          "gp2Scale_traced_lml": False,
+                          "sparse_cg_tol": 1e-6, **extra})
+            before = HK.chunked_spmm.launches
+            KV = gp.kv.addKV(gp.K, gp.V)
+            sol = gp.kv.compute_new_KVinvY(KV, gp.m)
+            quad = float(torch.sum(gp.kv._y_minus(gp.m) * sol))
+            logdet = gp.kv._random_logdet(KV)
+            out[name] = (quad, logdet, gp.kv.last_logdet_variance,
+                         HK.chunked_spmm.launches - before)
+    assert out["cpu"][3] == 0 and out["f32"][3] > 20 and out["bf16"][3] > 20
+    for name, rtol in (("f32", 1e-4), ("bf16", 5e-3)):
+        assert abs(out[name][0] - out["cpu"][0]) \
+            <= rtol * abs(out["cpu"][0]), (name, out)
+        sd = np.sqrt(out[name][2] + out["cpu"][2])
+        # the same probes on both devices: well inside the estimator's noise
+        assert abs(out[name][1] - out["cpu"][1]) <= sd, (name, out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,extra", [
+    ("sparseMINRESpre_ichol", {}), ("sparseCGpre_amg", {}),
+    ("sparseMINRES", {}), ("sparseLU", {}),
+    ("sparseSolve", {"sparse_direct_dense_cutoff": 0})])
+def test_stored_k_modes_on_card_match_the_cpu(cuda_device, mode, extra):
+    """Every stored-operator solver and preconditioner on the card against
+    the CPU in float64, through the public GP: the trial solve, the full
+    posterior covariance over the block-sparse cross path, and an aligned
+    append (float32 bound 1e-3 of each quantity's scale)."""
+    import warnings
+
+    from fvgp_tpu_torch import GP
+    rng = np.random.default_rng(25)
+    n, n_new = 1280, 64
+    x = rng.uniform(0, 24, (n + n_new, 3))
+    y = np.sin(0.5 * x[:, 0]) + 0.05 * rng.standard_normal(n + n_new)
+    xp = rng.uniform(0, 24, (12, 3))
+    hps = np.array([1.0, 2.0, 2.0, 2.0])
+    out = {}
+    for dev in ("cpu", "cuda"):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            gp = GP(x[:n], y[:n], init_hyperparameters=hps,
+                    noise_variances=np.full(n, 1e-2), gp2Scale=True,
+                    compute_device=dev, linalg_mode=mode,
+                    gp2Scale_batch_size=64,
+                    args={"gp2Scale_traced_lml": False,
+                          "sparse_cg_tol": 1e-6, "sparse_minres_tol": 1e-6,
+                          "gp2Scale_dense_cross_budget": 1, **extra})
+            KV = gp.kv.addKV(gp.K, gp.V)
+            sol = gp.kv.compute_new_KVinvY(KV, gp.m)
+            quad = float(torch.sum(gp.kv._y_minus(gp.m) * sol))
+            S = gp.posterior_covariance(xp)["S"]
+            gp.update_gp_data(x[n:], y[n:], append=True,
+                              noise_variances_new=np.full(n_new, 1e-2))
+            rows = gp.K.matmat(torch.ones(n + n_new, dtype=gp.prior.dtype,
+                                          device=gp.device))
+            out[dev] = (quad, S, rows.double().cpu().numpy())
+    ref, got = out["cpu"], out["cuda"]
+    assert abs(got[0] - ref[0]) <= 1e-3 * abs(ref[0])
+    np.testing.assert_allclose(got[1], ref[1], atol=1e-3)
+    np.testing.assert_allclose(got[2], ref[2], atol=1e-3 * ref[2].max())
