@@ -6,6 +6,7 @@ Run from the root of the repository:
     python3 chip_profile.py [N]             # the dense journey
     python3 chip_profile.py gp2scale [N]    # the gp2Scale journey
     python3 chip_profile.py stored [N]      # the stored-K gp2Scale journey
+    python3 chip_profile.py slq [N]         # the SLQ training solver
     python3 chip_profile.py k1              # K1's launch order and wrapper
     python3 chip_profile.py k3              # K3's launch and store variants
     python3 chip_profile.py k4              # K4's wrapper, launch by launch
@@ -35,6 +36,15 @@ For each window it prints the wall time, the device time summed over
 kernels, the device's idle share (1 − device time / wall time) and the ten
 largest device-time entries by name.  The profiler stretches wall time, so
 the device totals are the comparable numbers.
+
+slq: on the gp2Scale journey's model (N = 1,000,000, bfloat16), the LML
+value by mBCG (the journey's settings, and with ``sparse_cg_tol`` 1e-3 and
+200 trips), by SLQ at degree 20 and 40 and by SLQ with float32 streaming,
+each variant on the same 16 probes, at the configuration's
+hyperparameters and at a point on the smoke's training path; then one SLQ
+LML + gradient traced with ``torch.profiler``, and the committed state's
+500-point variance with the two-level preconditioner and with
+block-Jacobi (each a commit, its assembly and its solve; warmed up once).
 
 k1: at the smoke's N = 50k training structure (float32 and bfloat16
 tiles), bare launches of K1 with the longest-rows-first order and without
@@ -99,6 +109,8 @@ def main():
         return gp2scale(int(args[1]) if len(args) > 1 else 1_000_000)
     if args and args[0] == "stored":
         return stored(int(args[1]) if len(args) > 1 else 1_000_000)
+    if args and args[0] == "slq":
+        return slq(int(args[1]) if len(args) > 1 else 1_000_000)
     if args and args[0] == "k1":
         return k1_order()
     if args and args[0] == "k3":
@@ -349,6 +361,74 @@ def stored(N):
         device_table(prof, wall, label)
     print(f"CG iterations {gp.kv.last_solve_info['iterations']}, SLQ probes "
           f"{gp.kv.last_logdet_info['num_samples']}", flush=True)
+    return 0
+
+
+def slq(N):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+    print(f"card: {cs.smi_line()}; SLQ solver, gp2Scale N={N}", flush=True)
+    x, y, xp = cs.journey_data(N)
+    hps = np.array([1.0, 2.0, 2.0, 2.0])
+    gp = cs.journey_model(x, y, hps)
+    ml = gp.marginal_likelihood
+    base = dict(gp.args)
+    # every variant builds its own program, whose first draw is seed 42:
+    # all of them see the same probes
+    variants = (("mBCG", {}),
+                ("mBCG, sparse_cg_tol 1e-3, 200 trips",
+                 {"sparse_cg_tol": 1e-3, "sparse_cg_maxiter": 200}),
+                ("SLQ, degree 20", {"gp2Scale_solver": "slq"}),
+                ("SLQ, degree 40", {"gp2Scale_solver": "slq",
+                                    "random_logdet_lanczos_degree": 40}),
+                ("SLQ, float32 streaming", {"gp2Scale_solver": "slq",
+                                            "gp2Scale_solver_dtype": None}))
+    # the smoke's trained hyperparameters (train(method="local", 2 steps))
+    points = (("configuration", hps),
+              ("training path", np.array([0.1991, 2.4739, 2.4739, 2.4739])))
+    for label, h in points:
+        for name, extra in variants:
+            gp.args.clear()
+            gp.args.update(base, **extra)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            val = gp.log_likelihood(h)
+            torch.cuda.synchronize()
+            print(f"{label} {h}: {name}: lml {val:.4f}, variance "
+                  f"{ml.log_likelihood_variance():.4e}, "
+                  f"{time.time() - t0:.3f} s", flush=True)
+    gp.args.clear()
+    gp.args.update(base, gp2Scale_solver="slq")
+    ml.log_likelihood_value_and_gradient(hps)
+    for precond in ("two_level", "block_jacobi"):
+        gp.args["gp2Scale_posterior_precond"] = precond
+        gp.posterior_covariance(xp, variance_only=True)
+    torch.cuda.synchronize()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+    def variance(precond, scale):
+        gp.args["gp2Scale_posterior_precond"] = precond
+        gp.set_hyperparameters(hps * scale)
+        gp.posterior_covariance(xp, variance_only=True)
+
+    windows = (("SLQ LML+grad", lambda: ml.log_likelihood_value_and_gradient(
+                   hps * (1 + 1e-4))),
+               ("commit + two-level variance (500)",
+                lambda: variance("two_level", 1.01)),
+               ("commit + block-Jacobi variance (500)",
+                lambda: variance("block_jacobi", 1.02)))
+    for label, fn in windows:
+        with profile(activities=acts) as prof:
+            t0 = time.time()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        device_table(prof, wall, label, top=14)
+        if "variance" in label:
+            print(f"  CG iterations {gp.kv.last_solve_info['iterations']}",
+                  flush=True)
     return 0
 
 

@@ -115,6 +115,32 @@ BOUNDS = {"float32": {"lml": 1e-4, "grad": 1e-3, "mean": 1e-3, "var": 1e-3},
 # full posterior covariance absolute (entries of O(1))
 STORED_BOUNDS = {"float32": {"matmat": 1e-4, "lml": 1e-4, "S": 1e-3},
                  "bfloat16": {"matmat": 1e-2, "lml": 5e-3, "S": 5e-2}}
+# the gp2Scale solver options at N=10,000 on CUDA vs the CPU in float64, same
+# probes: the SLQ solver's LML and gradient and the two-level posterior
+# variance under the mBCG path's BOUNDS; the gp2Scale Hessian (float32 only:
+# central differences divide the gradient's rounding by 2e-3) as a relative
+# Frobenius norm — CPU float32 against float64 gives 2.1e-4; the stored K's
+# gp_lin_alg CG solution (relative 2-norm) and SLQ log-determinant (relative,
+# the same probes) in float32 storage
+SLICE_HESSIAN_BOUND = 5e-3
+GLA_BOUNDS = {"cg": 1e-3, "logdet": 1e-4}
+# the N=1M slice phase: the SLQ and mBCG LMLs at the same hyperparameters are
+# two estimates of one number, within 3 standard deviations of the two
+# reported variances; two-level and block-Jacobi variances within the bf16
+# bound of the journey (PERF.md section 2)
+SLICE_SIGMAS = 3.0
+SLICE_VAR_BOUND = 5e-2
+# bfloat16 streaming moves the SLQ estimate by more than its probes'
+# variance says: every Lanczos vector is cast to bfloat16 before its product
+# (the JAX package's arithmetic too).  Set before the first full run from
+# the port on the CPU at N=50,000, same 16 probes, plain versions: SLQ bf16
+# -44212.14 against SLQ float64 -44174.98, 8.4e-4 of |LML|; mBCG bf16
+# -44147.17 against float64 -44147.60.  Allowed on top of the 3 sigma for a
+# bfloat16 SLQ evaluation: 2e-3 of |LML|; a float32 one gets none.  (On the
+# card at N=1M the same comparison, ``chip_profile.py slq``, gave +4.9e-4
+# at these hyperparameters and +4.0e-3 on the training path: the shift's
+# sign and size depend on the conditioning)
+SLICE_BF16_SLQ_SHIFT = 2e-3
 # K1 from BlockSparseMatrix under bfloat16 storage: X enters as two bfloat16
 # halves (16 mantissa bits, 2^-17 relative), so against the float64 product
 # of the SAME stored tiles only the float32 summation remains
@@ -420,7 +446,11 @@ def kernel_phase(device):
     X1 = torch.randn((nb * B1, k), generator=gen).to(device)
     k1_case("bfloat16 tiles, N=1M journey", r, c, tiles, X1, nb, B1,
             torch.bfloat16)
-    del tiles, X1, r, c
+    # the SLQ solver's Lanczos steps: one launch of the 16 probes' width
+    X16 = torch.randn((nb * B1, 16), generator=gen).to(device)
+    records["k1_slq_batch"] = k1_case("bfloat16 tiles, N=1M, SLQ batch", r,
+                                      c, tiles, X16, nb, B1, torch.bfloat16)
+    del tiles, X1, X16, r, c
     torch.cuda.empty_cache()
     # ---- K2 at committed-solver shapes: c=128 in both dtypes, and in
     # bfloat16 the N=1M journey's widths (posterior mean 8, variance 512)
@@ -710,6 +740,75 @@ def cross_check():
             raise AssertionError(f"cross-check {name} out of bounds: {bad}")
 
 
+def slice_cross_check():
+    """The gp2Scale solver options at N=10,000: the SLQ training solver's
+    LML and gradient and the two-level posterior variance (64 points) on
+    CUDA, float32 and bfloat16 streaming, against the CPU in float64 at the
+    same probes (fresh models draw the same seeds); then the gp2Scale
+    Hessian (mBCG, central differences of 8 gradients) in float32."""
+    from fvgp_tpu_torch import GP
+    N = 10_000
+    x, y, xp = journey_data(N, seed=2)
+    xp = xp[:64]
+    hps = np.array([1.0, 2.0, 2.0, 2.0])
+    base = {"gp2Scale_block_size": 128, "sparse_cg_maxiter": 64,
+            "random_logdet_fixed_probes": 16,
+            "gp2Scale_structure_cache_dir": False}
+    options = {"gp2Scale_solver": "slq",
+               "gp2Scale_posterior_precond": "two_level"}
+
+    def model(device, extra):
+        return GP(x, y, init_hyperparameters=hps,
+                  noise_variances=np.full(N, 1e-2), gp2Scale=True,
+                  compute_device=device, linalg_mode="sparseCGpre",
+                  args={**base, **extra})
+
+    def run(device, extra):
+        t0 = time.time()
+        gp = model(device, {**options, **extra})
+        val, grad = gp.marginal_likelihood.log_likelihood_value_and_gradient(
+            hps)
+        var = gp.posterior_covariance(xp, variance_only=True)["v(x)"]
+        its = gp.kv.last_solve_info["iterations"]
+        log(f"slice cross-check N={N} {device} {extra or ''}: SLQ lml "
+            f"{val:.6f}, two-level CG {its} iterations, {time.time() - t0:.2f}"
+            f" s")
+        return val, grad, var
+
+    ref = run("cpu", {})
+    for name, extra in (("float32", {}),
+                        ("bfloat16", {"gp2Scale_solver_dtype": "bfloat16"})):
+        got = run("cuda", extra)
+        errs = {"lml": abs(got[0] - ref[0]) / abs(ref[0]),
+                "grad": float(np.linalg.norm(got[1] - ref[1])
+                              / np.linalg.norm(ref[1])),
+                "var": float(np.abs(got[2] - ref[2]).max())}
+        bounds = BOUNDS[name]
+        log(f"slice cross-check N={N} CUDA {name} vs CPU float64 (SLQ "
+            "solver, two-level variance): "
+            + ", ".join(f"{k} {errs[k]:.3e} (bound {bounds[k]:g})"
+                        for k in errs))
+        bad = [k for k in errs if not errs[k] <= bounds[k]]
+        if bad:
+            raise AssertionError(f"slice cross-check {name} out of bounds: "
+                                 f"{bad}")
+    hess = {}
+    for device in ("cpu", "cuda"):
+        t0 = time.time()
+        hess[device] = model(device, {}).marginal_likelihood \
+            .neg_log_likelihood_hessian(hps)
+        log(f"slice cross-check N={N} {device}: gp2Scale Hessian "
+            f"{time.time() - t0:.2f} s, diagonal "
+            f"{np.array2string(np.diag(hess[device]), precision=4)}")
+    err = float(np.linalg.norm(hess["cuda"] - hess["cpu"])
+                / np.linalg.norm(hess["cpu"]))
+    log(f"slice cross-check N={N}: Hessian CUDA float32 vs CPU float64 "
+        f"{err:.3e} (bound {SLICE_HESSIAN_BOUND:g}, relative Frobenius)")
+    if not (err <= SLICE_HESSIAN_BOUND
+            and np.array_equal(hess["cuda"], hess["cuda"].T)):
+        raise AssertionError(f"the gp2Scale Hessian disagrees: {err}")
+
+
 DENSE_BOUNDS = {"lml": 1e-4, "grad": 1e-3, "mean": 1e-3, "var": 1e-3}
 
 
@@ -907,7 +1006,113 @@ def full_journey(N):
     if launches["block_spmv"] != 0:
         raise AssertionError("block_spmv launched on the gp2Scale journey, "
                              "which has no call to it")
-    return launches, lml_at_hps
+    slice_launches = slice_phase(gp, xp, pv, hps)
+    return launches, lml_at_hps, slice_launches
+
+
+def counted(fn):
+    """(result, seconds, launches) of one public call: the counts set to 0
+    just before it and read just after it."""
+    import torch
+
+    from fvgp_tpu_torch.ops import hopper_kernels as hk
+    torch.cuda.synchronize()
+    hk.reset_launch_counts()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.time() - t0, launch_counts()
+
+
+def slice_phase(gp, xp, pv_journey, hps):
+    """The gp2Scale solver options at full width, on the journey's model
+    (its data and structure pass): (a) ``gp2Scale_solver="slq"``, two
+    LML+gradient evaluations at the configuration's hyperparameters
+    ``hps`` against the mBCG LML there, and a third with float32 tile
+    streaming; (b) at the committed (trained) state, the 500-point
+    posterior variance with
+    ``gp2Scale_posterior_precond="two_level"`` and again with block-Jacobi.
+    Public calls only, each counted on its own.  Returns the launches of
+    the SLQ evaluations and of the two-level variance."""
+    import torch
+    ml = gp.marginal_likelihood
+    n = len(gp.x_data)
+    h = np.asarray(hps)
+    (val_m, _), secs_m, _ = counted(
+        lambda: ml.log_likelihood_value_and_gradient(h))
+    var_m = ml.log_likelihood_variance()
+    log(f"slice N={n}: mBCG LML at hps {h} {val_m:.4f} (variance "
+        f"{var_m:.4e}, {secs_m:.3f} s)")
+    gp.args["gp2Scale_solver"] = "slq"
+    slq_launches = {name: 0 for name in REPLACES}
+    for i, stream in enumerate(("bfloat16", "bfloat16", "float32")):
+        if stream == "float32":
+            # the float32 tile set is twice the bfloat16 one: drop the
+            # committed solver's tiles (7 GiB), rebuilt by the next solve
+            gp.args["gp2Scale_solver_dtype"] = None
+            gp.kv._fast_solver_ctx = None
+            torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        (val, grad), secs, got = counted(
+            lambda: ml.log_likelihood_value_and_gradient(h))
+        var = ml.log_likelihood_variance()
+        for name in REPLACES:
+            slq_launches[name] += got[name]
+        gap = abs(val - val_m)
+        shift = SLICE_BF16_SLQ_SHIFT * abs(val_m) if stream == "bfloat16" \
+            else 0.0
+        allowed = SLICE_SIGMAS * np.sqrt(var + var_m) + shift
+        # the journey's configuration streams bfloat16: those two
+        # evaluations are held to the bound; the float32 one is measured
+        held = stream == "bfloat16"
+        log(f"slice N={n}: SLQ LML+grad #{i + 1} ({stream} streaming) "
+            f"{secs:.3f} s, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, lml "
+            f"{val:.4f} (variance {var:.4e}), grad "
+            f"{np.array2string(grad, precision=4)}; SLQ - mBCG "
+            f"{val - val_m:.4f} ({'bound' if held else 'measured against'} "
+            f"{allowed:.4f} = {SLICE_SIGMAS:g} sigma + {shift:.4f}); "
+            f"launches {json.dumps(got)}")
+        if not (np.isfinite(val) and np.all(np.isfinite(grad))
+                and (gap <= allowed or not held)):
+            raise AssertionError(f"the SLQ LML {val} is not the mBCG LML "
+                                 f"{val_m} within {allowed}")
+    log(f"slice N={n}: K1 launches in the three SLQ evaluations: "
+        f"{slq_launches['chunked_spmm']}")
+    gp.args.update({"gp2Scale_solver": "mbcg",
+                    "gp2Scale_solver_dtype": "bfloat16"})
+    if slq_launches["chunked_spmm"] < 1:
+        raise AssertionError("chunked_spmm never launched on the SLQ path")
+    pvs = {}
+    # two-level twice: its first solve also pays what runs once per
+    # process (the first large dense Cholesky and triangular solve)
+    for precond in ("two_level", "block_jacobi", "two_level"):
+        gp.args["gp2Scale_posterior_precond"] = precond
+        torch.cuda.reset_peak_memory_stats()
+        pv, secs, got = counted(lambda: gp.posterior_covariance(
+            xp, variance_only=True)["v(x)"])
+        info = gp.kv.last_solve_info
+        pvs.setdefault(precond, (pv, got))
+        log(f"slice N={n}: posterior variance (500 points) with {precond}: "
+            f"{secs:.3f} s (assembly and preconditioner included), CG "
+            f"iterations {info['iterations']} in {info['chunks']} chunk(s), "
+            f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+            f"launches {json.dumps(got)}")
+        if info["preconditioner"] != precond or not (
+                pv.shape == (500,) and np.all(np.isfinite(pv))):
+            raise AssertionError(f"the {precond} posterior variance failed")
+    diff = float(np.abs(pvs["two_level"][0] - pvs["block_jacobi"][0]).max())
+    drift = float(np.abs(pvs["block_jacobi"][0] - pv_journey).max())
+    log(f"slice N={n}: max |two_level - block_jacobi| variance {diff:.3e} "
+        f"(bound {SLICE_VAR_BOUND:g}); block-Jacobi against the journey's "
+        f"own variance {drift:.3e}")
+    if not (diff <= SLICE_VAR_BOUND and drift <= SLICE_VAR_BOUND):
+        raise AssertionError("the two-level posterior variance disagrees")
+    two_level = pvs["two_level"][1]
+    if two_level["row_chunk_sums"] < 1:
+        raise AssertionError("row_chunk_sums never launched on the "
+                             "two-level path")
+    return {"slq": slq_launches, "two_level": two_level}
 
 
 def stored_model(x, y, hps, device, extra):
@@ -932,7 +1137,7 @@ def stored_cross_check():
     hps = np.array([1.0, 2.0, 2.0, 2.0])
     trial = hps * 1.02
     X = np.random.default_rng(5).standard_normal((N, 4))
-    out = {}
+    out, gla_out = {}, {}
     for name, device, extra in (
             ("cpu", "cpu", {}), ("float32", "cuda", {}),
             ("bfloat16", "cuda", {"gp2Scale_storage_dtype": "bfloat16"})):
@@ -952,6 +1157,8 @@ def stored_cross_check():
         ones = torch.ones(N + n_new, dtype=gp.prior.dtype, device=gp.device)
         row_sums = K2.matmat(ones).double().cpu().numpy()
         out[name] = (KX, lml, S, row_sums, str(K.tiles.dtype), its)
+        if name != "bfloat16":
+            gla_out[name] = gla_case(gp, device)
         if name == "float32":
             stored_mcmc_steps(gp, hps)
         log(f"stored-K cross-check N={N} {name}: tiles {K.tiles.dtype}, "
@@ -975,6 +1182,35 @@ def stored_cross_check():
         if bad:
             raise AssertionError(f"stored-K cross-check {name} out of "
                                  f"bounds: {bad}")
+    (x_ref, ld_ref), (x32, ld32) = gla_out["cpu"], gla_out["float32"]
+    errs = {"cg": float(np.linalg.norm(x32 - x_ref) / np.linalg.norm(x_ref)),
+            "logdet": abs(ld32 - ld_ref) / abs(ld_ref)}
+    log(f"gp_lin_alg on the stored K+V, N={N} (before the append), CUDA "
+        "float32 vs CPU float64: "
+        + ", ".join(f"{k} {errs[k]:.3e} (bound {GLA_BOUNDS[k]:g})"
+                    for k in errs))
+    if not all(errs[k] <= GLA_BOUNDS[k] for k in errs):
+        raise AssertionError(f"gp_lin_alg on the stored K disagrees: {errs}")
+
+
+def gla_case(gp, device):
+    """``gp_lin_alg`` on the model's stored K+V, where it lives: a
+    preconditioned CG solve of y and the SLQ log-determinant (its probes
+    drawn on the CPU from seed 0, so both devices see the same)."""
+    from fvgp_tpu_torch import gp_lin_alg as gla
+    KV = gp.kv.KV
+    y = np.asarray(gp.y_data)[:, 0]
+    t0 = time.time()
+    _, M = gla.calculate_sparse_preconditioner(KV)
+    xs = gla.calculate_sparse_conj_grad(KV, y, M=M, args={
+        "sparse_cg_tol": 1e-7, "sparse_cg_maxiter": 1000})
+    info = {}
+    ld = gla.calculate_random_logdet(KV, compute_device=device, args={
+        "random_logdet_min_num_samples": 16}, info_out=info)
+    log(f"gp_lin_alg on the stored K+V ({device}): CG + SLQ "
+        f"{time.time() - t0:.2f} s, logdet {ld:.4f} ({info['num_samples']} "
+        f"probes, relative error {info['relative_error']:.2e})")
+    return xs[:, 0], ld
 
 
 def stored_mcmc_steps(gp, hps):
@@ -1268,8 +1504,11 @@ def main():
     dense_launches = dense_journey(10_000)
     log(f"dense journey phase: {time.time() - t0:.1f} s")
     t0 = time.time()
-    sparse_launches, traced_lml = full_journey(1_000_000)
-    log(f"gp2Scale journey phase: {time.time() - t0:.1f} s")
+    slice_cross_check()
+    log(f"slice cross-check phase: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    sparse_launches, traced_lml, slice_launches = full_journey(1_000_000)
+    log(f"gp2Scale journey and slice phase: {time.time() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.time()
     stored_cross_check()
@@ -1280,13 +1519,18 @@ def main():
     # each kernel's launches on the four paths, each read just after its
     # run: K4's ops entry, the dense journey, the gp2Scale journey, the
     # stored-K journey
-    launches = {name: spmv_launches[name] + dense_launches[name]
-                + sparse_launches[name] + stored_launches[name]
-                for name in REPLACES}
+    paths = [spmv_launches, dense_launches, sparse_launches,
+             slice_launches["slq"], slice_launches["two_level"],
+             stored_launches]
+    launches = {name: sum(p[name] for p in paths) for name in REPLACES}
     for kern, name in (("K1", "chunked_spmm"), ("K2", "row_chunk_sums")):
         log(f"{kern} launches by path: " + json.dumps(
             {"gp2Scale journey": sparse_launches[name],
+             "SLQ solver (3 LML+grad)": slice_launches["slq"][name],
+             "two-level variance": slice_launches["two_level"][name],
              "stored-K journey": stored_launches[name]}))
+    log("K1 at the SLQ batch width (k = 16, N = 1M structure): "
+        + json.dumps(records.pop("k1_slq_batch")))
     log("K1 from BlockSparseMatrix at the stored-K journey's shapes: "
         + json.dumps(stored_records))
 

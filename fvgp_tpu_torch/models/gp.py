@@ -175,6 +175,28 @@ class GP:
     def mcmc_info(self):
         return self.trainer.mcmc_info
 
+    @property
+    def dask_client(self):
+        """Always None: the port has no Dask (kept for API parity)."""
+        return None
+
+    def initialize_gp2Scale_dask_client(self, gp2Scale=None, dask_client=None):
+        """No-op kept for API parity: the gp2Scale covariance is computed on
+        the card, so there is no client to create.  Returns the (ignored)
+        ``dask_client`` argument."""
+        return dask_client
+
+    def get_hyperparameters(self):
+        """Deprecated accessor of ``hyperparameters``."""
+        warnings.warn("`get_hyperparameters()` is deprecated. Please use "
+                      "`hyperparameters`", DeprecationWarning, stacklevel=2)
+        return self.hyperparameters
+
+    def get_prior_pdf(self):
+        """The prior covariance and mean at the data points."""
+        return {"prior covariance (K)": self.prior.K,
+                "prior mean": self.prior.m}
+
     def set_args(self, new_args):
         """Change the advanced-settings dict (cached state is kept)."""
         self.args = new_args
@@ -360,6 +382,15 @@ class GP:
         return self.marginal_likelihood.neg_log_likelihood_gradient(
             hyperparameters=hyperparameters, component=component)
 
+    def test_log_likelihood_gradient(self, hyperparameters, epsilon=1e-6):
+        """Forward differences of the LML beside its analytic gradient:
+        ``(finite differences, analytic)``."""
+        if not (isinstance(hyperparameters, np.ndarray)
+                and hyperparameters.ndim == 1):
+            raise AssertionError("wrong format in hyperparameters")
+        return self.marginal_likelihood.test_log_likelihood_gradient(
+            hyperparameters, epsilon=epsilon)
+
     # ----------------------------------------------------------------------
     def posterior_mean(self, x_pred, hyperparameters=None, x_out=None):
         """Posterior mean ``m(x*) + k(x*, X)ᵀ (K+V)⁻¹ (y − m)``; returns a
@@ -416,6 +447,15 @@ class GP:
     def make_1d_x_pred(b, res=100):
         return np.linspace(b[0], b[1], res).reshape(res, -1)
 
+    def get_gp2Scale_exec_time(self, time_per_worker_execution,
+                               number_of_workers):
+        """The covariance's wall-clock cost model
+        t = N²·t_block / (2·workers·batch²)."""
+        b = self.prior.batch_size
+        D = len(self.x_data)
+        return (D ** 2 * time_per_worker_execution) \
+            / (2. * number_of_workers * b ** 2)
+
     def __getattr__(self, name):
         # the rest of the JAX GP surface arrives slice by slice
         if name in _NOT_PORTED:
@@ -438,12 +478,8 @@ _NOT_PORTED = {
                      "gp_entropy_grad", "gp_kl_div", "gp_mutual_information",
                      "gp_total_correlation", "gp_relative_information_entropy",
                      "gp_relative_information_entropy_set",
-                     "posterior_probability", "test_log_likelihood_gradient",
-                     "get_prior_pdf"), "1.2"),
+                     "posterior_probability"), "1.2"),
     **dict.fromkeys(("crps", "nrmse", "nlpd", "picp", "coverage_curve",
                      "mpiw", "interval_score", "mae", "mape", "msll",
                      "plot_observed_vs_predicted", "gaussian_1d"), "1.6"),
-    **dict.fromkeys(("dask_client", "initialize_gp2Scale_dask_client",
-                     "get_hyperparameters", "get_gp2Scale_exec_time"),
-                    "1.3"),
 }

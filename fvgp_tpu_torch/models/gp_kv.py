@@ -630,8 +630,12 @@ class GPkv:
                          min(self.prior.batch_size, 256)))
         pwidth = max(1, int(args.get("gp2Scale_posterior_precond_width",
                                      args.get("gp2Scale_precond_width", 1))))
+        # the posterior solve's preconditioner: block_jacobi or two_level
+        # (amg); the training mBCG is block-diagonal by construction
+        ptype = str(args.get("gp2Scale_posterior_precond", "block_jacobi"))
+        coarse_w = args.get("gp2Scale_posterior_coarse_width", None)
         key = (self.data.point_number, self.data.generation, B, pwidth,
-               hps.tobytes(), self.linalg_mode,
+               ptype, coarse_w, hps.tobytes(), self.linalg_mode,
                args.get("gp2Scale_posterior_solver_dtype"),
                args.get("gp2Scale_solver_dtype"),
                args.get("gp2Scale_posterior_cg_tol"),
@@ -683,7 +687,10 @@ class GPkv:
             self._fast_solver_ctx = {"key": key, "fn": None, "mode": mode}
             return None
 
-        from ..ops.sparse_lml import make_committed_solver, make_padded_inputs
+        from ..ops.sparse_lml import (_coarse_width,
+                                      _normalize_committed_precond,
+                                      make_committed_solver,
+                                      make_padded_inputs)
         dtype = self.dtype
         device = self.data.device
         xb, mask, _, _, noise_pad = make_padded_inputs(
@@ -744,7 +751,8 @@ class GPkv:
         assemble, solver = make_committed_solver(
             _stable_kernel_closure(self.prior), nb, B, cg_iters=maxiter,
             solver_dtype=sdt, precond_width=pwidth, cg_tol=tol,
-            row_chunk=C_fused if use_fused else None)
+            row_chunk=C_fused if use_fused else None,
+            precond_type=ptype, coarse_width=coarse_w)
         # Column budget: the fixed residents (tiles + preconditioner) come
         # off the memory budget first; the rest divides by the per-column
         # cost (5 live CG buffers + the matvec's cast copy + the SpMM
@@ -760,6 +768,10 @@ class GPkv:
         sitem = torch.finfo(sdt).bits // 8 if sdt is not None else 0
         fixed = (T_pad * B * B * (sitem or item)
                  + nb * pwidth * B * B * item + (512 << 20))
+        if _normalize_committed_precond(ptype) == "two_level":
+            # the (nbg, nbg) float32 coarse inverse and its Cholesky workspace
+            nbg = -(-nb // _coarse_width(nb, coarse_w))
+            fixed += 3 * nbg * nbg * 4
         bytes_per_col = n_pad * (5 * item + sitem + 4)
         col_budget = max(1, max(budget - fixed, budget // 8)
                          // max(bytes_per_col, 1))
@@ -873,7 +885,8 @@ class GPkv:
         out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
         self.last_solve_info = {
             "method": "committed_pcg",
-            "preconditioner": "block_jacobi",
+            "preconditioner": self.args.get("gp2Scale_posterior_precond",
+                                            "block_jacobi"),
             "iterations": its[0] if len(its) == 1 else its,
             "chunks": len(widths)}
         return out[:, 0] if squeeze else out

@@ -13,8 +13,11 @@ averaged over the columns of a multi-column y.
   MCMC chains) is evaluated in chunks sized from the card's free memory.
   Host (numpy) callables get the value through the committed-mode trial
   solve; their gradient engine waits for ROADMAP item 1.6.
-* gp2Scale: the differentiable mBCG program of
-  ``ops/sparse_lml.make_sparse_lml``.  The host-side structure pass
+* gp2Scale: the differentiable program of ``ops/sparse_lml.make_sparse_lml``
+  (``args["gp2Scale_solver"]``: ``"mbcg"``, the default, or ``"slq"`` with
+  ``args["random_logdet_lanczos_degree"]``); its estimator variance is
+  ``log_likelihood_variance``, its Hessian central differences of the
+  gradient.  The host-side structure pass
   (bounding-box candidates at inflated lengthscales, exact tile liveness) is
   cached under the JAX package's drift policy, and the tile schedule is
   row-sorted once per structure for the K1 kernel.
@@ -144,8 +147,13 @@ class GPMarginalLikelihood:
         probes = int(args.get("random_logdet_fixed_probes",
                               max(16, int(args.get(
                                   "random_logdet_min_num_samples", 10)))))
-        key = (n, B, nb, cg_iters, ctol, probes, str(dtype), str(sdt), pwidth,
-               self.data.point_number)
+        degree = int(args.get("random_logdet_lanczos_degree", 20))
+        # "mbcg" (the default): one preconditioned CG over [y-m | probes]
+        # gives the solve and the log-determinant; "slq" runs an
+        # implicit-gradient CG and a fixed-degree Lanczos quadrature apart
+        solver = str(args.get("gp2Scale_solver", "mbcg"))
+        key = (n, B, nb, cg_iters, ctol, probes, degree, str(dtype), str(sdt),
+               solver, pwidth, self.data.point_number)
         entry = self._sparse_cache.get(key)
         if entry is None:
             with phase_timer("sparse LML: padded inputs (host pad + "
@@ -158,8 +166,9 @@ class GPMarginalLikelihood:
             if xb.shape[0] != nb:
                 raise AssertionError((tuple(xb.shape), nb))
             lml = make_sparse_lml(_stable_kernel_closure(prior), nb, B,
-                                  cg_iters=cg_iters,
-                                  solver_dtype=sdt, precond_width=pwidth,
+                                  cg_iters=cg_iters, slq_degree=degree,
+                                  with_variance=True, solver_dtype=sdt,
+                                  solver=solver, precond_width=pwidth,
                                   cg_tol=ctol)
             entry = {"lml": lml, "xb": xb, "mask": mask, "y_pad": y_pad,
                      "ypad_mask": ypad_mask, "noise_pad": noise_pad,
@@ -235,12 +244,16 @@ class GPMarginalLikelihood:
         with phase_timer("sparse LML: device program"), \
                 torch.set_grad_enabled(want_grad):
             hps.requires_grad_(want_grad)
-            val = entry["lml"](hps, rows_d, cols_d, entry["xb"],
-                               entry["mask"], entry["y_pad"],
-                               entry["ypad_mask"], entry["noise_pad"], Z)
-            if want_grad:
-                grad, = torch.autograd.grad(val, hps)
-                return float(val.detach()), config.to_numpy(grad)
+            val, var = entry["lml"](hps, rows_d, cols_d, entry["xb"],
+                                    entry["mask"], entry["y_pad"],
+                                    entry["ypad_mask"], entry["noise_pad"], Z)
+            grad = torch.autograd.grad(val, hps)[0] if want_grad else None
+        var = float(var.detach())
+        self.kv.last_logdet_variance = var
+        self.kv.last_logdet_info = {"variance": var,
+                                    "num_samples": probes, "degree": degree}
+        if want_grad:
+            return float(val.detach()), config.to_numpy(grad)
         return float(val)
 
     # ------------------------------------------------------------------
@@ -467,15 +480,41 @@ class GPMarginalLikelihood:
         return -grad
 
     def neg_log_likelihood_hessian(self, hyperparameters=None):
-        """The exact Hessian of -L (autograd twice through the dense LML)."""
+        """Hessian of -L.  Dense: the exact Hessian (autograd twice through
+        the dense LML).  gp2Scale: central differences of the gradient with
+        the step 1e-3·max(1, |h_i|), symmetrized — each gradient draws its
+        own probes, as the JAX package's do."""
         self._require_gradient()
-        if self.data.gp2Scale:
-            raise NotImplementedError(
-                "fvgp_tpu_torch: the gp2Scale Hessian is not ported yet "
-                "(ROADMAP item 1.4)")
         if hyperparameters is None:
             hyperparameters = self.hyperparameters
-        hess = torch.autograd.functional.hessian(
-            lambda h: -self._dense_lml(h)[0],
-            self._hps_tensor(hyperparameters))
-        return np.asarray(config.to_numpy(hess), dtype=np.float64)
+        if not self.data.gp2Scale:
+            hess = torch.autograd.functional.hessian(
+                lambda h: -self._dense_lml(h)[0],
+                self._hps_tensor(hyperparameters))
+            return np.asarray(config.to_numpy(hess), dtype=np.float64)
+        H = len(hyperparameters)
+        d2 = np.zeros((H, H))
+        for i in range(H):
+            eps = 1e-3 * max(1.0, abs(float(hyperparameters[i])))
+            hp = np.array(hyperparameters, dtype=np.float64)
+            hm = np.array(hyperparameters, dtype=np.float64)
+            hp[i] += eps
+            hm[i] -= eps
+            d2[i] = (self.neg_log_likelihood_gradient(hyperparameters=hp)
+                     - self.neg_log_likelihood_gradient(hyperparameters=hm)
+                     ) / (2.0 * eps)
+        return 0.5 * (d2 + d2.T)
+
+    def test_log_likelihood_gradient(self, hyperparameters, epsilon=1e-6):
+        """Forward differences of the LML beside the analytic gradient:
+        ``(finite differences, analytic)``."""
+        thps = np.array(hyperparameters, dtype=np.float64)
+        grad = np.empty(len(thps))
+        base = self.log_likelihood(hyperparameters=thps)
+        for i in range(len(thps)):
+            aux = np.array(thps)
+            aux[i] += epsilon
+            grad[i] = (self.log_likelihood(hyperparameters=aux) - base) \
+                / epsilon
+        analytical = -self.neg_log_likelihood_gradient(hyperparameters=thps)
+        return grad, np.asarray(analytical)

@@ -5,16 +5,21 @@ wide solver — the gp2Scale engine, single device (counterpart of
 * Covariance tiles are assembled chunk by chunk from the block structure;
   the gradient reaches the hyperparameters through a per-chunk recompute in
   the backward, so no full (T, B, B) autograd graph is ever held.
-* The LML is the fused mBCG estimator (Gardner et al. 2018): one
-  preconditioned CG over ``[y-m | L_M·probes]`` gives the solve and a
-  Lanczos quadrature of the log-determinant; its backward is one
-  matvec-VJP and no extra solve.
-* The SpMM of every CG iteration is the hand-written K1 kernel on the card
-  (``ops/hopper_kernels.chunked_spmm``); the committed posterior solver's
-  wide SpMM is K2 (``row_chunk_sums``).
+* The LML has two solvers.  ``solver="mbcg"`` (the default) is the fused
+  mBCG estimator (Gardner et al. 2018): one preconditioned CG over
+  ``[y-m | L_M·probes]`` gives the solve and a Lanczos quadrature of the
+  log-determinant; its backward is one matvec-VJP and no extra solve.
+  ``solver="slq"`` runs them apart: a CG solve with an implicit-function
+  backward (one more CG and one matvec-VJP) and a stochastic Lanczos
+  quadrature of fixed degree, differentiated through its recursion.
+* The SpMM of every CG iteration and Lanczos step is the hand-written K1
+  kernel on the card (``ops/hopper_kernels.chunked_spmm``); the committed
+  posterior solver's wide SpMM is K2 (``row_chunk_sums``), preconditioned by
+  block-Jacobi or by the two-level operator (block-Jacobi plus a Galerkin
+  coarse-grid correction).
 
-Single device only: the mesh and halo SpMMs, ``solver="slq"`` and the
-two-level preconditioner of the JAX module are not ported yet (ROADMAP).
+Single device only: the mesh and halo SpMMs of the JAX module are not
+ported yet (ROADMAP item 1.8).
 """
 
 import math
@@ -229,7 +234,8 @@ def _cg_fixed(matvec, Bmat, iters, M=None, tol=None, mv_dtype=None,
     X = torch.zeros_like(Bmat)
     R = Bmat.clone()
     Zp = M(R)
-    P = Zp
+    # R is updated in place below: without a preconditioner Zp IS R
+    P = Zp.clone()
     rz = torch.sum(R * Zp, dim=0)
     # once the residual has collapsed, further updates must be EXACT no-ops
     rz0 = torch.clamp(rz, min=torch.finfo(Bmat.dtype).tiny)
@@ -377,9 +383,124 @@ class _QuadLogdet(torch.autograd.Function):
                 None, None, None, None, None)
 
 
-def make_sparse_lml(kernel_fn, nb, B, *, cg_iters=64, with_variance=False,
-                    solver_dtype=None, precond_width=1, cg_tol=None):
-    """The sparse LML as a differentiable function (fused mBCG solver)
+class _SymmetricSpmm(torch.autograd.Function):
+    """``A @ X`` on K1 with a backward that uses the schedule's mirror
+    symmetry: a covariance schedule holds every tile and its mirror (the
+    tile at (c, r) is the tile at (r, c) transposed), so ``Aᵀ Ȳ = A Ȳ`` is
+    one more K1 launch instead of the general VJP's plain transposed
+    scatter.  The tiles' cotangent is the general VJP's (``need_x=False``).
+    The forward saves X and nothing of the tiles' gathers."""
+
+    @staticmethod
+    def forward(ctx, tiles, X, rows, cols_c, nb, B, mv_dtype):
+        ctx.save_for_backward(tiles, X, rows, cols_c)
+        ctx.nb, ctx.B, ctx.mv_dtype = nb, B, mv_dtype
+        return chunked_spmm(rows, cols_c, tiles, X, nb, B, mv_dtype=mv_dtype)
+
+    @staticmethod
+    def backward(ctx, ybar):
+        tiles, X, rows, cols_c = ctx.saved_tensors
+        tiles_bar = X_bar = None
+        if ctx.needs_input_grad[0]:
+            tiles_bar, _ = chunked_spmm_vjp(rows, cols_c, tiles, X, ybar,
+                                            ctx.nb, ctx.B, ctx.mv_dtype,
+                                            need_x=False)
+        if ctx.needs_input_grad[1]:
+            X_bar = chunked_spmm(rows, cols_c, tiles, ybar, ctx.nb, ctx.B,
+                                 mv_dtype=ctx.mv_dtype)
+        return tiles_bar, X_bar, None, None, None, None, None
+
+
+def _slq_fixed(matvec, Z, degree):
+    """SLQ log-determinant with fixed probes ``Z`` (n_pad, P) and a fixed
+    degree; Rademacher probes are zero on padded rows, so the estimate
+    covers the logical matrix.  One Lanczos recursion batched over the P
+    columns (one SpMM of width P per step, per-column alpha / beta), then
+    one batched ``eigh`` of the P tridiagonals.  Returns the mean of the P
+    estimates and their population variance over P.
+
+    The JAX package checkpoints every step so that its backward does not
+    keep the step's gathered (T, B, k) tile blocks.  Here the step's SpMM
+    is an autograd Function that saves X only, so no recompute is needed."""
+    P = Z.shape[1]
+    tiny = torch.finfo(Z.dtype).tiny
+    v = Z / torch.linalg.norm(Z, dim=0)
+    v_prev = torch.zeros_like(v)
+    beta_prev = torch.zeros(P, dtype=Z.dtype, device=Z.device)
+    alphas, betas = [], []
+    for _ in range(int(degree)):
+        w = matvec(v)
+        alpha = torch.sum(w * v, dim=0)
+        w = w - alpha * v - beta_prev * v_prev
+        beta = torch.linalg.norm(w, dim=0)
+        # breakdown guard in the working dtype: a literal 1e-300 is 0 in
+        # float32, and an exact breakdown (diagonal K+V) would give 0/0
+        v_prev, v = v, w / torch.clamp(beta, min=tiny)
+        beta_prev = beta
+        alphas.append(alpha)
+        betas.append(beta)
+    a = torch.stack(alphas, dim=1)
+    b = torch.stack(betas[:-1], dim=1) if len(betas) > 1 \
+        else a[:, :0]
+    T = (torch.diag_embed(a) + torch.diag_embed(b, offset=1)
+         + torch.diag_embed(b, offset=-1))
+    theta, U = torch.linalg.eigh(T)
+    theta = torch.clamp(theta, min=1e-30)
+    vals = torch.sum(Z * Z, dim=0) * torch.sum(U[:, 0, :] ** 2
+                                               * torch.log(theta), dim=1)
+    return torch.mean(vals), torch.var(vals, correction=0) / P
+
+
+class _ImplicitCG(torch.autograd.Function):
+    """(K+V)⁻¹ Bv by CG, differentiated by the implicit-function theorem:
+    for X = (K+V)⁻¹ Bv the backward is one more CG, W = (K+V)⁻¹ X̄, and one
+    matvec-VJP at the primal solution with every cotangent negated:
+    tiles get -W[r] X[c]ᵀ, the noise -Σ_k W·X, Bv gets W.  ``Minv`` (the
+    block-inverse preconditioner, or None) only steers the iteration and
+    gets no cotangent."""
+
+    @staticmethod
+    def forward(ctx, tiles, noise, Minv, Bv, rows, cols_c, nb, B, iters,
+                mv_dtype, tol):
+        spmv = _spmv_for(nb, B, mv_dtype)
+
+        def mv(X):
+            return spmv(rows, cols_c, tiles, X) + noise[:, None] * X
+
+        M = None if Minv is None else (lambda X: _block_apply(Minv, X))
+        X = _cg_fixed(mv, Bv, iters, M=M, tol=tol, mv_dtype=mv_dtype)
+        ctx.save_for_backward(tiles, noise, Minv, X, rows, cols_c)
+        ctx.nb, ctx.B, ctx.iters = nb, B, iters
+        ctx.mv_dtype, ctx.tol = mv_dtype, tol
+        return X
+
+    @staticmethod
+    def backward(ctx, Xbar):
+        tiles, noise, Minv, X, rows, cols_c = ctx.saved_tensors
+        nb, B, mv_dtype = ctx.nb, ctx.B, ctx.mv_dtype
+        spmv = _spmv_for(nb, B, mv_dtype)
+
+        def mv(V):
+            return spmv(rows, cols_c, tiles, V) + noise[:, None] * V
+
+        M = None if Minv is None else (lambda V: _block_apply(Minv, V))
+        W = _cg_fixed(mv, Xbar.contiguous(), ctx.iters, M=M, tol=ctx.tol,
+                      mv_dtype=mv_dtype)
+        tiles_bar = noise_bar = None
+        if ctx.needs_input_grad[0]:
+            tiles_bar, _ = chunked_spmm_vjp(rows, cols_c, tiles, X, -W, nb, B,
+                                            mv_dtype, need_x=False)
+        if ctx.needs_input_grad[1]:
+            noise_bar = -torch.sum(W * X, dim=1)
+        return (tiles_bar, noise_bar, None, W, None, None, None, None, None,
+                None, None)
+
+
+def make_sparse_lml(kernel_fn, nb, B, *, cg_iters=64, slq_degree=20,
+                    with_variance=False, mean_mode="data", prior_mean_fn=None,
+                    precondition=True, solver_dtype=None, solver="mbcg",
+                    precond_width=1, cg_tol=None):
+    """The sparse LML as a differentiable function
 
         lml(hps, rows, cols, xb, mask, y_pad, ypad_mask, noise_diag_pad, Z)
 
@@ -393,23 +514,55 @@ def make_sparse_lml(kernel_fn, nb, B, *, cg_iters=64, with_variance=False,
     to nb*B with a validity mask (padded noise is 1.0; probes ``Z`` are
     zero on padded rows, so padding adds log(1) = 0).
 
+    ``solver="mbcg"`` (the default) is the fused estimator; ``"slq"`` runs
+    an implicit-gradient CG solve (preconditioned by the block inverses
+    when ``precondition``) and a degree-``slq_degree`` Lanczos quadrature
+    of log|K+V| on the probes.  The SLQ backward takes ``Aᵀ = A`` from the
+    schedule's mirror symmetry: the schedule must hold every tile and its
+    mirror, as a covariance's does.  ``mean_mode="data"`` centres y on its
+    mean, anything else on ``prior_mean_fn(hps)``.
+
     ``cg_iters`` is a maximum: the solve exits once every column's relative
     preconditioned residual is below ``cg_tol`` (per-dtype defaults in
-    ``_freeze_tol_sq``); the quadrature degree follows the exit point."""
+    ``_freeze_tol_sq``); the mBCG quadrature degree follows the exit
+    point."""
+    if solver not in ("slq", "mbcg"):
+        raise ValueError(f"unknown sparse-LML solver {solver!r}; "
+                         "use 'mbcg' (fused, the default — also what the GP "
+                         "facade and bench use) or 'slq'")
 
     def lml(hps, rows, cols, xb, mask, y_pad, ypad_mask, noise_diag_pad, Z):
         rows_c = torch.clamp(rows, max=nb - 1)
         cols_c = torch.clamp(cols, max=nb - 1)
         tiles = _assemble_chunked_tiles(kernel_fn, B, solver_dtype, hps,
                                         rows_c, cols_c, rows < nb, xb, mask)
-        Minv, Lb = _diag_precond_blocks(kernel_fn, B, precond_width, hps, xb,
-                                        mask, noise_diag_pad)
+        Minv = Lb = None
+        if solver == "mbcg" or precondition:
+            Minv, Lb = _diag_precond_blocks(kernel_fn, B, precond_width, hps,
+                                            xb, mask, noise_diag_pad)
         n = torch.sum(ypad_mask)
-        m = torch.sum(y_pad) / n
+        if mean_mode == "data":
+            m = torch.sum(y_pad) / n
+        else:
+            m = prior_mean_fn(hps)
         ym = (y_pad - m) * ypad_mask
-        quad, logdet, logdet_var = _QuadLogdet.apply(
-            tiles, noise_diag_pad, Minv, Lb, ym, Z, rows, cols_c, nb, B,
-            cg_iters, solver_dtype, cg_tol)
+        if solver == "mbcg":
+            quad, logdet, logdet_var = _QuadLogdet.apply(
+                tiles, noise_diag_pad, Minv, Lb, ym, Z, rows, cols_c, nb, B,
+                cg_iters, solver_dtype, cg_tol)
+        else:
+            alpha = _ImplicitCG.apply(
+                tiles, noise_diag_pad, Minv if precondition else None,
+                ym[:, None], rows, cols_c, nb, B, cg_iters, solver_dtype,
+                cg_tol)[:, 0]
+            quad = torch.dot(ym, alpha)
+
+            def matvec(X):
+                return (_SymmetricSpmm.apply(tiles, X, rows, cols_c, nb, B,
+                                             solver_dtype)
+                        + noise_diag_pad[:, None] * X)
+
+            logdet, logdet_var = _slq_fixed(matvec, Z, slq_degree)
         value = -0.5 * (quad + logdet + n * math.log(2.0 * math.pi))
         if with_variance:
             return value, logdet_var
@@ -418,22 +571,115 @@ def make_sparse_lml(kernel_fn, nb, B, *, cg_iters=64, with_variance=False,
     return lml
 
 
-def make_committed_solver(kernel_fn, nb, B, *, cg_iters=96, solver_dtype=None,
-                          precond_width=1, cg_tol=None, row_chunk=None):
-    """Committed-state WIDE solve (K+V)⁻¹ RHS, block-Jacobi, one device:
+def _coarse_inverse(tiles, rows, cols, noise_diag_pad, nb, B, cw):
+    """Inverse of the Galerkin coarse matrix A_c = Pᵀ(K+V)P for the
+    block-constant prolongation P over groups of ``cw`` point blocks
+    (``ops/precond.build_two_level_op``'s correction, rebuilt from the
+    committed tile set): per-tile sums scatter-added into (nbg, nbg), the
+    groups' noise sums on the diagonal, one dense Cholesky and an explicit
+    inverse.  Float32 throughout: the coarse grid only steers the CG
+    iteration, never the solution.  Sentinel tiles are zero, so their
+    clamped scatter targets get nothing.  The float32 scatter adds in
+    another order from run to run on the card; only the iteration count
+    can notice."""
+    nbg = -(-nb // cw)
+    T = tiles.shape[0]
+    ts = torch.empty(T, dtype=torch.float32, device=tiles.device)
+    step = 16384
+    for s in range(0, T, step):
+        ts[s:s + step] = torch.sum(tiles[s:s + step].to(torch.float32),
+                                   dim=(1, 2))
+    gr = torch.clamp(rows.long() // cw, max=nbg - 1)
+    gc = torch.clamp(cols.long() // cw, max=nbg - 1)
+    Ac = torch.zeros((nbg, nbg), dtype=torch.float32, device=tiles.device)
+    Ac.index_put_((gr, gc), ts, accumulate=True)
+    ns = torch.sum(noise_diag_pad.to(torch.float32).reshape(nb, B), dim=1)
+    gb = torch.clamp(torch.arange(nb, device=tiles.device) // cw,
+                     max=nbg - 1)
+    Ac.index_put_((gb, gb), ns, accumulate=True)
+    # mirrored tiles make A_c symmetric up to the scatter's rounding; the
+    # small relative jitter covers the float32 sums (PᵀAP of an SPD A is SPD)
+    Ac = 0.5 * (Ac + Ac.T)
+    eye = torch.eye(nbg, dtype=torch.float32, device=tiles.device)
+    L = torch.linalg.cholesky(Ac + (1e-6 * torch.mean(torch.diagonal(Ac)))
+                              * eye)
+    Linv = torch.linalg.solve_triangular(L, eye, upper=False)
+    return Linv.T @ Linv
 
-        assemble(hps, rows, cols, xb, mask, noise_diag_pad) -> (tiles, Minv)
-        solve(tiles, Minv, rows, cols, noise_diag_pad, RHS) -> (X, iters)
+
+def _two_level_apply(pdata, X, B, cw):
+    """M⁻¹X = block-Jacobi smoother + additive coarse correction
+    P A_c⁻¹ Pᵀ X (block-constant P over ``cw``-block groups; the last group
+    may be short).  The correction is added into the smoother's output in
+    place."""
+    Minv, Acinv = pdata
+    z = _block_apply(Minv, X)
+    nbg = Acinv.shape[0]
+    gsz = cw * B
+    n, k = X.shape
+    full = n // gsz
+    r_c = torch.zeros((nbg, k), dtype=X.dtype, device=X.device)
+    if full:
+        r_c[:full] = torch.sum(X[:full * gsz].reshape(full, gsz, k), dim=1)
+    if full < nbg:
+        r_c[full] = torch.sum(X[full * gsz:], dim=0)
+    y = (Acinv @ r_c.to(Acinv.dtype)).to(z.dtype)
+    if full:
+        z[:full * gsz].view(full, gsz, k).add_(y[:full, None, :])
+    if full < nbg:
+        z[full * gsz:].add_(y[full])
+    return z
+
+
+def _normalize_committed_precond(name):
+    """Canonical name of the committed solver's preconditioner."""
+    n = str(name).lower()
+    if n in ("two_level", "twolevel", "two-level") or "amg" in n:
+        return "two_level"
+    if n in ("block_jacobi", "jacobi", "bj", "diag", "diagonal"):
+        return "block_jacobi"
+    raise Exception(f"Unknown committed-solver preconditioner: {name!r}. "
+                    f"Known: block_jacobi, two_level/amg.")
+
+
+def _coarse_width(nb, coarse_width=None):
+    """Point blocks per coarse aggregate of the two-level preconditioner:
+    the caller's, else sized so the coarse grid stays at most 4096."""
+    return int(coarse_width) if coarse_width else max(1, -(-nb // 4096))
+
+
+def make_committed_solver(kernel_fn, nb, B, *, cg_iters=96, solver_dtype=None,
+                          precond_width=1, cg_tol=None, row_chunk=None,
+                          precond_type="block_jacobi", coarse_width=None):
+    """Committed-state WIDE solve (K+V)⁻¹ RHS, one device:
+
+        assemble(hps, rows, cols, xb, mask, noise_diag_pad) -> (tiles, pdata)
+        solve(tiles, pdata, rows, cols, noise_diag_pad, RHS) -> (X, iters)
 
     ``assemble`` runs once per committed state; ``solve`` once per column
-    chunk.  ``rows``/``cols`` arrive UNCLAMPED (sentinel == nb) and
-    ROW-SORTED.  With ``row_chunk`` set, ``solve``'s ``rows`` is the
-    per-chunk row index of ``row_aligned_schedule`` and the SpMM is the
-    fused K2 path (float32/bfloat16 only); otherwise wide right-hand sides
-    stream the tiles through ``_spmv_scan`` and narrow ones take the flat
-    SpMM (K1 on the card).  Padded rows carry unit noise and zero RHS, so
-    their solution is exactly zero."""
+    chunk.  ``precond_type`` is ``"block_jacobi"`` (pdata = the batched
+    block inverses) or ``"two_level"`` / ``"amg"`` (pdata = (block inverses,
+    the coarse inverse of ``_coarse_inverse``), ``coarse_width`` blocks per
+    coarse aggregate, default sized so the coarse grid stays at most 4096).
+    The mBCG training solver cannot use the two-level operator: its
+    quadrature needs probes z = L_M·u and an exact log|M|, which a
+    block-diagonal M gives and the two-level one does not.
+
+    ``rows``/``cols`` arrive UNCLAMPED (sentinel == nb) and ROW-SORTED.
+    With ``row_chunk`` set, ``solve``'s ``rows`` is the per-chunk row index
+    of ``row_aligned_schedule`` and the SpMM is the fused K2 path
+    (float32/bfloat16 only); otherwise wide right-hand sides stream the
+    tiles through ``_spmv_scan`` and narrow ones take the flat SpMM (K1 on
+    the card).  Padded rows carry unit noise and zero RHS, so their
+    solution is exactly zero."""
     flat_spmv = _spmv_for(nb, B, solver_dtype)
+    ptype = _normalize_committed_precond(precond_type)
+    cw = _coarse_width(nb, coarse_width) if ptype == "two_level" else None
+
+    def m_for(pdata):
+        if ptype == "two_level":
+            return lambda X: _two_level_apply(pdata, X, B, cw)
+        return lambda X: _block_apply(pdata, X)
 
     def assemble(hps, rows, cols, xb, mask, noise_diag_pad):
         with torch.no_grad():
@@ -446,9 +692,12 @@ def make_committed_solver(kernel_fn, nb, B, *, cg_iters=96, solver_dtype=None,
                                             rows_c, cols_c, live, xb, mask)
             Minv, _ = _diag_precond_blocks(kernel_fn, B, precond_width, hps,
                                            xb, mask, noise_diag_pad)
+            if ptype == "two_level":
+                return tiles, (Minv, _coarse_inverse(
+                    tiles, rows, cols, noise_diag_pad, nb, B, cw))
         return tiles, Minv
 
-    def solve(tiles, Minv, rows, cols, noise_diag_pad, RHS):
+    def solve(tiles, pdata, rows, cols, noise_diag_pad, RHS):
         if row_chunk is not None and RHS.dtype == torch.float64:
             raise ValueError(
                 "make_committed_solver(row_chunk=...): the fused row-aligned "
@@ -471,9 +720,9 @@ def make_committed_solver(kernel_fn, nb, B, *, cg_iters=96, solver_dtype=None,
             return out + noise_diag_pad[:, None] * X
 
         with torch.no_grad():
-            return _cg_fixed(matvec, RHS, cg_iters,
-                             M=lambda X: _block_apply(Minv, X), tol=cg_tol,
-                             mv_dtype=solver_dtype, with_iters=True)
+            return _cg_fixed(matvec, RHS, cg_iters, M=m_for(pdata),
+                             tol=cg_tol, mv_dtype=solver_dtype,
+                             with_iters=True)
 
     return assemble, solve
 

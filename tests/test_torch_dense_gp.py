@@ -352,3 +352,31 @@ def test_update_kv_extends_or_refactorizes_by_the_drift_check(mode):
         if mode != "Chol":
             close_at_scale(kv.KVinv, torch.linalg.inv(KV))
         assert kv.KV is KV
+
+
+def test_facade_methods_match_jax(chol_pair):
+    """The small facade methods: the dask pair (no-ops), the deprecated
+    hyperparameter accessor, the prior pdf, the gp2Scale cost model and the
+    gradient self-test."""
+    dim, (jgp, tgp) = chol_pair
+    assert tgp.dask_client is None and jgp.dask_client is None
+    marker = object()
+    assert tgp.initialize_gp2Scale_dask_client(dask_client=marker) is marker
+    with pytest.warns(DeprecationWarning, match="get_hyperparameters"):
+        _close(tgp.get_hyperparameters(), jgp.hyperparameters)
+    pdf, jpdf = tgp.get_prior_pdf(), jgp.get_prior_pdf()
+    assert set(pdf) == set(jpdf)
+    _close(pdf["prior covariance (K)"].numpy(), jpdf["prior covariance (K)"])
+    _close(pdf["prior mean"].numpy(), jpdf["prior mean"])
+    assert tgp.get_gp2Scale_exec_time(0.5, 4) == pytest.approx(
+        jgp.get_gp2Scale_exec_time(0.5, 4), rel=1e-15)
+    h = _hps(dim) * 1.05
+    fd, an = tgp.test_log_likelihood_gradient(h, epsilon=1e-6)
+    jfd, jan = jgp.test_log_likelihood_gradient(h, epsilon=1e-6)
+    _close(an, jan)
+    # forward differences: the LMLs' last bits over epsilon = 1e-6 and the
+    # step's truncation, ~1e-5 of the gradient
+    np.testing.assert_allclose(fd, jfd, rtol=1e-4)
+    np.testing.assert_allclose(fd, an, rtol=1e-4)
+    with pytest.raises(AssertionError):
+        tgp.test_log_likelihood_gradient(list(h))

@@ -686,3 +686,128 @@ def test_stored_k_modes_on_card_match_the_cpu(cuda_device, mode, extra):
     assert abs(got[0] - ref[0]) <= 1e-3 * abs(ref[0])
     np.testing.assert_allclose(got[1], ref[1], atol=1e-3)
     np.testing.assert_allclose(got[2], ref[2], atol=1e-3 * ref[2].max())
+
+
+def _slice_case(device, N=1000, B=32, seed=6):
+    """A mirrored, row-sorted covariance schedule (sentinel tail) with its
+    padded inputs, for the gp2Scale solver options on the card."""
+    from fvgp_tpu_torch.parallel.ordering import morton_order
+    from fvgp_tpu_torch.parallel.sharded_cov import _candidate_pairs
+    from fvgp_tpu_torch.ops.sparse_lml import make_padded_inputs
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0, 16, (N, 2))
+    x = x[morton_order(x)]
+    y = np.sin(x[:, 0])
+    hps = np.array([1.0, 2.0, 2.0])
+    rows, cols = _candidate_pairs(x, None, hps[1:], 1.0, B, symmetric=True)
+    off = rows < cols
+    nb = -(-N // B)
+    rows_f = np.concatenate([rows, cols[off]])
+    cols_f = np.concatenate([cols, rows[off]])
+    order = np.argsort(rows_f, kind="stable")
+    rows_f = np.concatenate([rows_f[order], np.full(7, nb)]).astype(np.int32)
+    cols_f = np.concatenate([cols_f[order], np.full(7, nb)]).astype(np.int32)
+    Z = rng.choice([-1.0, 1.0], size=(nb * B, 16))
+    Z[N:] = 0.0
+    inputs = {}
+    for dt in (torch.float32, torch.float64):
+        inputs[dt] = make_padded_inputs(x, y, np.full(N, 1e-2), B, dtype=dt,
+                                        device=device)
+    return hps, nb, B, rows_f, cols_f, Z, inputs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sdt", [None, torch.bfloat16])
+def test_slq_lml_gradient_on_k1_matches_the_plain_route(cuda_device, sdt):
+    """``make_sparse_lml(solver="slq")`` on the card (K1 in every CG trip,
+    Lanczos step and symmetric backward) against the same float32 program
+    on the CPU, where ``chunked_spmm`` takes its plain version.  float32:
+    the sums' order alone.  bf16 streaming: the iterates are cast to bf16
+    before every product, so where the two float32 sums differ in their
+    last bit a cast may round the other way (one bf16 ulp, 2^-8)."""
+    from fvgp_tpu_torch.kernels import wendland_anisotropic
+    from fvgp_tpu_torch.ops.sparse_lml import make_sparse_lml
+    out = {}
+    for dev in ("cpu", cuda_device):
+        hps, nb, B, rows, cols, Z, inputs = _slice_case(dev)
+        lml = make_sparse_lml(wendland_anisotropic, nb, B, cg_iters=200,
+                              slq_degree=20, solver="slq", solver_dtype=sdt)
+        h = torch.tensor(hps, dtype=torch.float32, device=dev,
+                         requires_grad=True)
+        before = HK.chunked_spmm.launches
+        v = lml(h, torch.as_tensor(rows).to(dev),
+                torch.as_tensor(cols).to(dev), *inputs[torch.float32],
+                torch.as_tensor(Z, dtype=torch.float32).to(dev))
+        g, = torch.autograd.grad(v, h)
+        out[str(dev)] = (float(v.detach()), g.double().cpu().numpy(),
+                         HK.chunked_spmm.launches - before)
+    (vc, gc, nc), (vg, gg, ng) = out["cpu"], out[str(cuda_device)]
+    assert nc == 0 and ng > 40        # CG fwd + bwd, 20 steps + 20 bwd
+    lml_tol, grad_tol = (1e-5, 1e-4) if sdt is None else (1e-3, 1e-2)
+    assert abs(vg - vc) <= lml_tol * abs(vc)
+    assert np.linalg.norm(gg - gc) <= grad_tol * np.linalg.norm(gc)
+
+
+@pytest.mark.cuda
+def test_symmetric_route_on_k1_matches_general_vjp_on_card(cuda_device):
+    """The SLQ step's backward ``Aᵀ Ȳ = A Ȳ`` (one K1 launch) against the
+    general VJP's plain transposed scatter, on a mirrored schedule."""
+    from fvgp_tpu_torch.kernels import wendland_anisotropic
+    from fvgp_tpu_torch.ops.sparse_lml import (_assemble_chunked_tiles,
+                                               _SymmetricSpmm)
+    hps, nb, B, rows, cols, _, inputs = _slice_case(cuda_device)
+    r = torch.as_tensor(rows).to(cuda_device)
+    cc = torch.as_tensor(cols).to(cuda_device).clamp(max=nb - 1)
+    xb, mask = inputs[torch.float32][:2]
+    with torch.no_grad():
+        tiles = _assemble_chunked_tiles(
+            wendland_anisotropic, B, None,
+            torch.tensor(hps, dtype=torch.float32, device=cuda_device),
+            r.clamp(max=nb - 1), cc, r < nb, xb, mask)
+    gen = torch.Generator().manual_seed(2)
+    X = torch.randn((nb * B, 16), generator=gen).to(cuda_device)
+    Ybar = torch.randn((nb * B, 16), generator=gen).to(cuda_device)
+    Xr = X.clone().requires_grad_(True)
+    Y = _SymmetricSpmm.apply(tiles, Xr, r, cc, nb, B, None)
+    before = HK.chunked_spmm.launches
+    g, = torch.autograd.grad(Y, Xr, grad_outputs=Ybar)
+    assert HK.chunked_spmm.launches == before + 1
+    _, ref = HK.chunked_spmm_vjp(r, cc, tiles, X, Ybar, nb, B, need_x=True)
+    torch.testing.assert_close(g, ref, rtol=0,
+                               atol=1e-4 * float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+def test_two_level_committed_solve_on_k2_matches_the_plain_scan(cuda_device):
+    """The two-level committed solve with the fused K2 SpMM on the card
+    against the same solve on the CPU, where ``row_chunk_sums`` takes its
+    plain version: float32 both, the same schedule and coarse grid."""
+    from fvgp_tpu_torch.kernels import wendland_anisotropic
+    from fvgp_tpu_torch.ops.sparse_lml import make_committed_solver
+    hps, nb, B, rows, cols, _, _ = _slice_case(cuda_device)
+    live = rows < nb
+    rows_p, cols_p, rowsc, _ = HK.row_aligned_schedule(rows[live],
+                                                       cols[live], nb, C=8)
+    rng = np.random.default_rng(3)
+    RHS = rng.standard_normal((nb * B, 24))
+    RHS[1000:] = 0.0
+    out = {}
+    for dev in ("cpu", cuda_device):
+        inputs = _slice_case(dev)[-1]
+        xb, mask, _, _, noise = inputs[torch.float32]
+        assemble, solve = make_committed_solver(
+            wendland_anisotropic, nb, B, cg_iters=300, cg_tol=1e-5,
+            row_chunk=8, precond_type="two_level", coarse_width=3)
+        t = lambda a: torch.as_tensor(a).to(dev)              # noqa: E731
+        tiles, pdata = assemble(t(hps).float(), t(rows_p), t(cols_p), xb,
+                                mask, noise)
+        before = HK.row_chunk_sums.launches
+        X, it = solve(tiles, pdata, t(rowsc), t(cols_p), noise,
+                      t(RHS).float())
+        out[str(dev)] = (X.cpu().numpy(), it,
+                         HK.row_chunk_sums.launches - before)
+    (Xc, itc, nc), (Xg, itg, ng) = out["cpu"], out[str(cuda_device)]
+    assert nc == 0 and ng >= itg > 0
+    assert abs(itg - itc) <= 2
+    np.testing.assert_allclose(Xg, Xc, rtol=0,
+                               atol=1e-3 * float(np.abs(Xc).max()))

@@ -126,8 +126,13 @@ def test_dense_path_and_unported_methods_raise():
         gp = GP(x, y, gp2Scale=True, compute_device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 1.5"):
         gp.train(method="bo")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 1.4"):
-        gp.marginal_likelihood.neg_log_likelihood_hessian()
+    # served since the gp2Scale Hessian was ported: central differences of
+    # the gradient, symmetric
+    hess = gp.marginal_likelihood.neg_log_likelihood_hessian()
+    assert hess.shape == (x.shape[1] + 1,) * 2 and np.all(np.isfinite(hess))
+    np.testing.assert_array_equal(hess, hess.T)
+    with pytest.raises(NotPortedError, match="ROADMAP item 1.2"):
+        gp.posterior_probability(x, y)
     with pytest.raises(AttributeError):
         gp.no_such_attribute
     # the stored-K slice's own raising sites: the multi-device layout,
