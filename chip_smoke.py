@@ -62,9 +62,21 @@ line is never printed):
    and without the preconditioner and the SLQ log-determinant timed alone;
    after they are read, ``K @ X`` at k=1 on the appended K.
 
-K4's entry point and phases 6, 7 and 9 are the paths: every kernel's launch
-counter is reset just before each and read just after it, and the
-``launches`` of a kernel is its sum over the four.  The line before the
+Since the posterior-API slice also: 5b. the posterior API against the CPU
+in float64 — at dense N=2,000 every new method (posterior gradients, the
+information-theory suite, the validation metrics) in float32 and float64 on
+the card, ``kernel_dtype="float32"`` under float64, a custom ``[factor,
+solve, logdet]`` on ``torch.linalg.cholesky`` with an append, a pickle round
+trip; at gp2Scale N=10,000 the posterior gradients and the relative
+information entropy in float32; 6b. on the dense journey's trained model
+all 23 new methods on 200 points, each call counted; 7b. on the N=1M
+journey's trained model the posterior gradients, KL divergence, relative
+information entropy and posterior probability on 100 points and four
+metrics on 500, each call counted.
+
+K4's entry point and phases 6, 6b, 7, 7b and 9 are the paths: every
+kernel's launch counter is reset just before each and read just after it,
+and the ``launches`` of a kernel is its sum over them.  The line before the
 last is
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
 Exits non-zero without a CUDA device.
@@ -745,7 +757,9 @@ def slice_cross_check():
     LML and gradient and the two-level posterior variance (64 points) on
     CUDA, float32 and bfloat16 streaming, against the CPU in float64 at the
     same probes (fresh models draw the same seeds); then the gp2Scale
-    Hessian (mBCG, central differences of 8 gradients) in float32."""
+    Hessian (mBCG, central differences of 8 gradients) in float32 at
+    N=2,500 (its CPU float64 reference took ~50 s of the smoke at
+    N=10,000)."""
     from fvgp_tpu_torch import GP
     N = 10_000
     x, y, xp = journey_data(N, seed=2)
@@ -757,9 +771,9 @@ def slice_cross_check():
     options = {"gp2Scale_solver": "slq",
                "gp2Scale_posterior_precond": "two_level"}
 
-    def model(device, extra):
+    def model(device, extra, x=x, y=y):
         return GP(x, y, init_hyperparameters=hps,
-                  noise_variances=np.full(N, 1e-2), gp2Scale=True,
+                  noise_variances=np.full(len(x), 1e-2), gp2Scale=True,
                   compute_device=device, linalg_mode="sparseCGpre",
                   args={**base, **extra})
 
@@ -792,10 +806,11 @@ def slice_cross_check():
         if bad:
             raise AssertionError(f"slice cross-check {name} out of bounds: "
                                  f"{bad}")
-    hess = {}
+    hess, N = {}, 2_500
+    xh, yh, _ = journey_data(N, seed=2)
     for device in ("cpu", "cuda"):
         t0 = time.time()
-        hess[device] = model(device, {}).marginal_likelihood \
+        hess[device] = model(device, {}, xh, yh).marginal_likelihood \
             .neg_log_likelihood_hessian(hps)
         log(f"slice cross-check N={N} {device}: gp2Scale Hessian "
             f"{time.time() - t0:.2f} s, diagonal "
@@ -812,11 +827,11 @@ def slice_cross_check():
 DENSE_BOUNDS = {"lml": 1e-4, "grad": 1e-3, "mean": 1e-3, "var": 1e-3}
 
 
-def dense_model(x, y, hps, device):
+def dense_model(x, y, hps, device, args=None):
     from fvgp_tpu_torch import GP
     return GP(x, y, init_hyperparameters=hps,
               noise_variances=np.full(len(x), 1e-2), compute_device=device,
-              linalg_mode="Chol")
+              linalg_mode="Chol", args=args)
 
 
 def dense_cross_check():
@@ -924,7 +939,370 @@ def dense_journey(N):
     if launches["block_spmv"] != 0:
         raise AssertionError("block_spmv launched on the dense journey, "
                              "which has no call to it")
-    return launches
+    return launches, dense_api_phase(gp, xp, lambda: dense_model(
+        x, y, gp.hyperparameters, "cuda", {"dtype": "float64"}))
+
+
+# ---------------------------------------------------------------------------
+# the posterior and information API (the methods an experiment loop calls
+# after every fit)
+# ---------------------------------------------------------------------------
+
+# each output against the CPU in float64, as its largest absolute error over
+# the largest |output| ("of the scale").  Set before the first run on the
+# card from the same comparison on the CPU, float32 against float64 (plain
+# versions, dense N=2,000, 64 points): about 30x the CPU's float32 error,
+# at least 1e-4 (CPU float32: mean gradient 7.2e-6, variance gradient
+# 4.4e-6, KL 5.6e-7, RIE 2.6e-6, per-point RIE 1.7e-5, probability 2.5e-5,
+# its mean 4.6e-6, joint gradient 1.1e-6, entropy 1.8e-7, its gradient
+# 2.7e-5, mutual information 2.1e-6, total correlation 4.6e-6, metrics
+# <= 4.3e-6).  A coverage fraction moves by 1/64 per point that crosses an
+# interval's edge: two points allowed.  The difference quotients of
+# k(x*, x*) are taken in float64 in both.  Float64 on the card against the
+# CPU: 1e-10, and 1e-8 for the outputs built from the quotients (they divide
+# ~1e-16 of K3 against the plain formula by 1e-6, and the entropy gradient
+# multiplies by ~S⁻¹).  Tightened from 1e-6 after the first two runs on the
+# card (H100, 700 W) measured at most 7.1e-14 and, for the quotients,
+# 1.3e-10, so that a float32 computation (CPU float32 >= 1.8e-7 above) fails.
+_COVERAGE = {"picp": 0.05, "coverage_curve": 0.05}
+_QUOTIENTS = ("posterior_covariance_grad", "joint_gp_prior_grad",
+              "gp_entropy_grad")
+API_BOUNDS = {
+    "float32": {"posterior_mean_grad": 3e-4, "posterior_covariance_grad": 2e-4,
+                "gp_kl_div": 1e-4, "gp_relative_information_entropy": 1e-4,
+                "gp_relative_information_entropy_set": 5e-4,
+                "posterior_probability": 8e-4,
+                "posterior_probability_mu": 2e-4,
+                "joint_gp_prior_grad": 1e-4, "gp_entropy": 1e-4,
+                "gp_entropy_grad": 1e-3, "gp_mutual_information": 1e-4,
+                "gp_total_correlation": 2e-4, "crps": 1e-4, "nrmse": 1e-4,
+                "nlpd": 1e-4, "mpiw": 1e-4, "interval_score": 1e-4,
+                "mae": 2e-4, "mape": 2e-4, "msll": 1e-4, "gaussian_1d": 1e-4,
+                **_COVERAGE},
+    "float64": {}}
+API_BOUNDS["float64"] = {**dict.fromkeys(API_BOUNDS["float32"], 1e-10),
+                         **dict.fromkeys(_QUOTIENTS, 1e-8), **_COVERAGE}
+# gp2Scale N=10,000, float32 against the CPU in float64: the committed CG's
+# exit sets the error (CPU float32: mean gradient 2.3e-4, variance gradient
+# 4.8e-6, RIE 1.5e-5 of the scale)
+GP2_API_BOUNDS = {"posterior_mean_grad": 1e-2,
+                  "posterior_covariance_grad": 1e-3,
+                  "gp_relative_information_entropy": 1e-3}
+# ∂k/∂x (forward-mode AD, exact) on the card against the CPU in float64, of
+# the scale: float32 rounds the inputs and the kernel (CPU float32 ~1e-6)
+D_KERNEL_DX_BOUNDS = {"float32": 1e-4, "float64": 1e-10}
+# a pickled and loaded GP against the one pickled (same device, same
+# arithmetic)
+PICKLE_BOUND = 1e-6
+
+
+def host64(t):
+    return t.detach().cpu().double().numpy()
+
+
+def api_test_points(xp, n_pred, n_test):
+    """Prediction points, and test points with their noiseless targets (the
+    dense cell's function)."""
+    x_test = xp[n_pred:n_pred + n_test]
+    y_test = np.sin(x_test[:, 0]) + 0.25 * x_test[:, 1]
+    return xp[:n_pred], x_test, y_test
+
+
+# The 23 new methods: name -> (the public call on (gp, xp, comp, x_test,
+# y_test), the keys of its return value that are held).  The cross-checks
+# and the two counted phases all read this one table.  None holds the
+# return value itself; a second key is held as "<name>_<key>".  The plot
+# draws nothing to compare.  The joint-prior family factors or slogdets
+# K + 1e-9 I, which the dense cell's N=10,000 makes numerically singular in
+# float32: in the dense phase it is measured against the card's float64.
+API_CALLS = {
+    "posterior_mean_grad":
+        (lambda gp, xp, comp, xt, yt: gp.posterior_mean_grad(xp), ("dm/dx",)),
+    "posterior_covariance_grad":
+        (lambda gp, xp, comp, xt, yt: gp.posterior_covariance_grad(xp),
+         ("dv/dx",)),
+    "joint_gp_prior_grad":
+        (lambda gp, xp, comp, xt, yt: gp.joint_gp_prior_grad(xp, 0),
+         ("dS/dx",)),
+    "gp_entropy": (lambda gp, xp, comp, xt, yt: gp.gp_entropy(xp), None),
+    "gp_entropy_grad":
+        (lambda gp, xp, comp, xt, yt: gp.gp_entropy_grad(xp, 0), None),
+    "gp_mutual_information":
+        (lambda gp, xp, comp, xt, yt: gp.gp_mutual_information(xp),
+         ("mutual information",)),
+    "gp_total_correlation":
+        (lambda gp, xp, comp, xt, yt: gp.gp_total_correlation(xp),
+         ("total correlation",)),
+    "gp_kl_div":
+        (lambda gp, xp, comp, xt, yt: gp.gp_kl_div(xp, *comp), ("kl-div",)),
+    "gp_relative_information_entropy":
+        (lambda gp, xp, comp, xt, yt: gp.gp_relative_information_entropy(xp),
+         ("RIE",)),
+    "gp_relative_information_entropy_set":
+        (lambda gp, xp, comp, xt, yt:
+            gp.gp_relative_information_entropy_set(xp[:8]), ("RIE",)),
+    "posterior_probability":
+        (lambda gp, xp, comp, xt, yt: gp.posterior_probability(xp, *comp),
+         ("probability", "mu")),
+    "crps": (lambda gp, xp, comp, xt, yt: gp.crps(xt, yt), (0,)),
+    "nrmse": (lambda gp, xp, comp, xt, yt: gp.nrmse(xt, yt), None),
+    "nlpd": (lambda gp, xp, comp, xt, yt: gp.nlpd(xt, yt), None),
+    "picp": (lambda gp, xp, comp, xt, yt: gp.picp(xt, yt), None),
+    "coverage_curve":
+        (lambda gp, xp, comp, xt, yt: gp.coverage_curve(xt, yt),
+         ("measured_coverage",)),
+    "mpiw": (lambda gp, xp, comp, xt, yt: gp.mpiw(xt), None),
+    "interval_score":
+        (lambda gp, xp, comp, xt, yt: gp.interval_score(xt, yt), None),
+    "mae": (lambda gp, xp, comp, xt, yt: gp.mae(xt, yt), None),
+    "mape": (lambda gp, xp, comp, xt, yt: gp.mape(xt, yt), None),
+    "msll": (lambda gp, xp, comp, xt, yt: gp.msll(xt, yt), None),
+    "plot_observed_vs_predicted":
+        (lambda gp, xp, comp, xt, yt: gp.plot_observed_vs_predicted(xt, yt),
+         ()),
+    "gaussian_1d":
+        (lambda gp, xp, comp, xt, yt: gp.gaussian_1d(yt, 0.1, 0.7), None)}
+JOINT_FAMILY = ("joint_gp_prior_grad", "gp_entropy", "gp_entropy_grad",
+                "gp_mutual_information", "gp_total_correlation")
+HELD = tuple(name for name, (_, keys) in API_CALLS.items() if keys != ())
+
+
+def api_outputs(name, out):
+    """The held outputs of ``name``'s return value ``out``, by name."""
+    keys = API_CALLS[name][1]
+    if keys is None:
+        return {name: out}
+    return {name if i == 0 else f"{name}_{k}": out[k]
+            for i, k in enumerate(keys)}
+
+
+def api_values(gp, args, names=HELD):
+    """The held outputs of ``names`` at ``args = (xp, comp, x_test,
+    y_test)`` as float64 arrays, by name."""
+    out = {}
+    for name in names:
+        out.update(api_outputs(name, API_CALLS[name][0](gp, *args)))
+    return {k: np.asarray(v, dtype=np.float64) for k, v in out.items()}
+
+
+def scale_err(got, ref):
+    return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-300))
+
+
+def held(tag, errs, bounds):
+    """Log each error beside its bound; raise where one is exceeded (names
+    without a bound are measured only)."""
+    log(f"{tag}: " + ", ".join(
+        f"{k} {v:.3e}" + (f" (bound {bounds[k]:g})" if k in bounds
+                          else " (measured)") for k, v in errs.items()))
+    bad = [k for k, v in errs.items() if k in bounds and not v <= bounds[k]]
+    if bad:
+        raise AssertionError(f"{tag} out of bounds: {bad}")
+
+
+def posterior_api_cross_check(card="cuda"):
+    """The posterior API on the card against the CPU in float64: at dense
+    N=2,000 every new method in float32 and float64, ``kernel_dtype=
+    "float32"`` under float64, a custom mode on ``torch.linalg.cholesky``
+    and a pickle round trip; at gp2Scale N=10,000 (float32) the posterior
+    gradients and the relative information entropy.  ``card="cpu"`` (with
+    the plain versions) rehearses the comparison."""
+    import pickle
+
+    import torch
+
+    from fvgp_tpu_torch import GP
+    from fvgp_tpu_torch.ops import hopper_kernels as hk
+    x, y, xp_all = dense_cell_data(2_000, seed=8)
+    xp, x_test, y_test = api_test_points(xp_all, 64, 64)
+    hps = np.array([1.0, 1.5, 1.5, 1.5])
+
+    def model(device, **kw):
+        return GP(x, y, init_hyperparameters=hps,
+                  noise_variances=np.full(len(x), 1e-2),
+                  compute_device=device, linalg_mode=kw.pop("mode", "Chol"),
+                  **kw)
+
+    t0 = time.time()
+    ref_gp = model("cpu")
+    ref_mean = ref_gp.posterior_mean(xp)["m(x)"]
+    comp = (ref_mean + 0.01 * np.random.default_rng(3).standard_normal(64),
+            0.05 * np.eye(64))
+    args = (xp, comp, x_test, y_test)
+    ref = api_values(ref_gp, args)
+    log(f"posterior API cross-check N=2000: CPU float64 "
+        f"{time.time() - t0:.2f} s; " + ", ".join(
+            f"{k} {float(np.ravel(ref[k])[0]):.6g}" for k in
+            ("gp_entropy", "gp_kl_div", "gp_relative_information_entropy",
+             "gp_total_correlation", "posterior_probability")))
+    for dtype in ("float32", "float64"):
+        t0 = time.time()
+        gp = model(card, args={"dtype": dtype})
+        got = api_values(gp, args)
+        errs = {k: scale_err(got[k], ref[k]) for k in ref}
+        held(f"posterior API N=2000 {card} {dtype} vs CPU float64 "
+             f"({time.time() - t0:.2f} s)", errs, API_BOUNDS[dtype])
+        # ∂k/∂x by forward-mode AD: K3 must refuse the dual input (its
+        # launch would drop the tangent), so no launch and the CPU's value
+        launched = hk.dense_covariance.launches
+        dk = gp.prior.d_kernel_dx(xp, gp.x_data, 1, hps)
+        launched = hk.dense_covariance.launches - launched
+        dk_ref = ref_gp.prior.d_kernel_dx(xp, ref_gp.x_data, 1, hps)
+        held(f"d_kernel_dx N=2000 x 64 {card} {dtype} vs CPU float64 "
+             f"({launched} K3 launches)",
+             {"d_kernel_dx": scale_err(host64(dk), host64(dk_ref))},
+             {"d_kernel_dx": D_KERNEL_DX_BOUNDS[dtype]})
+        if launched:
+            raise AssertionError("K3 launched on a dual input")
+    # kernel_dtype="float32" under float64 linear algebra: K3 in float32
+    launched = hk.dense_covariance.launches
+    gp = model(card, args={"dtype": "float64", "kernel_dtype": "float32"})
+    launched = hk.dense_covariance.launches - launched
+    k_err = float((gp.prior.K.cpu() - ref_gp.prior.K).abs().max())
+    lml_err = abs(gp.log_likelihood() - ref_gp.log_likelihood()) \
+        / abs(ref_gp.log_likelihood())
+    held(f"kernel_dtype=float32 under float64 on {card} ({launched} K3 "
+         "launches)", {"K": k_err, "lml": lml_err},
+         {"K": 1e-5, "lml": DENSE_BOUNDS["lml"]})
+    if not (k_err > 0.0 and (launched > 0 or card == "cpu")):
+        raise AssertionError("kernel_dtype did not change the dense sweep")
+    # a custom [factor, solve, logdet] on torch tensors of the card
+    mode = [torch.linalg.cholesky,
+            lambda L, b: torch.cholesky_solve(b.reshape(len(L), -1),
+                                              L).reshape(b.shape),
+            lambda L: 2.0 * torch.sum(torch.log(torch.diagonal(L)))]
+    gp = model(card, mode=mode, args={"dtype": "float32"})
+    xn = xp_all[200:264]
+    yn = np.sin(xn[:, 0]) + 0.25 * xn[:, 1]
+    errs = {"lml": abs(gp.log_likelihood() - ref_gp.log_likelihood())
+            / abs(ref_gp.log_likelihood()),
+            "var": float(np.abs(
+                gp.posterior_covariance(xp, variance_only=True)["v(x)"]
+                - ref_gp.posterior_covariance(xp, variance_only=True)["v(x)"]
+            ).max())}
+    ref_app = model("cpu")
+    for m in (gp, ref_app):
+        m.update_gp_data(xn, yn, noise_variances_new=np.full(64, 1e-2))
+    errs["append_mean"] = float(np.abs(gp.posterior_mean(xp)["m(x)"]
+                                       - ref_app.posterior_mean(xp)["m(x)"])
+                                .max())
+    held(f"custom mode (torch.linalg.cholesky) on {card} float32 vs CPU "
+         "float64 Chol", errs, {"lml": DENSE_BOUNDS["lml"],
+                                "var": DENSE_BOUNDS["var"],
+                                "append_mean": DENSE_BOUNDS["mean"]})
+    # a pickle round trip on the card
+    gp = model(card)
+    before = (gp.log_likelihood(), gp.posterior_mean(xp)["m(x)"],
+              gp.posterior_covariance(xp, variance_only=True)["v(x)"])
+    blob = pickle.dumps(gp)
+    back = pickle.loads(blob)
+    after = (back.log_likelihood(), back.posterior_mean(xp)["m(x)"],
+             back.posterior_covariance(xp, variance_only=True)["v(x)"])
+    errs = {k: scale_err(np.asarray(a), np.asarray(b))
+            for k, a, b in zip(("lml", "mean", "var"), after, before)}
+    if back.device != gp.device or b"_rebuild_tensor" in blob:
+        raise AssertionError("the pickle holds tensors or moved the device")
+    held(f"pickle round trip on {card} ({len(blob) / 2**20:.1f} MiB, device "
+         f"{back.device})", errs, dict.fromkeys(errs, PICKLE_BOUND))
+    gp2scale_api_cross_check(card)
+
+
+def gp2scale_api_cross_check(card):
+    """The gp2Scale posterior gradients and relative information entropy at
+    N=10,000 (64 points): the card in float32 against the CPU in float64."""
+    from fvgp_tpu_torch import GP
+    N = 10_000
+    x, y, xp = journey_data(N, seed=2)
+    xp = xp[:64]
+    hps = np.array([1.0, 2.0, 2.0, 2.0])
+    base = {"gp2Scale_block_size": 128, "sparse_cg_maxiter": 64,
+            "gp2Scale_structure_cache_dir": False}
+    out = {}
+    for device, extra in (("cpu", {}), (card, {"dtype": "float32"})):
+        t0 = time.time()
+        gp = GP(x, y, init_hyperparameters=hps,
+                noise_variances=np.full(N, 1e-2), gp2Scale=True,
+                compute_device=device, linalg_mode="sparseCGpre",
+                args={**base, **extra})
+        dtype = extra.get("dtype", "float64")
+        out[dtype] = api_values(gp, (xp, None, None, None), GP2_API_BOUNDS)
+        log(f"posterior API gp2Scale N={N} {device} {dtype}: "
+            f"{time.time() - t0:.2f} s, RIE "
+            f"{float(out[dtype]['gp_relative_information_entropy']):.6g}")
+    ref, got = out["float64"], out["float32"]
+    held(f"posterior API gp2Scale N={N} {card} float32 vs CPU float64",
+         {k: scale_err(got[k], ref[k]) for k in ref}, GP2_API_BOUNDS)
+
+
+def api_phase(tag, gp, names, args, kernel):
+    """The public calls ``names`` of ``API_CALLS`` at ``args``, each
+    counted on its own (the counts set to 0 just before it, read just
+    after): logs seconds, the launches of ``kernel`` and peak device memory
+    per call; returns every kernel's summed launches and the held outputs,
+    which must be finite."""
+    import torch
+    total, values, rows = {name: 0 for name in REPLACES}, {}, []
+    for name in names:
+        torch.cuda.reset_peak_memory_stats()
+        val, secs, got = counted(lambda: API_CALLS[name][0](gp, *args))
+        for k in REPLACES:
+            total[k] += got[k]
+        values.update(api_outputs(name, val))
+        rows.append({"method": name, "s": round(secs, 4),
+                     kernel: got[kernel], "peak_GiB": round(
+                         torch.cuda.max_memory_allocated() / 2**30, 2)})
+    for row in rows:
+        log(f"{tag}: " + json.dumps(row))
+    log(f"{tag}: {len(names)} methods, {total[kernel]} {kernel} launches, "
+        f"{sum(r['s'] for r in rows):.2f} s in all")
+    values = {k: np.asarray(v, dtype=np.float64) for k, v in values.items()}
+    bad = [k for k, v in values.items() if not np.all(np.isfinite(v))]
+    if bad:
+        raise AssertionError(f"{tag}: non-finite {bad}")
+    if total[kernel] < 1:
+        raise AssertionError(f"{kernel} never launched on the {tag}")
+    return total, values
+
+
+def dense_api_phase(gp, xp_all, model64):
+    """All 23 new methods on the dense journey's trained model (N=10,000,
+    float32): 200 prediction points (8 for the per-point relative
+    information entropy) and 200 test points for the metrics; then,
+    uncounted, the joint-prior family on ``model64()``, the same model in
+    float64."""
+    xp, x_test, y_test = api_test_points(xp_all, 200, 200)
+    args = (xp, (gp.posterior_mean(xp)["m(x)"], 0.05 * np.eye(len(xp))),
+            x_test, y_test)
+    total, values = api_phase("dense N=10000 posterior API", gp, API_CALLS,
+                              args, "dense_covariance")
+    ref = api_values(model64(), args, JOINT_FAMILY)
+    log("dense N=10000 posterior API, the joint-prior family in float32 "
+        "against the card's float64 (measured, not held): " + ", ".join(
+            f"{k} {float(np.ravel(values[k])[0]):.6g} / "
+            f"{float(np.ravel(v)[0]):.6g} ("
+            f"{scale_err(values[k], v):.3e} of the scale)"
+            for k, v in ref.items()))
+    if values["posterior_mean_grad"].shape != (200, 3):
+        raise AssertionError("dense posterior API: wrong gradient shape")
+    return total
+
+
+def gp2scale_api_phase(gp, xp_all):
+    """The gp2Scale posterior API on the N=1M journey's trained model: the
+    posterior gradients, the KL divergence, the relative information
+    entropy and the posterior probability on 100 points, four metrics on
+    500."""
+    xp = xp_all[:100]
+    args = (xp, (gp.posterior_mean(xp)["m(x)"], 0.05 * np.eye(len(xp))),
+            xp_all, np.sin(0.2 * xp_all[:, 0]))
+    names = ("posterior_mean_grad", "posterior_covariance_grad", "gp_kl_div",
+             "gp_relative_information_entropy", "posterior_probability",
+             "crps", "nlpd", "picp", "msll")
+    total, values = api_phase(f"gp2Scale N={len(gp.x_data)} posterior API",
+                              gp, names, args, "row_chunk_sums")
+    if values["posterior_covariance_grad"].shape != (100, 3):
+        raise AssertionError("gp2Scale posterior API: wrong gradient shape")
+    return total
 
 
 def journey_model(x, y, hps):
@@ -1007,6 +1385,10 @@ def full_journey(N):
         raise AssertionError("block_spmv launched on the gp2Scale journey, "
                              "which has no call to it")
     slice_launches = slice_phase(gp, xp, pv, hps)
+    # back to the journey's own preconditioner (the slice phase left
+    # two-level set)
+    gp.args.pop("gp2Scale_posterior_precond", None)
+    slice_launches["posterior_api"] = gp2scale_api_phase(gp, xp)
     return launches, lml_at_hps, slice_launches
 
 
@@ -1501,8 +1883,11 @@ def main():
     dense_cross_check()
     log(f"dense cross-check phase: {time.time() - t0:.1f} s")
     t0 = time.time()
-    dense_launches = dense_journey(10_000)
-    log(f"dense journey phase: {time.time() - t0:.1f} s")
+    posterior_api_cross_check()
+    log(f"posterior API cross-check phase: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    dense_launches, dense_api_launches = dense_journey(10_000)
+    log(f"dense journey and posterior API phase: {time.time() - t0:.1f} s")
     t0 = time.time()
     slice_cross_check()
     log(f"slice cross-check phase: {time.time() - t0:.1f} s")
@@ -1519,8 +1904,9 @@ def main():
     # each kernel's launches on the four paths, each read just after its
     # run: K4's ops entry, the dense journey, the gp2Scale journey, the
     # stored-K journey
-    paths = [spmv_launches, dense_launches, sparse_launches,
-             slice_launches["slq"], slice_launches["two_level"],
+    paths = [spmv_launches, dense_launches, dense_api_launches,
+             sparse_launches, slice_launches["slq"],
+             slice_launches["two_level"], slice_launches["posterior_api"],
              stored_launches]
     launches = {name: sum(p[name] for p in paths) for name in REPLACES}
     for kern, name in (("K1", "chunked_spmm"), ("K2", "row_chunk_sums")):
@@ -1528,7 +1914,11 @@ def main():
             {"gp2Scale journey": sparse_launches[name],
              "SLQ solver (3 LML+grad)": slice_launches["slq"][name],
              "two-level variance": slice_launches["two_level"][name],
+             "gp2Scale posterior API": slice_launches["posterior_api"][name],
              "stored-K journey": stored_launches[name]}))
+    log("K3 launches by path: " + json.dumps(
+        {"dense journey": dense_launches["dense_covariance"],
+         "dense posterior API": dense_api_launches["dense_covariance"]}))
     log("K1 at the SLQ batch width (k = 16, N = 1M structure): "
         + json.dumps(records.pop("k1_slq_batch")))
     log("K1 from BlockSparseMatrix at the stored-K journey's shapes: "

@@ -6,7 +6,10 @@
   for a card — explicitly or by default — on a machine without one raises,
   and nothing falls back to the CPU quietly.
 * Linear algebra runs in :func:`linalg_dtype`: ``args["dtype"]`` when set,
-  else float64 on the CPU (the parity regime) and float32 on CUDA.
+  else float64 on the CPU (the parity regime) and float32 on CUDA; dense
+  kernel sweeps run in :func:`kernel_compute_dtype` (``args["kernel_dtype"]``).
+* A pickled model holds host numpy arrays and device names only
+  (:func:`host_state` / :func:`device_state`).
 * Float32 matrix products run in full float32: the port never turns TF32 on.
 
 There is no global switch and no compile cache: every tensor is created with
@@ -51,6 +54,55 @@ def linalg_dtype(args, device):
         return as_torch_dtype(args["dtype"])
     return torch.float64 if torch.device(device).type == "cpu" \
         else torch.float32
+
+
+def kernel_compute_dtype(args, device):
+    """The dtype in which dense kernel matrices are evaluated:
+    ``args['kernel_dtype']`` where given (then cast back to the linalg
+    dtype), else the linalg dtype."""
+    if isinstance(args, dict) and args.get("kernel_dtype") is not None:
+        return as_torch_dtype(args["kernel_dtype"])
+    return linalg_dtype(args, device)
+
+
+class _HostTensor:
+    """A tensor's place in a pickle: its host copy, dtype and device name
+    (bfloat16 travels as float32, which holds it exactly)."""
+
+    def __init__(self, t):
+        t = t.detach()
+        self.dtype = str(t.dtype).replace("torch.", "")
+        self.device = str(t.device)
+        self.array = (t.float() if t.dtype == torch.bfloat16 else t).cpu() \
+            .numpy()
+
+    def tensor(self):
+        return torch.as_tensor(self.array).to(resolve_device(self.device),
+                                              getattr(torch, self.dtype))
+
+
+def host_state(value):
+    """``value`` for a pickle: every tensor in it (also inside dicts, lists
+    and tuples) replaced by its host copy, so no CUDA tensor enters the
+    pickle and it loads back onto the device it came from."""
+    if torch.is_tensor(value):
+        return _HostTensor(value)
+    if isinstance(value, dict):
+        return {k: host_state(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return type(value)(host_state(v) for v in value)
+    return value
+
+
+def device_state(value):
+    """The inverse of :func:`host_state`."""
+    if isinstance(value, _HostTensor):
+        return value.tensor()
+    if isinstance(value, dict):
+        return {k: device_state(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return type(value)(device_state(v) for v in value)
+    return value
 
 
 def to_numpy(x):

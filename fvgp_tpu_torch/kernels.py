@@ -10,15 +10,19 @@ matmuls in it).  Above D = 32 (deep-kernel embeddings) the expansion is
 used, as in the JAX package.
 
 :func:`default_matern_ard`, the dense GP's default kernel, evaluates its
-2-D CUDA covariances that autograd does not record with the hand-written
-K3 kernel (``ops/hopper_kernels.dense_covariance``); everything else —
-the CPU, batched inputs, and every evaluation that autograd differentiates
-— takes the plain formula.
+2-D CUDA covariances that no derivative follows with the hand-written K3
+kernel (``ops/hopper_kernels.dense_covariance``); everything else — the
+CPU, batched inputs, every evaluation that autograd records, and every
+input that carries a forward-mode tangent (``torch.autograd.forward_ad``,
+as the posterior gradients' ``d_kernel_dx`` uses) — takes the plain formula.
+K3 is a launch with no derivative rule: a dual input would lose its
+tangent there.
 """
 
 import math
 
 import torch
+from torch.autograd import forward_ad
 
 __all__ = [
     "squared_exponential_kernel", "squared_exponential_kernel_robust",
@@ -175,12 +179,15 @@ def wendland_anisotropic(x1, x2, hyperparameters):
 
 def _k3_applies(x1, x2, hps):
     """True when K3 computes this covariance: 2-D float32/float64 CUDA
-    inputs of one dtype and device, D <= 32, and autograd recording none
-    of x1, x2, hps."""
+    inputs of one dtype and device, D <= 32, autograd recording none of
+    x1, x2, hps, and none of them carrying a forward-mode tangent."""
     if not (x1.is_cuda and x1.dim() == 2 and x2.dim() == 2
             and x1.dtype in (torch.float32, torch.float64)
             and x2.dtype == x1.dtype and x2.device == x1.device
             and x1.shape[1] <= _EXACT_MAX_DIM):
+        return False
+    if any(forward_ad.unpack_dual(t).tangent is not None
+           for t in (x1, x2, hps)):
         return False
     return not (torch.is_grad_enabled()
                 and (x1.requires_grad or x2.requires_grad
@@ -191,8 +198,9 @@ def default_matern_ard(x1, x2, hyperparameters):
     """The default kernel: hps[0] · Matérn-3/2 of the anisotropic distance,
     one lengthscale per input dimension.
 
-    Differentiable by autograd (the plain formula); a 2-D CUDA covariance
-    that autograd does not record runs the K3 kernel instead."""
+    Differentiable by autograd and forward-mode AD (the plain formula); a
+    2-D CUDA covariance that no derivative follows runs the K3 kernel
+    instead."""
     hps = torch.as_tensor(hyperparameters, dtype=x1.dtype, device=x1.device)
     if _k3_applies(x1, x2, hps):
         from .ops.hopper_kernels import dense_covariance

@@ -12,15 +12,18 @@ solver (K2 SpMM); off the traced path (``args["gp2Scale_traced_lml"] =
 False``, a multi-column y, a prior mean function, ``gp.K``,
 ``update_gp_data``, a full posterior covariance) it stores the covariance as
 a ``BlockSparseMatrix`` and solves against it with the Krylov / SLQ /
-preconditioner stack, the stored product again on K1.
-``compute_device="cpu"`` runs the same code with the
-kernels' plain versions, in float64 by default.  The methods below that
+preconditioner stack, the stored product again on K1.  On both: the
+posterior gradients, the information-theory suite, the validation metrics
+and pickling (the pickle holds host arrays and the device's name; it loads
+back onto that device).  ``compute_device="cpu"`` runs the same code with
+the kernels' plain versions, in float64 by default.  The methods below that
 raise ``NotImplementedError`` arrive with the ROADMAP items they name.
 """
 
 import warnings
 
 import numpy as np
+from scipy.stats import norm
 
 from .gp_data import GPdata
 from .gp_kv import GPkv, sequential_linalg_state
@@ -409,15 +412,103 @@ class GP:
             x_pred, x_out=x_out, variance_only=variance_only,
             add_noise=add_noise)
 
+    def posterior_mean_grad(self, x_pred, hyperparameters=None, x_out=None,
+                            direction=None, component=0):
+        """Gradient of the posterior mean with respect to the input:
+        ``direction=i`` gives ``dm/dx_i`` (shape ``(M,)``), ``None`` all
+        directions (``(M, D)``).  Dict with ``"x"``, ``"direction"``,
+        ``"dm/dx"``."""
+        return self.posterior.posterior_mean_grad(
+            x_pred, hyperparameters=hyperparameters, x_out=x_out,
+            direction=direction, component=component)
+
+    def posterior_covariance_grad(self, x_pred, x_out=None, direction=None):
+        """Gradient of the posterior (co)variance with respect to the input:
+        dict with ``"dv/dx"`` and, for one ``direction``, ``"dS/dx"``."""
+        return self.posterior.posterior_covariance_grad(
+            x_pred, x_out=x_out, direction=direction)
+
     def joint_gp_prior(self, x_pred, x_out=None):
         """The joint prior over data and prediction points: dict with the
         blocks ``"K"``, ``"k"``, ``"kappa"``, the joint ``"prior mean"``
         and the joint covariance ``"S"``."""
         return self.posterior.joint_gp_prior(x_pred, x_out=x_out)
 
+    def joint_gp_prior_grad(self, x_pred, direction, x_out=None):
+        """Input gradient of the joint prior's blocks."""
+        return self.posterior.joint_gp_prior_grad(x_pred, direction,
+                                                  x_out=x_out)
+
+    def gp_entropy(self, x_pred, x_out=None):
+        """Differential entropy of the joint prior over data and
+        prediction points."""
+        return self.posterior.gp_entropy(x_pred, x_out=x_out)
+
+    def gp_entropy_grad(self, x_pred, direction, x_out=None):
+        """Input-direction gradient of :meth:`gp_entropy`."""
+        return self.posterior.gp_entropy_grad(x_pred, direction, x_out=x_out)
+
+    def gp_kl_div(self, x_pred, comp_mean, comp_cov, x_out=None):
+        """KL divergence between the posterior at ``x_pred`` and
+        ``N(comp_mean, comp_cov)``: dict with ``"kl-div"`` and the moments
+        used."""
+        return self.posterior.gp_kl_div(x_pred, comp_mean, comp_cov,
+                                        x_out=x_out)
+
+    def gp_mutual_information(self, x_pred, x_out=None, add_noise=False):
+        """Mutual information between the data and the prediction points
+        under the joint prior."""
+        return self.posterior.gp_mutual_information(x_pred, x_out=x_out,
+                                                    add_noise=add_noise)
+
+    def gp_total_correlation(self, x_pred, x_out=None, add_noise=False):
+        """Total correlation of data and prediction points under the joint
+        prior."""
+        return self.posterior.gp_total_correlation(x_pred, x_out=x_out,
+                                                   add_noise=add_noise)
+
+    def gp_relative_information_entropy(self, x_pred, x_out=None,
+                                        add_noise=False):
+        """KL divergence of the posterior from the prior at ``x_pred``:
+        dict with ``"RIE"``."""
+        return self.posterior.gp_relative_information_entropy(
+            x_pred, x_out=x_out, add_noise=add_noise)
+
+    def gp_relative_information_entropy_set(self, x_pred, x_out=None,
+                                            add_noise=False):
+        """One relative information entropy per prediction point, each
+        point a set of its own."""
+        return self.posterior.gp_relative_information_entropy_set(
+            x_pred, x_out=x_out, add_noise=add_noise)
+
+    def posterior_probability(self, x_pred, comp_mean, comp_cov, x_out=None):
+        """Probability that the posterior and ``N(comp_mean, comp_cov)``
+        describe the same function values: dict with the fused ``"mu"``,
+        ``"covariance"`` and ``"probability"``."""
+        return self.posterior.posterior_probability(x_pred, comp_mean,
+                                                    comp_cov, x_out=x_out)
+
     # ----------------------------------------------------------------------
-    # validation helpers
+    # validation metrics
     # ----------------------------------------------------------------------
+    @staticmethod
+    def _crps_s(x, mu, sigma):
+        res = abs(sigma * ((1. / np.sqrt(np.pi))
+                           - 2. * norm.pdf((x - mu) / sigma)
+                           - (((x - mu) / sigma)
+                              * (2. * norm.cdf((x - mu) / sigma) - 1.))))
+        return np.mean(res), np.sqrt(np.var(res))
+
+    def crps(self, x_test, y_test):
+        """Continuous ranked probability score: (mean, standard
+        deviation)."""
+        mean = self.posterior_mean(x_test)["m(x)"]
+        sigma = np.sqrt(self.posterior_covariance(x_test)["v(x)"])
+        if not (mean.shape == sigma.shape == y_test.shape):
+            raise AssertionError(f"crps: shape mismatch mean={mean.shape} "
+                                 f"sigma={sigma.shape} y_test={y_test.shape}")
+        return self._crps_s(y_test, mean, sigma)
+
     def rmse(self, x_test, y_test):
         """Root mean squared error of the posterior mean."""
         v1, v2 = y_test, self.posterior_mean(x_test)["m(x)"]
@@ -425,6 +516,20 @@ class GP:
             raise AssertionError(f"rmse: y_test shape {v1.shape} != "
                                  f"posterior mean shape {v2.shape}")
         return np.sqrt(np.sum((v1 - v2) ** 2) / v1.size)
+
+    def nrmse(self, x_test, y_test):
+        """RMSE over the range of ``y_test``."""
+        return self.rmse(x_test, y_test) / (np.max(y_test) - np.min(y_test))
+
+    def nlpd(self, x_test, y_test):
+        """Negative log predictive density."""
+        mean = self.posterior_mean(x_test)["m(x)"]
+        v = self.posterior_covariance(x_test)["v(x)"]
+        if not (mean.shape == v.shape == y_test.shape):
+            raise AssertionError(f"nlpd: shape mismatch mean={mean.shape} "
+                                 f"v={v.shape} y_test={y_test.shape}")
+        return np.mean(0.5 * np.log(2 * np.pi * v)
+                       + 0.5 * ((y_test - mean) ** 2) / v)
 
     def r2(self, x_test, y_test):
         """R² prediction score of the posterior mean."""
@@ -435,6 +540,121 @@ class GP:
         ss_res = np.sum((y_test - y_pred) ** 2)
         ss_tot = np.sum((y_test - np.mean(y_test)) ** 2)
         return 1. - ss_res / ss_tot
+
+    def picp(self, x_test, y_true, interval=0.95):
+        """Prediction-interval coverage probability (noise included)."""
+        mu = self.posterior_mean(x_test)["m(x)"]
+        y_true = np.asarray(y_true)
+        if y_true.shape != np.asarray(mu).shape:
+            # a (M, 1) against (M,) broadcast would average M² pairs
+            raise AssertionError(f"y shape {y_true.shape} does not match "
+                                 f"posterior mean shape "
+                                 f"{np.asarray(mu).shape}")
+        sigma = np.sqrt(self.posterior_covariance(x_test,
+                                                  add_noise=True)["v(x)"])
+        z = norm.ppf(1 - (1 - interval) / 2)
+        lower, upper = mu - z * sigma, mu + z * sigma
+        return np.mean((y_true >= lower) & (y_true <= upper))
+
+    def coverage_curve(self, x_test, y_test, intervals=None):
+        """Measured against target coverage over interval levels."""
+        if intervals is None:
+            intervals = np.linspace(0.05, 0.95, 19)
+        return {"target_coverage": list(intervals),
+                "measured_coverage": [self.picp(x_test, y_test, interval=q)
+                                      for q in intervals]}
+
+    def mpiw(self, x_test, interval=0.95):
+        """Mean prediction-interval width (noise included)."""
+        v = self.posterior_covariance(x_test, add_noise=True)["v(x)"]
+        sigma = np.sqrt(np.clip(v, 0.0, None))
+        z = norm.ppf(1 - (1 - interval) / 2)
+        return np.mean(2 * z * sigma)
+
+    def interval_score(self, x_test, y_test, interval=0.95):
+        """Winkler interval score (noise included)."""
+        mean = self.posterior_mean(x_test)["m(x)"]
+        sigma = np.sqrt(self.posterior_covariance(x_test,
+                                                  add_noise=True)["v(x)"])
+        if not (mean.shape == sigma.shape == y_test.shape):
+            raise AssertionError(f"interval_score: shape mismatch "
+                                 f"mean={mean.shape} sigma={sigma.shape} "
+                                 f"y_test={y_test.shape}")
+        alpha = 1 - interval
+        z = norm.ppf(1 - alpha / 2)
+        lower, upper = mean - z * sigma, mean + z * sigma
+        penalty_low = (2 / alpha) * np.maximum(lower - y_test, 0)
+        penalty_high = (2 / alpha) * np.maximum(y_test - upper, 0)
+        return np.mean(upper - lower + penalty_low + penalty_high)
+
+    def mae(self, x_test, y_test):
+        """Mean absolute error of the posterior mean."""
+        v1, v2 = y_test, self.posterior_mean(x_test)["m(x)"]
+        if v1.shape != v2.shape:
+            raise AssertionError(f"mae: y_test shape {v1.shape} != "
+                                 f"posterior mean shape {v2.shape}")
+        return np.mean(np.abs(v1 - v2))
+
+    def mape(self, x_test, y_test):
+        """Mean absolute percentage error of the posterior mean."""
+        v1, v2 = y_test, self.posterior_mean(x_test)["m(x)"]
+        if v1.shape != v2.shape:
+            raise AssertionError(f"mape: y_test shape {v1.shape} != "
+                                 f"posterior mean shape {v2.shape}")
+        return np.mean(np.abs((v1 - v2) / v1))
+
+    def msll(self, x_test, y_test):
+        """Mean standardized log loss: the NLPD less that of a Gaussian
+        with the data's mean and variance."""
+        mean = self.posterior_mean(x_test)["m(x)"]
+        v = self.posterior_covariance(x_test)["v(x)"]
+        if not (mean.shape == v.shape == y_test.shape):
+            raise AssertionError(f"msll: shape mismatch mean={mean.shape} "
+                                 f"v={v.shape} y_test={y_test.shape}")
+        nlpd_gp = np.mean(0.5 * np.log(2 * np.pi * v)
+                          + 0.5 * ((y_test - mean) ** 2) / v)
+        baseline_mean = np.mean(self.y_data)
+        baseline_var = np.var(self.y_data)
+        nlpd_baseline = np.mean(0.5 * np.log(2 * np.pi * baseline_var)
+                                + 0.5 * ((y_test - baseline_mean) ** 2)
+                                / baseline_var)
+        return nlpd_gp - nlpd_baseline
+
+    def plot_observed_vs_predicted(self, x_test, y_test, title=None, ax=None):
+        """Observed-vs-predicted scatter with 1σ bars (needs matplotlib;
+        warns and draws nothing without it)."""
+        try:
+            import matplotlib.pyplot as plt
+        except ImportError:
+            warnings.warn("matplotlib is not installed; cannot create "
+                          "observed-vs-predicted plot.")
+            return
+        y_pred = self.posterior_mean(x_test)["m(x)"]
+        y_var = self.posterior_covariance(x_test, add_noise=True)["v(x)"]
+        y_obs_flat = np.asarray(y_test).reshape(-1)
+        y_pred_flat = np.asarray(y_pred).reshape(-1)
+        y_sigma_flat = np.sqrt(np.clip(np.asarray(y_var).reshape(-1), 0.0,
+                                       None))
+        if ax is None:
+            _, ax = plt.subplots(figsize=(6, 6))
+        ax.errorbar(y_obs_flat, y_pred_flat, yerr=y_sigma_flat, fmt="o",
+                    alpha=0.6, markersize=4, capsize=2, elinewidth=0.8,
+                    label="prediction ± 1σ")
+        lo = float(min(y_obs_flat.min(), (y_pred_flat - y_sigma_flat).min()))
+        hi = float(max(y_obs_flat.max(), (y_pred_flat + y_sigma_flat).max()))
+        ax.plot([lo, hi], [lo, hi], "k--", linewidth=1, label="y = x")
+        ax.set_xlabel("Observed")
+        ax.set_ylabel("Predicted")
+        if title is not None:
+            ax.set_title(title)
+        ax.set_aspect("equal", adjustable="box")
+        ax.legend(loc="best")
+
+    @staticmethod
+    def gaussian_1d(x, mu, sigma):
+        coefficient = 1.0 / (np.sqrt(2 * np.pi) * sigma)
+        exponent = -((x - mu) ** 2) / (2 * sigma ** 2)
+        return coefficient * np.exp(exponent)
 
     @staticmethod
     def make_2d_x_pred(bx, by, resx=100, resy=100):
@@ -470,16 +690,5 @@ class NotPortedError(NotImplementedError, AttributeError):
     yet (also an AttributeError, so ``hasattr`` stays False)."""
 
 
-_NOT_PORTED = {
-    **dict.fromkeys(("bo_info", "stop_training", "kill_client",
-                     "update_hyperparameters"), "1.5"),
-    **dict.fromkeys(("posterior_mean_grad", "posterior_covariance_grad",
-                     "joint_gp_prior_grad", "gp_entropy",
-                     "gp_entropy_grad", "gp_kl_div", "gp_mutual_information",
-                     "gp_total_correlation", "gp_relative_information_entropy",
-                     "gp_relative_information_entropy_set",
-                     "posterior_probability"), "1.2"),
-    **dict.fromkeys(("crps", "nrmse", "nlpd", "picp", "coverage_curve",
-                     "mpiw", "interval_score", "mae", "mape", "msll",
-                     "plot_observed_vs_predicted", "gaussian_1d"), "1.6"),
-}
+_NOT_PORTED = dict.fromkeys(("bo_info", "stop_training", "kill_client",
+                             "update_hyperparameters"), "1.5")

@@ -207,10 +207,12 @@ class GPdata:
     def __getstate__(self):
         state = dict(self.__dict__)
         state["structure_cache"] = {}       # host cache: rebuilt on demand
+        state["device"] = str(self.device)  # loads back onto this device
         return state
 
     def __setstate__(self, state):
         self.__dict__.update(state)
+        self.device = resolve_device(state["device"])
         if "generation" not in state:  # pickles from before the token existed
             self.generation = 0
         if "structure_cache" not in state:

@@ -15,6 +15,12 @@ Owns the K+V factorization state and the reuse policy.  Modes:
   ``args['sparse_direct_dense_cutoff']`` (default 20000) they densify and
   use the exact Cholesky; above it, tight-tolerance preconditioned CG and
   an SLQ logdet.
+* a custom ``[factor, solve, logdet]`` of callables: ``factor(KV)`` gives
+  an object, ``solve(obj, b)`` the solution and ``logdet(obj)`` log|K+V|.
+  ``KV`` and ``b`` are torch tensors on the model's device (a
+  ``BlockSparseMatrix`` under gp2Scale); a solution may come back as a
+  tensor or a numpy array.  A custom mode serves the LML value, the
+  posterior and appends, not the traced LML gradient.
 
 Under gp2Scale everything is lazy: the stored K+V materializes on first
 access, and committed solves go through the committed-state fast solver
@@ -25,8 +31,7 @@ fingerprint (trace + Frobenius norm) and the drift-based invalidation of
 cached preconditioners and warm starts follow the JAX package, as does the
 ``sequential_linalg_state`` gate that restricts the reuse to MCMC.
 
-Not ported yet: custom ``[factor, solve, logdet]`` callables (ROADMAP item
-1.2) and structured (scipy / block-sparse) noise (item 1.6).
+Not ported yet: structured (scipy / block-sparse) noise (ROADMAP item 1.6).
 """
 
 import contextlib
@@ -111,18 +116,16 @@ def resolve_linalg_mode(mode, args):
 
 class GPkv:
     def __init__(self, data, prior, likelihood, linalg_mode=None):
-        if linalg_mode is not None and not isinstance(linalg_mode, str):
-            raise NotImplementedError(
-                "fvgp_tpu_torch: custom [factor, solve, logdet] linalg modes "
-                "are not ported yet (ROADMAP item 1.2)")
         self.data = data
         self.prior = prior
         self.likelihood = likelihood
-        if linalg_mode is not None:
+        if isinstance(linalg_mode, str):
             linalg_mode, self.data.args = resolve_linalg_mode(linalg_mode,
                                                               self.data.args)
             if linalg_mode not in _DENSE_MODES | _FAST_MODES:
                 raise Exception(f"No Mode. Choose from: {_ALLOWED_MODES}")
+        elif linalg_mode is not None and not callable(linalg_mode[0]):
+            raise Exception(f"No Mode. Choose from: {_ALLOWED_MODES}")
         self.linalg_mode = linalg_mode
         self.last_solve_info = None
         self.last_logdet_variance = None
@@ -133,6 +136,7 @@ class GPkv:
         self._KV_dirty = False
         self.KVinv = None
         self.Chol_factor = None
+        self.custom_obj = None
         self._KVinvY = None
         self._logdet_KV = None
         self._x0_hint = None
@@ -182,6 +186,14 @@ class GPkv:
     @property
     def dtype(self):
         return config.linalg_dtype(self.args, self.data.device)
+
+    @staticmethod
+    def _is_custom(mode):
+        return mode is not None and not isinstance(mode, str)
+
+    def _custom_result(self, value):
+        """A custom solve's result as a tensor on the model's device."""
+        return torch.as_tensor(value).to(self.data.device, self.dtype)
 
     def _y_minus(self, m):
         y = torch.as_tensor(np.asarray(self.y_data, np.float64),
@@ -392,7 +404,10 @@ class GPkv:
         """Full factorization refresh in the committed mode."""
         mode = self.mode
         self.Chol_factor = self.KVinv = None
-        if mode in _DENSE_MODES:
+        if self._is_custom(mode):
+            self.custom_obj = mode[0](KV)
+            self.KV = KV
+        elif mode in _DENSE_MODES:
             KVd = self._densify(KV)
             self.KV = KVd
             if mode in ("Chol", "CholInv"):
@@ -433,7 +448,9 @@ class GPkv:
         dense factor / explicit inverse, or a full refresh when the old-data
         block itself moved; the sparse modes swap the operator."""
         mode = self.mode
-        if mode in ("Chol", "CholInv"):
+        if self._is_custom(mode):
+            self.set_KV(KV)
+        elif mode in ("Chol", "CholInv"):
             KVd = self._densify(KV)
             n_old = self.Chol_factor.shape[0]
             if KVd.shape[0] <= n_old or self._top_left_drifted(KVd, n_old):
@@ -598,6 +615,9 @@ class GPkv:
         self.Warm_start_fingerprint = self.matrix_fingerprint(KV)
         y_mean = self._y_minus(m)
         mode = self._resolved_mode(KV)
+        if self._is_custom(mode):
+            return self._custom_result(mode[1](mode[0](KV), y_mean)) \
+                .reshape(y_mean.shape)
         return self._solve_with(mode, KV, y_mean, x0=x0).reshape(y_mean.shape)
 
     def compute_new_KVlogdet_KVinvY(self, K, V, m, x0=None):
@@ -607,6 +627,10 @@ class GPkv:
         self.Warm_start_fingerprint = self.matrix_fingerprint(KV)
         y_mean = self._y_minus(m)
         mode = self._resolved_mode(KV)
+        if self._is_custom(mode):
+            factor = mode[0](KV)
+            return self._custom_result(mode[1](factor, y_mean)) \
+                .reshape(y_mean.shape), float(mode[2](factor))
         chol = self._trial_chol(mode, KV)
         KVinvY = self._solve_with(mode, KV, y_mean, x0=x0, chol=chol)
         return KVinvY.reshape(y_mean.shape), \
@@ -620,7 +644,8 @@ class GPkv:
         tiles at the committed hyperparameters, or None when that path does
         not apply (untraceable kernel, unpruned structure, or a mode it
         does not serve)."""
-        if not (self.data.gp2Scale and self.prior.kernel_traceable):
+        if not (self.data.gp2Scale and self.prior.kernel_traceable) \
+                or self._is_custom(self.linalg_mode):
             return None
         from ..parallel.sharded_cov import (_bucket, _stable_kernel_closure,
                                             support_geometry)
@@ -895,7 +920,8 @@ class GPkv:
         """A committed-state solve through the fast path, or None."""
         if not self.gp2Scale:
             return None
-        if self.mode is not None and self.mode not in _FAST_MODES:
+        if self.mode is not None and (self._is_custom(self.mode)
+                                      or self.mode not in _FAST_MODES):
             return None
         ctx = self._fast_sparse_solver()
         if ctx is None:
@@ -917,6 +943,8 @@ class GPkv:
         if self.mode is None and self.gp2Scale:
             _ = self.KV            # lazy materialization resolves the mode
         mode = self.mode
+        if self._is_custom(mode):
+            return self._custom_result(mode[1](self.custom_obj, b))
         if mode == "Chol" or (mode in ("sparseLU", "sparseSolve")
                               and self.Chol_factor is not None):
             return dops.cholesky_solve(self.Chol_factor, b)
@@ -929,6 +957,8 @@ class GPkv:
         if self.mode is None and self.gp2Scale:
             _ = self.KV            # lazy materialization resolves the mode
         mode = self.mode
+        if self._is_custom(mode):
+            return float(mode[2](self.custom_obj))
         if mode in ("Chol", "CholInv") or (
                 mode in ("sparseLU", "sparseSolve")
                 and self.Chol_factor is not None):
@@ -936,3 +966,14 @@ class GPkv:
         if mode == "Inv":
             return float(dops.calculate_logdet(self.KV))
         return self._random_logdet(self.KV)
+
+    # ------------------------------------------------------------------
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        # closures and device schedules, rebuilt by the next solve
+        state["_fast_solver_ctx"] = None
+        state["Preconditioner_operator"] = None
+        return config.host_state(state)
+
+    def __setstate__(self, state):
+        self.__dict__.update(config.device_state(state))

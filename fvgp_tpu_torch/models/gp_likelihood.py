@@ -152,3 +152,10 @@ class GPlikelihood:
         if len(x) == len(self.noise_variances):
             return self.noise_variances
         return np.full((len(x),), float(np.mean(self.noise_variances)))
+
+    # ------------------------------------------------------------------
+    def __getstate__(self):
+        return config.host_state(dict(self.__dict__))
+
+    def __setstate__(self, state):
+        self.__dict__.update(config.device_state(state))

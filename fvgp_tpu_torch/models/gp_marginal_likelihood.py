@@ -505,6 +505,17 @@ class GPMarginalLikelihood:
                      ) / (2.0 * eps)
         return 0.5 * (d2 + d2.T)
 
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        # the traced program's closures and the structure caches: rebuilt
+        # by the next evaluation
+        state.update(_sparse_cache={}, _candidate_cache=None,
+                     _filter_mask_cache=None)
+        return config.host_state(state)
+
+    def __setstate__(self, state):
+        self.__dict__.update(config.device_state(state))
+
     def test_log_likelihood_gradient(self, hyperparameters, epsilon=1e-6):
         """Forward differences of the LML beside the analytic gradient:
         ``(finite differences, analytic)``."""

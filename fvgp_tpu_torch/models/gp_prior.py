@@ -13,7 +13,15 @@ for ROADMAP item 1.6.
   constant ``mean(y)``.  K and m are computed eagerly at every commit, with
   tensors that autograd does not record — on the card the default kernel's
   K then comes from the K3 kernel.  An append computes only the new
-  (old × new) and (new × new) blocks.
+  (old × new) and (new × new) blocks.  ``args["kernel_dtype"]`` evaluates
+  the dense sweeps of a kernel that runs on tensors in that dtype and casts
+  them back to the linalg dtype (on the card ``"float32"`` under a float64
+  linalg dtype runs K3 in float32; ``"bfloat16"`` takes the plain formula,
+  K3 having no bfloat16 route).
+* Input derivatives (the posterior gradients): ``d_kernel_dx`` and
+  ``dm_dx`` by forward-mode AD of a shift of one input column for callables
+  that run on tensors, by forward differences evaluated in float64 for
+  host callables; exact zeros for the default mean.
 * gp2Scale: the prior is lazy.  The traced sparse LML and the committed
   solver assemble their own tiles; the stored block-sparse covariance
   (``parallel/sharded_cov.distributed_covariance``) is built on first access
@@ -33,6 +41,7 @@ import warnings
 
 import numpy as np
 import torch
+from torch.autograd import forward_ad
 
 from .. import config
 from ..kernels import default_matern_ard, wendland_anisotropic
@@ -209,9 +218,9 @@ class GPprior:
         return self.kernel_traceable and self.mean_traceable
 
     # ----------------------------------------------------------------------
-    def _tensor(self, a):
+    def _tensor(self, a, dtype=None):
         return torch.as_tensor(np.asarray(a, dtype=np.float64),
-                               dtype=self.dtype).to(self.device)
+                               dtype=dtype or self.dtype).to(self.device)
 
     def _refresh_device_data(self):
         self._x_dev = self._tensor(self.x_data)
@@ -264,26 +273,34 @@ class GPprior:
             return self.mean_function(x, hps, self.args)
         raise Exception("No valid mean function signature")
 
-    def compute_covariances(self, x1, x2, hps):
-        """Dense kernel evaluation k(x1, x2) as a device tensor (``x1`` and
-        ``x2`` host arrays or device tensors)."""
+    def compute_covariances(self, x1, x2, hps, dtype=None):
+        """Dense kernel evaluation k(x1, x2) as a device tensor in the
+        linalg dtype (``x1`` and ``x2`` host arrays or device tensors).  A
+        kernel that runs on tensors is evaluated in
+        ``config.kernel_compute_dtype``; ``dtype`` (the difference quotients
+        take float64) evaluates and returns in that dtype instead."""
+        out = dtype or self.dtype
         if not self.kernel_traceable:
             from scipy.sparse import issparse
             K = self._apply_kernel(_host(x1), _host(x2), np.asarray(hps))
-            return self._tensor(K.toarray() if issparse(K) else K)
-        a, b = (v if torch.is_tensor(v) else self._tensor(v)
+            return self._tensor(K.toarray() if issparse(K) else K, out)
+        kdt = dtype or config.kernel_compute_dtype(self.args, self.device)
+        a, b = (v.to(kdt) if torch.is_tensor(v) else self._tensor(v, kdt)
                 for v in (x1, x2))
-        return self._apply_kernel(a, b, self._tensor(hps)).to(self.dtype)
+        return self._apply_kernel(a, b, self._tensor(hps, kdt)).to(out)
 
-    def compute_mean(self, x, hps):
-        """Prior mean m(x): the constant mean(y_data) by default."""
+    def compute_mean(self, x, hps, dtype=None):
+        """Prior mean m(x): the constant mean(y_data) by default; in the
+        linalg dtype, or in ``dtype`` where given."""
+        out = dtype or self.dtype
         if self._default_mean:
-            return self._default_mean_function(x, hps)
+            return self._default_mean_function(x, hps).to(out)
         if self.mean_traceable:
-            m = self._apply_mean(x if torch.is_tensor(x) else self._tensor(x),
-                                 self._tensor(hps))
-            return m.to(self.dtype)
-        return self._tensor(self._apply_mean(_host(x), np.asarray(hps)))
+            m = self._apply_mean(x.to(out) if torch.is_tensor(x)
+                                 else self._tensor(x, out),
+                                 self._tensor(hps, out))
+            return m.to(out)
+        return self._tensor(self._apply_mean(_host(x), np.asarray(hps)), out)
 
     def _default_mean_function(self, x, hyperparameters):
         """Constant mean = mean(y_data)."""
@@ -418,3 +435,80 @@ class GPprior:
         out = _dense_cross_product_scan(self._kernel_fn(), xc, xp, hps,
                                         vpad.reshape(nch, R, -1))
         return out[:n_pred]
+
+    # ----------------------------------------------------------------------
+    # input derivatives (posterior gradients)
+    # ----------------------------------------------------------------------
+    @staticmethod
+    def _shift_tangent(fn, x, direction):
+        """d fn(x + s·e_direction)/ds at s = 0, by forward-mode AD (the
+        JAX package's ``jacfwd`` of a shifted input column)."""
+        e = torch.zeros(x.shape[1], dtype=x.dtype, device=x.device)
+        e[direction] = 1.0
+        with forward_ad.dual_level():
+            s = forward_ad.make_dual(
+                torch.zeros((), dtype=x.dtype, device=x.device),
+                torch.ones((), dtype=x.dtype, device=x.device))
+            primal, tangent = forward_ad.unpack_dual(fn(x + s * e))
+        return torch.zeros_like(primal) if tangent is None else tangent
+
+    def d_kernel_dx(self, x1, x2, direction, hyperparameters):
+        """∂k(x1, x2)/∂x1[:, direction] as an (n1, n2) device tensor: exact
+        by forward-mode AD for a kernel that runs on tensors, a forward
+        difference (step 1e-8, evaluated in float64) for a host kernel."""
+        if self.kernel_traceable:
+            a, b = (v if torch.is_tensor(v) else self._tensor(v)
+                    for v in (x1, x2))
+            hps = self._tensor(hyperparameters)
+            return self._shift_tangent(lambda xs: self._apply_kernel(xs, b,
+                                                                    hps),
+                                       a, direction).to(self.dtype)
+        eps = 1e-8
+        x1s = np.array(_host(x1), dtype=np.float64)
+        x1s[:, direction] += eps
+        f64 = torch.float64
+        return ((self.compute_covariances(x1s, x2, hyperparameters, f64)
+                 - self.compute_covariances(x1, x2, hyperparameters, f64))
+                / eps).to(self.dtype)
+
+    def kernel_dx_product(self, x_pred, direction, hyperparameters, v):
+        """``d_kernel_dx(x_pred, x_data, direction) @ v`` summed over row
+        chunks of the data, so the (n_pred, N) derivative never exists
+        whole (the posterior mean's fused sweep, for its gradient)."""
+        out = None
+        for s in range(0, len(self.x_data), _CROSS_ROWS):
+            part = self.d_kernel_dx(x_pred, self._x_dev[s:s + _CROSS_ROWS],
+                                    direction, hyperparameters) \
+                @ v[s:s + _CROSS_ROWS].to(self.dtype)
+            out = part if out is None else out + part
+        return out
+
+    def dm_dx(self, x, hyperparameters, direction):
+        """∂m(x)/∂x[:, direction]: exact zeros for the default constant
+        mean, forward-mode AD for a mean that runs on tensors, a forward
+        difference (step 1e-6, evaluated in float64) for a host mean."""
+        if self._default_mean:
+            return torch.zeros(len(x), dtype=self.dtype, device=self.device)
+        if self.mean_traceable:
+            hps = self._tensor(hyperparameters)
+            return self._shift_tangent(lambda xs: self._apply_mean(xs, hps),
+                                       self._tensor(x), direction) \
+                .to(self.dtype)
+        eps = 1e-6
+        x1 = np.array(x, dtype=np.float64)
+        x1[:, direction] += eps
+        f64 = torch.float64
+        return ((self.compute_mean(x1, hyperparameters, f64)
+                 - self.compute_mean(x, hyperparameters, f64)) / eps) \
+            .to(self.dtype)
+
+    # ----------------------------------------------------------------------
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        state["_x_dev"] = None                  # rebuilt from x_data
+        state.pop("_gp2_kernel_closure", None)  # a closure; rebuilt lazily
+        return config.host_state(state)
+
+    def __setstate__(self, state):
+        self.__dict__.update(config.device_state(state))
+        self._refresh_device_data()

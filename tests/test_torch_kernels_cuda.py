@@ -811,3 +811,71 @@ def test_two_level_committed_solve_on_k2_matches_the_plain_scan(cuda_device):
     assert abs(itg - itc) <= 2
     np.testing.assert_allclose(Xg, Xc, rtol=0,
                                atol=1e-3 * float(np.abs(Xc).max()))
+
+
+def _posterior_api_gp(device, **kw):
+    """A dense GP of the posterior-API slice (N = 300, D = 3)."""
+    from fvgp_tpu_torch import GP
+    rng = np.random.default_rng(12)
+    x = rng.uniform(0, 4, (300, 3))
+    y = np.sin(x[:, 0]) + 0.05 * rng.standard_normal(300)
+    return GP(x, y, init_hyperparameters=np.array([1.0, 1.5, 1.5, 1.5]),
+              noise_variances=np.full(300, 1e-2), compute_device=device,
+              **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_d_kernel_dx_on_card_matches_the_cpu(cuda_device, dtype):
+    """The posterior gradients' ∂k/∂x is forward-mode AD through
+    ``default_matern_ard``: K3 must refuse the dual input (a launch drops
+    the tangent, and ∂k/∂x would come back zero), so the card's value is the
+    CPU's and no K3 launch happens."""
+    cpu = _posterior_api_gp("cpu")
+    gpu = _posterior_api_gp(str(cuda_device), args={"dtype": dtype})
+    xp = np.random.default_rng(13).uniform(0, 4, (40, 3))
+    ref = cpu.prior.d_kernel_dx(xp, cpu.x_data, 1, cpu.hyperparameters)
+    before = HK.dense_covariance.launches
+    got = gpu.prior.d_kernel_dx(xp, gpu.x_data, 1, gpu.hyperparameters)
+    assert HK.dense_covariance.launches == before
+    tol = 1e-5 if dtype == "float32" else 1e-12
+    np.testing.assert_allclose(got.cpu().double().numpy(), ref.numpy(),
+                               rtol=0, atol=tol * float(ref.abs().max()))
+    grad = gpu.posterior_mean_grad(xp)["dm/dx"]
+    want = cpu.posterior_mean_grad(xp)["dm/dx"]
+    np.testing.assert_allclose(grad, want, rtol=0,
+                               atol=1e-3 * float(np.abs(want).max()))
+
+
+@pytest.mark.cuda
+def test_kernel_dtype_float32_runs_k3_on_card(cuda_device):
+    """``kernel_dtype="float32"`` under float64 linear algebra: K is
+    evaluated by K3 in float32 and held in float64."""
+    gp64 = _posterior_api_gp(str(cuda_device), args={"dtype": "float64"})
+    before = HK.dense_covariance.launches
+    gp32 = _posterior_api_gp(str(cuda_device), args={
+        "dtype": "float64", "kernel_dtype": "float32"})
+    assert HK.dense_covariance.launches > before
+    assert gp32.prior.K.dtype == torch.float64
+    diff = float((gp32.prior.K - gp64.prior.K).abs().max())
+    assert 0.0 < diff < 1e-5
+    assert abs(gp32.log_likelihood() - gp64.log_likelihood()) < 1e-2
+
+
+@pytest.mark.cuda
+def test_custom_linalg_mode_on_card(cuda_device):
+    """A custom [factor, solve, logdet] takes tensors on the card and gives
+    the Chol mode's LML and posterior."""
+    mode = [torch.linalg.cholesky,
+            lambda L, b: torch.cholesky_solve(b.reshape(len(L), -1),
+                                              L).reshape(b.shape),
+            lambda L: 2.0 * torch.sum(torch.log(torch.diagonal(L)))]
+    ref = _posterior_api_gp(str(cuda_device), args={"dtype": "float64"})
+    gp = _posterior_api_gp(str(cuda_device), args={"dtype": "float64"},
+                           linalg_mode=mode)
+    xp = np.random.default_rng(14).uniform(0, 4, (20, 3))
+    np.testing.assert_allclose(gp.log_likelihood(), ref.log_likelihood(),
+                               rtol=1e-10)
+    np.testing.assert_allclose(gp.posterior_covariance(xp)["S"],
+                               ref.posterior_covariance(xp)["S"], rtol=0,
+                               atol=1e-10)
