@@ -41,8 +41,8 @@ line is never printed):
    (1 + 5 timed), train(method="local", max_iter=5), posterior_mean and
    posterior_covariance(variance_only=True) on 500 points, cold and warm;
 7. the gp2Scale journey at full size through the public GP: N=1,000,000,
-   D=3, bfloat16 solver, 16 probes — construction, LML+gradient (1 + 3
-   timed), train(method="local", max_iter=2), posterior_mean and
+   D=3, bfloat16 solver, 16 probes — construction, LML+gradient (1 + 2
+   timed), train(method="local", max_iter=1), posterior_mean and
    posterior_covariance(variance_only=True) on 500 points;
 8. stored-K cross-check: the stored-K path (``gp2Scale_traced_lml=False``)
    at N=10,240 on CUDA (float32, and bfloat16 tile storage) against the CPU
@@ -74,7 +74,20 @@ journey's trained model the posterior gradients, KL divergence, relative
 information entropy and posterior probability on 100 points and four
 metrics on 500, each call counted.
 
-K4's entry point and phases 6, 6b, 7, 7b and 9 are the paths: every
+Since the training slice also: 4b. on phase 4's CPU float64 model and
+the card's float32 one, two steps of the gp2Scale Adam chain at the same
+injected probes (K1 launches counted); 5c. the training pieces against the
+CPU in float64 — the batched value-and-gradient of the dense LML (N=2,000,
+four members, one not positive definite; card float32 and float64) and a
+14-evaluation BO run on an analytic bowl (card float64); 6c. on the dense
+journey's model ``train`` with ``"hgdl"`` (4 starts, 10 epochs),
+``"adam"`` (20 steps), ``"bo"`` (14 evaluations) and an asynchronous
+``"mcmc"`` polled through ``update_hyperparameters`` and then stopped, each
+call counted; 7c. on the N=1M journey's model ``train`` with ``"adam"`` (8
+steps: one device chain chunk) and ``"bo"`` (14 evaluations), each call
+counted.
+
+K4's entry point and phases 6, 6b, 6c, 7, 7b, 7c and 9 are the paths: every
 kernel's launch counter is reset just before each and read just after it,
 and the ``launches`` of a kernel is its sum over them.  The line before the
 last is
@@ -710,7 +723,8 @@ def journey_data(N, seed=1):
 
 
 def run_journey(x, y, xp, hps, device, args):
-    """LML+grad, posterior mean and variance through the public GP."""
+    """LML+grad, posterior mean and variance through the public GP, and
+    the model."""
     from fvgp_tpu_torch import GP
     gp = GP(x, y, init_hyperparameters=hps,
             noise_variances=np.full(len(x), 1e-2), gp2Scale=True,
@@ -718,7 +732,7 @@ def run_journey(x, y, xp, hps, device, args):
     val, grad = gp.marginal_likelihood.log_likelihood_value_and_gradient(hps)
     mean = gp.posterior_mean(xp)["m(x)"]
     var = gp.posterior_covariance(xp, variance_only=True)["v(x)"]
-    return val, grad, mean, var
+    return val, grad, mean, var, gp
 
 
 def cross_check():
@@ -733,10 +747,12 @@ def cross_check():
     ref = run_journey(x, y, xp, hps, "cpu", dict(base))
     log(f"cross-check N={N}: CPU float64 journey {time.time() - t0:.2f} s, "
         f"lml {ref[0]:.6f}")
+    models = {"ref": ref[4]}
     for name, extra in (("float32", {}),
                         ("bfloat16", {"gp2Scale_solver_dtype": "bfloat16"})):
         t0 = time.time()
         got = run_journey(x, y, xp, hps, "cuda", {**base, **extra})
+        models.setdefault("card", got[4])
         errs = {"lml": abs(got[0] - ref[0]) / abs(ref[0]),
                 "grad": float(np.linalg.norm(got[1] - ref[1])
                               / np.linalg.norm(ref[1])),
@@ -750,6 +766,7 @@ def cross_check():
         bad = [k for k in errs if not errs[k] <= bounds[k]]
         if bad:
             raise AssertionError(f"cross-check {name} out of bounds: {bad}")
+    adam_chain_cross_check(models, hps)
 
 
 def slice_cross_check():
@@ -939,8 +956,9 @@ def dense_journey(N):
     if launches["block_spmv"] != 0:
         raise AssertionError("block_spmv launched on the dense journey, "
                              "which has no call to it")
-    return launches, dense_api_phase(gp, xp, lambda: dense_model(
+    api_launches = dense_api_phase(gp, xp, lambda: dense_model(
         x, y, gp.hyperparameters, "cuda", {"dtype": "float64"}))
+    return launches, api_launches, dense_training_phase(gp)
 
 
 # ---------------------------------------------------------------------------
@@ -1341,18 +1359,18 @@ def full_journey(N):
         raise AssertionError(f"non-finite LML/grad: {val} {grad}")
     lml_at_hps = val
     t0 = time.time()
-    for i in range(3):
+    for i in range(2):
         val, grad = ml.log_likelihood_value_and_gradient(
             hps * (1.0 + 1e-4 * (i + 1)))
     torch.cuda.synchronize()
-    times["lml_grad_s_per_eval"] = (time.time() - t0) / 3
+    times["lml_grad_s_per_eval"] = (time.time() - t0) / 2
     log(f"N={N}: lml {val:.4f}, grad {np.array2string(grad, precision=4)}")
     bounds = np.array([[0.1, 10.0]] + [[1.5, 2.5]] * 3)
     t0 = time.time()
     trained = gp.train(hyperparameter_bounds=bounds, method="local",
-                       max_iter=2)
+                       max_iter=1)
     torch.cuda.synchronize()
-    times["train_local_2_s"] = time.time() - t0
+    times["train_local_1_s"] = time.time() - t0
     if not np.all(np.isfinite(trained)):
         raise AssertionError(f"non-finite trained hps {trained}")
     t0 = time.time()
@@ -1389,6 +1407,7 @@ def full_journey(N):
     # two-level set)
     gp.args.pop("gp2Scale_posterior_precond", None)
     slice_launches["posterior_api"] = gp2scale_api_phase(gp, xp)
+    slice_launches["training"] = gp2scale_training_phase(gp)
     return launches, lml_at_hps, slice_launches
 
 
@@ -1495,6 +1514,252 @@ def slice_phase(gp, xp, pv_journey, hps):
         raise AssertionError("row_chunk_sums never launched on the "
                              "two-level path")
     return {"slq": slq_launches, "two_level": two_level}
+
+
+# ---------------------------------------------------------------------------
+# the training methods (hgdl, adam, bo, asynchronous runs)
+# ---------------------------------------------------------------------------
+
+# the batched value-and-gradient of the dense LML at N=2,000 on the card
+# against the CPU in float64: relative value and relative 2-norm of each
+# member's gradient — float32 under the dense journey's LML and gradient
+# bounds; float64 1e-9 (cuSOLVER against LAPACK, the same formula; the CPU's
+# own batched against single-member evaluations agree at 1e-13)
+TRAIN_BVG_BOUNDS = {"float32": {"value": 1e-4, "grad": 1e-3},
+                    "float64": {"value": 1e-9, "grad": 1e-9}}
+# two steps of the gp2Scale Adam chain at N=10,000, float32 on the card
+# against float64 on the CPU at the same probes.  The moments carry the
+# gradient: m and v are held relative to their 2-norms at 1e-5, a hundred
+# times the gradient's measured relative error on the same models (the
+# gp2Scale cross-check, 9.6e-8 on an H100).  An early Adam step is about
+# lr·sign(g) and barely reads the gradient's size, so θ (absolute) is held
+# at 1e-5, a hundred times its measured 5.6e-8 to 9.3e-8; the per-step -LML
+# (relative) at 3e-5, ten times its measured 3.0e-6 (the journey's LML
+# error on the same models)
+TRAIN_CHAIN_BOUNDS = {"theta": 1e-5, "m": 1e-5, "v": 1e-5, "fvals": 3e-5}
+# a BO run on an analytic bowl, card float64 against CPU float64: the whole
+# proposal sequence in the unit cube.  On the CPU a relative perturbation of
+# 1e-15 of the objective moves the 14-point sequence by at most 4.1e-12 (1e-11:
+# 2.3e-10), so rounding differences of the card's float64 stay far below
+# 1e-6
+TRAIN_BO_BOUND = 1e-6
+TRAIN_BOX = np.array([[0.1, 10.0]] + [[0.5, 5.0]] * 3)
+
+
+def _bowl(h):
+    """An analytic bowl over the training box, its minimum at
+    (0.3, 2.0, 1.2, 3.0)."""
+    c = np.array([0.3, 2.0, 1.2, 3.0])
+    return float(np.sum(((h - c) / (TRAIN_BOX[:, 1]
+                                    - TRAIN_BOX[:, 0])) ** 2) * 10.0)
+
+
+def training_cross_check(card="cuda"):
+    """The training slice's pieces on the card against the CPU in float64:
+    the batched value-and-gradient (dense N=2,000, four members, one of them
+    not positive definite) and a 14-evaluation BO run on an analytic bowl
+    (float64); the Adam chain's is ``adam_chain_cross_check``.
+    ``card="cpu"`` rehearses it without a card."""
+    from fvgp_tpu_torch.models.gp_bo import bayesian_optimize
+    x, y, _ = dense_cell_data(2_000, seed=8)
+    P = np.array([[1.0, 1.5, 1.5, 1.5], [2.0, 1.0, 2.0, 0.7],
+                  [-1.0, 1.5, 1.5, 1.5], [0.5, 3.0, 1.0, 2.0]])
+    out = {}
+    for name, device, args in (("cpu", "cpu", None),
+                               ("float32", card, {"dtype": "float32"}),
+                               ("float64", card, {"dtype": "float64"})):
+        gp = dense_model(x, y, P[0], device, args)
+        ml = gp.marginal_likelihood
+        t0 = time.time()
+        vals, grads = ml.batched_value_and_grad_device()(P)
+        out[name] = (host64(vals), host64(grads))
+        per_member = getattr(ml, "_vg_member_bytes", (None, 0))[1]
+        log(f"training cross-check: batched value-and-gradient N=2000 "
+            f"{name} ({device}): {time.time() - t0:.3f} s, values "
+            f"{np.array2string(out[name][0], precision=4)}"
+            + (f", one member's measured peak {per_member / 2**30:.3f} GiB"
+               if per_member else ""))
+    ref_v, ref_g = out["cpu"]
+    ok = np.isfinite(ref_v)
+    for name in ("float32", "float64"):
+        v, g = out[name]
+        if not np.array_equal(np.isnan(v), np.isnan(ref_v)):
+            raise AssertionError(f"batched value-and-gradient {name}: the "
+                                 f"failed member differs ({v} vs {ref_v})")
+        errs = {"value": float(np.max(np.abs(v[ok] - ref_v[ok])
+                                      / np.abs(ref_v[ok]))),
+                "grad": float(np.max(np.linalg.norm(g[ok] - ref_g[ok], axis=1)
+                                     / np.linalg.norm(ref_g[ok], axis=1)))}
+        bounds = TRAIN_BVG_BOUNDS[name]
+        log(f"training cross-check: batched value-and-gradient {name} vs "
+            f"CPU float64: " + ", ".join(
+                f"{k} {errs[k]:.3e} (bound {bounds[k]:g})" for k in errs))
+        if not all(errs[k] <= bounds[k] for k in errs):
+            raise AssertionError(f"batched value-and-gradient {name} out of "
+                                 f"bounds: {errs}")
+
+    traces = {}
+    for key, device in (("ref", "cpu"), ("card", card)):
+        t0 = time.time()
+        _, info = bayesian_optimize(_bowl, TRAIN_BOX,
+                                    np.array([0.5, 1.0, 4.0, 1.0]),
+                                    max_iter=14, bo_args={"seed": 1},
+                                    device=device)
+        traces[key] = info["trace u"]
+        log(f"training cross-check: BO on a bowl, {device} float64: "
+            f"{time.time() - t0:.2f} s, best f(x) {info['f(x)']:.6f} after "
+            f"{info['n_evaluations']} evaluations")
+    err = float(np.abs(traces["card"] - traces["ref"]).max())
+    log(f"training cross-check: BO proposal sequence {card} vs CPU: max "
+        f"|u| difference {err:.3e} (bound {TRAIN_BO_BOUND:g})")
+    if not (traces["card"].shape == traces["ref"].shape
+            and err <= TRAIN_BO_BOUND):
+        raise AssertionError("the BO proposal sequence differs on the card")
+
+
+def adam_chain_cross_check(models, hps):
+    """Two steps of the gp2Scale Adam chain on the gp2Scale cross-check's
+    models (N=10,000, the CPU's float64 ``models["ref"]`` and the card's
+    float32 ``models["card"]``) at the same injected probes, K1 launches
+    counted."""
+    import torch
+    bounds = np.array([[0.1, 10.0]] + [[1.5, 2.5]] * 3)
+    entry = next(iter(models["ref"].marginal_likelihood._sparse_cache
+                      .values()))
+    rng = np.random.default_rng(4)
+    Zs = [rng.choice([-1.0, 1.0], (entry["xb"].shape[0] * 128, 16))
+          for _ in range(2)]
+    chains = {}
+    for key, gp in models.items():
+        torch.cuda.synchronize()
+        hk_counts0 = launch_counts()["chunked_spmm"]
+        t0 = time.time()
+        chains[key] = gp.marginal_likelihood.sparse_adam_steps(
+            hps, np.zeros(4), np.zeros(4), 0, 2, bounds=bounds,
+            probe_source=lambda step: Zs[step])
+        torch.cuda.synchronize()
+        k1 = launch_counts()["chunked_spmm"] - hk_counts0
+        log(f"Adam chain cross-check N={len(gp.x_data)} {gp.device} "
+            f"{str(gp.prior.dtype).replace('torch.', '')}, 2 steps: "
+            f"{time.time() - t0:.2f} s, theta "
+            f"{np.array2string(chains[key][0], precision=6)}, K1 launches "
+            f"{k1}")
+        if gp.device.type == "cuda" and k1 < 2:
+            raise AssertionError("the Adam chain did not launch K1")
+    (th_c, m_c, v_c, f_c), (th_g, m_g, v_g, f_g) = (chains["ref"],
+                                                    chains["card"])
+    errs = {"theta": float(np.abs(th_g - th_c).max()),
+            "m": float(np.linalg.norm(m_g - m_c) / np.linalg.norm(m_c)),
+            "v": float(np.linalg.norm(v_g - v_c) / np.linalg.norm(v_c)),
+            "fvals": float(np.max(np.abs(f_g - f_c) / np.abs(f_c)))}
+    log("Adam chain cross-check, the card's float32 vs CPU float64: "
+        + ", ".join(f"{k} {errs[k]:.3e} (bound {TRAIN_CHAIN_BOUNDS[k]:g})"
+                    for k in errs))
+    if not all(errs[k] <= TRAIN_CHAIN_BOUNDS[k] for k in errs):
+        raise AssertionError(f"the Adam chain out of bounds: {errs}")
+
+
+def _trained(tag, hps):
+    if not (isinstance(hps, np.ndarray) and np.all(np.isfinite(hps))):
+        raise AssertionError(f"{tag}: non-finite hyperparameters {hps}")
+
+
+def dense_training_phase(gp):
+    """The training methods on the dense journey's model (N=10,000,
+    float32), each a counted public call: hgdl (4 starts, 10 epochs), adam
+    (20 steps), bo (14 evaluations) and an asynchronous mcmc polled through
+    ``update_hyperparameters`` then stopped.  K3 must launch under bo and
+    under the asynchronous run.  Returns every kernel's summed launches."""
+    import torch
+    total = {name: 0 for name in REPLACES}
+    rows = []
+    calls = (("hgdl", dict(pop_size=4, max_iter=10)),
+             ("adam", dict(max_iter=20)),
+             ("bo", dict(max_iter=14)))
+    ml = gp.marginal_likelihood
+    for method, kw in calls:
+        torch.cuda.reset_peak_memory_stats()
+        hps, secs, got = counted(lambda: gp.train(
+            hyperparameter_bounds=TRAIN_BOX, method=method, **kw))
+        _trained(f"dense train({method})", hps)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        rows.append((method, secs, got, hps, peak))
+        if method == "hgdl":
+            log(f"dense N={len(gp.x_data)} hgdl: one member's measured peak "
+                f"{getattr(ml, '_vg_member_bytes', (0, 0))[1] / 2**30:.3f} "
+                f"GiB (0 on the CPU: not measured), "
+                f"{ml._vg_chunk} members a chunk")
+    torch.cuda.reset_peak_memory_stats()
+
+    def async_mcmc():
+        opt = gp.train(hyperparameter_bounds=TRAIN_BOX, method="mcmc",
+                       max_iter=100_000, asynchronous=True)
+        polled = []
+        deadline = time.time() + 3.0
+        while time.time() < deadline:
+            time.sleep(0.25)
+            if opt.get_latest():
+                polled.append(gp.update_hyperparameters(opt))
+        gp.stop_training(opt)
+        gp.kill_client(opt)
+        if not opt.is_done():
+            raise AssertionError("the asynchronous mcmc did not stop")
+        if "error" in opt.actor.get_latest():
+            raise AssertionError(f"the asynchronous mcmc failed: "
+                                 f"{opt.actor.get_latest()['error']}")
+        if not polled:
+            raise AssertionError("the asynchronous mcmc published nothing")
+        return polled[-1], len(polled), len(opt.actor._sampler.trace["f(x)"])
+
+    (hps, n_polls, n_steps), secs, got = counted(async_mcmc)
+    _trained("dense asynchronous mcmc", hps)
+    rows.append((f"mcmc async ({n_polls} polls, {n_steps} steps)", secs, got,
+                 hps, torch.cuda.max_memory_allocated() / 2**30))
+    n = len(gp.x_data)
+    for method, secs, got, hps, peak in rows:
+        for k in REPLACES:
+            total[k] += got[k]
+        log(f"dense N={n} train({method}): {secs:.2f} s, peak {peak:.2f} "
+            f"GiB, hps {np.array2string(hps, precision=4)}, launches "
+            f"{json.dumps(got)}")
+    for method, _, got, _, _ in rows[2:]:
+        if gp.device.type == "cuda" and got["dense_covariance"] < 1:
+            raise AssertionError(f"K3 did not launch under train({method})")
+    return total
+
+
+def gp2scale_training_phase(gp):
+    """The training methods on the N=1M journey's model after its
+    training: adam (8 steps, one device chain chunk; K1 launches per step)
+    and bo (14 evaluations on the estimator's variance), each a counted
+    public call.  Returns every kernel's summed launches."""
+    import torch
+    bounds = np.array([[0.1, 10.0]] + [[1.5, 2.5]] * 3)
+    total = {name: 0 for name in REPLACES}
+    for method, max_iter in (("adam", 8), ("bo", 14)):
+        torch.cuda.reset_peak_memory_stats()
+        hps, secs, got = counted(lambda: gp.train(
+            hyperparameter_bounds=bounds, method=method, max_iter=max_iter))
+        _trained(f"gp2Scale train({method})", hps)
+        for k in REPLACES:
+            total[k] += got[k]
+        extra = ""
+        if method == "adam":
+            extra = f", K1 launches per step {got['chunked_spmm'] / 8:.1f}"
+        else:
+            info = gp.bo_info
+            extra = (f", {info['n_evaluations']} evaluations, stopping "
+                     f"reason {info['stopping reason']!r}, observation noise "
+                     f"variance {info['observation noise variance']}")
+        log(f"N={len(gp.x_data)} train({method}, max_iter={max_iter}): "
+            f"{secs:.2f} s, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, hps "
+            f"{np.array2string(hps, precision=4)}, launches "
+            f"{json.dumps(got)}{extra}")
+        if gp.device.type == "cuda" and got["chunked_spmm"] < 1:
+            raise AssertionError(f"K1 did not launch under gp2Scale "
+                                 f"train({method})")
+    return total
 
 
 def stored_model(x, y, hps, device, extra):
@@ -1886,14 +2151,20 @@ def main():
     posterior_api_cross_check()
     log(f"posterior API cross-check phase: {time.time() - t0:.1f} s")
     t0 = time.time()
-    dense_launches, dense_api_launches = dense_journey(10_000)
-    log(f"dense journey and posterior API phase: {time.time() - t0:.1f} s")
+    training_cross_check()
+    log(f"training cross-check phase: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    dense_launches, dense_api_launches, dense_train_launches = \
+        dense_journey(10_000)
+    log(f"dense journey, posterior API and training phase: "
+        f"{time.time() - t0:.1f} s")
     t0 = time.time()
     slice_cross_check()
     log(f"slice cross-check phase: {time.time() - t0:.1f} s")
     t0 = time.time()
     sparse_launches, traced_lml, slice_launches = full_journey(1_000_000)
-    log(f"gp2Scale journey and slice phase: {time.time() - t0:.1f} s")
+    log(f"gp2Scale journey, slice, posterior API and training phase: "
+        f"{time.time() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.time()
     stored_cross_check()
@@ -1905,9 +2176,9 @@ def main():
     # run: K4's ops entry, the dense journey, the gp2Scale journey, the
     # stored-K journey
     paths = [spmv_launches, dense_launches, dense_api_launches,
-             sparse_launches, slice_launches["slq"],
+             dense_train_launches, sparse_launches, slice_launches["slq"],
              slice_launches["two_level"], slice_launches["posterior_api"],
-             stored_launches]
+             slice_launches["training"], stored_launches]
     launches = {name: sum(p[name] for p in paths) for name in REPLACES}
     for kern, name in (("K1", "chunked_spmm"), ("K2", "row_chunk_sums")):
         log(f"{kern} launches by path: " + json.dumps(
@@ -1915,10 +2186,12 @@ def main():
              "SLQ solver (3 LML+grad)": slice_launches["slq"][name],
              "two-level variance": slice_launches["two_level"][name],
              "gp2Scale posterior API": slice_launches["posterior_api"][name],
+             "gp2Scale training": slice_launches["training"][name],
              "stored-K journey": stored_launches[name]}))
     log("K3 launches by path: " + json.dumps(
         {"dense journey": dense_launches["dense_covariance"],
-         "dense posterior API": dense_api_launches["dense_covariance"]}))
+         "dense posterior API": dense_api_launches["dense_covariance"],
+         "dense training": dense_train_launches["dense_covariance"]}))
     log("K1 at the SLQ batch width (k = 16, N = 1M structure): "
         + json.dumps(records.pop("k1_slq_batch")))
     log("K1 from BlockSparseMatrix at the stored-K journey's shapes: "

@@ -4,11 +4,12 @@
 ``GP(x, y)`` is the dense exact GP on the card: the default Matérn-3/2 ARD
 kernel (its covariances built by the K3 kernel), the ``Chol`` / ``CholInv``
 / ``Inv`` factorizations, the autograd LML + gradient, ``train`` with
-``"global"``, ``"local"`` or ``"mcmc"`` (the default), posterior means,
-covariances and variances, and ``update_gp_data``.  ``GP(x, y,
-gp2Scale=True)`` runs the block-sparse engine: the differentiable mBCG LML
-(K1 SpMM) and posterior means and variances through the committed-state
-solver (K2 SpMM); off the traced path (``args["gp2Scale_traced_lml"] =
+``"global"``, ``"local"``, ``"hgdl"``, ``"mcmc"`` (the default), ``"adam"``,
+``"bo"`` or a callable, synchronously or in a thread
+(``asynchronous=True``), posterior means, covariances and variances, and
+``update_gp_data``.  ``GP(x, y, gp2Scale=True)`` runs the block-sparse
+engine: the differentiable mBCG LML (K1 SpMM) and posterior means and
+variances through the committed-state solver (K2 SpMM); off the traced path (``args["gp2Scale_traced_lml"] =
 False``, a multi-column y, a prior mean function, ``gp.K``,
 ``update_gp_data``, a full posterior covariance) it stores the covariance as
 a ``BlockSparseMatrix`` and solves against it with the Krylov / SLQ /
@@ -16,8 +17,7 @@ preconditioner stack, the stored product again on K1.  On both: the
 posterior gradients, the information-theory suite, the validation metrics
 and pickling (the pickle holds host arrays and the device's name; it loads
 back onto that device).  ``compute_device="cpu"`` runs the same code with
-the kernels' plain versions, in float64 by default.  The methods below that
-raise ``NotImplementedError`` arrive with the ROADMAP items they name.
+the kernels' plain versions, in float64 by default.
 """
 
 import warnings
@@ -179,6 +179,11 @@ class GP:
         return self.trainer.mcmc_info
 
     @property
+    def bo_info(self):
+        """Diagnostics of the last ``train(method="bo")``."""
+        return self.trainer.bo_info
+
+    @property
     def dask_client(self):
         """Always None: the port has no Dask (kept for API parity)."""
         return None
@@ -282,33 +287,57 @@ class GP:
               objective_function_hessian=None, init_hyperparameters=None,
               method="mcmc", pop_size=20, tolerance=0.0001, max_iter=10000,
               mcmc_prior=None, mcmc_prop_distrs="normal", mcmc_args=None,
-              local_optimizer="L-BFGS-B", constraints=(), info=False,
-              asynchronous=False, **unported):
+              bo_args=None, local_optimizer="L-BFGS-B",
+              global_optimizer="genetic", constraints=(), dask_client=None,
+              info=False, asynchronous=False):
         """Find hyperparameters by maximizing the log marginal likelihood
         (or minimizing a user objective), commit them, and return them.
 
-        ``method`` is ``"mcmc"`` (the default: adaptive Metropolis on the
-        LML; fills ``mcmc_info``), ``"global"`` (differential evolution,
-        ``pop_size`` × H members, the population evaluated in batched
-        chunks) or ``"local"`` (scipy ``local_optimizer`` on the fused LML
-        value and gradient)."""
-        if unported or asynchronous:
-            raise NotImplementedError(
-                "fvgp_tpu_torch: train options "
-                f"{sorted(unported) + (['asynchronous'] if asynchronous else [])}"
-                " are not ported yet (ROADMAP item 1.5)")
-        if method not in ("global", "local", "mcmc"):
-            raise NotImplementedError(
-                f"fvgp_tpu_torch: train(method={method!r}) is not ported yet "
-                "(ROADMAP item 1.5); use 'global', 'local' or 'mcmc'")
-        if self.gp2Scale and method != "mcmc" \
-                and not self.marginal_likelihood._sparse_traced_ready():
+        ``method``:
+
+        * ``"mcmc"`` (the default) — adaptive Metropolis on the LML; fills
+          ``mcmc_info``;
+        * ``"global"`` — differential evolution, ``pop_size`` × H members,
+          the population evaluated in batched chunks;
+        * ``"local"`` — scipy ``local_optimizer`` on the fused LML value and
+          gradient (and its Hessian, for the optimizers that take one);
+        * ``"hgdl"`` — multistart: ``max(pop_size, 4)`` Adam runs in
+          lockstep on one batched value-and-gradient (dense models), then
+          scipy polishes the best three;
+        * ``"adam"`` — Adam; under gp2Scale in chunks of
+          ``args["adam_chain_steps"]`` (default 8) device steps;
+        * ``"bo"`` — Bayesian optimization for the noisy stochastic-logdet
+          LML (the estimator's variance feeds the surrogate); fills
+          ``bo_info``;
+        * a callable ``method(trainer)`` returning the hyperparameters.
+
+        ``asynchronous=True`` (hgdl, mcmc, adam, bo; not under gp2Scale)
+        returns at once with an optimizer proxy whose run goes on in a
+        thread: poll it with ``update_hyperparameters``, end it with
+        ``stop_training`` / ``kill_client``.  ``global_optimizer`` and
+        ``dask_client`` are accepted and ignored."""
+        if mcmc_args is None:
+            mcmc_args = {}
+        ml = self.marginal_likelihood
+        if self.gp2Scale and asynchronous:
+            asynchronous = False
+            warnings.warn(f"gp2Scale does not allow asynchronous training "
+                          f"(method=`{method}`)! `asynchronous` set to False.")
+        if self.gp2Scale and method not in ("mcmc", "bo") \
+                and not ml._sparse_traced_ready():
             # off the traced path the sparse LML has a value and no gradient
             warnings.warn("gp2Scale off the traced LML path (a kernel that "
                           "does not run on tensors, a mean function, a "
                           "multi-column y or gp2Scale_traced_lml=False). "
                           "Method switched to MCMC!")
             method = "mcmc"
+        _async_methods = {"hgdl", "mcmc", "adam", "bo"}
+        if asynchronous and method not in _async_methods:
+            warnings.warn(f"Asynchronous execution is not supported for "
+                          f"method=`{method}`. Supported: "
+                          f"{sorted(_async_methods)}. `asynchronous` set to "
+                          f"False.")
+            asynchronous = False
         if hyperparameter_bounds is None:
             hyperparameter_bounds = self._get_default_hyperparameter_bounds()
             warnings.warn("Default hyperparameter_bounds initialized because "
@@ -329,7 +358,6 @@ class GP:
                 low=hyperparameter_bounds[:, 0],
                 high=hyperparameter_bounds[:, 1],
                 size=len(hyperparameter_bounds))
-        ml = self.marginal_likelihood
         user_provided_obj = objective_function is not None
         if method == "mcmc":
             if user_provided_obj:
@@ -341,12 +369,26 @@ class GP:
         elif objective_function is None:
             objective_function = ml.neg_log_likelihood
         if user_provided_obj and objective_function_gradient is None \
-                and method == "local":
-            raise Exception("A gradient of the objective function must be "
-                            "provided for method='local'.")
+                and method in ("local", "hgdl"):
+            raise Exception("A gradient (and Hessian) of the objective "
+                            "function must be provided for method='local' "
+                            "or method='hgdl'.")
         if objective_function_gradient is None:
             objective_function_gradient = ml.neg_log_likelihood_gradient
-        fused_vg = batched_objective = None
+        if objective_function_hessian is None:
+            objective_function_hessian = ml.neg_log_likelihood_hessian
+        if method == "bo" and not user_provided_obj:
+            # the stochastic estimator reports its own precision: feed it to
+            # the surrogate as the observation noise
+            bo_args = dict(bo_args or {})
+            if "noise_function" not in bo_args \
+                    and "noise_variance" not in bo_args:
+                bo_args["noise_function"] = \
+                    lambda hps, _ml=ml: _ml.log_likelihood_variance()
+        if method == "bo":
+            self._warn_about_bo_suitability(hyperparameter_bounds, max_iter,
+                                            bo_args)
+        fused_vg = batched_objective = batched_vg = adam_chain_runner = None
         if not user_provided_obj and (ml._traced_ready()
                                       or ml._sparse_traced_ready()):
             def fused_vg(hps, _ml=ml):
@@ -354,24 +396,85 @@ class GP:
                 return -val, -grad
         if not user_provided_obj and ml._traced_ready():
             batched_objective = ml.batched_neg_log_likelihood
-
+            batched_vg = ml.batched_value_and_grad_device()
+        if not user_provided_obj and ml._sparse_traced_ready():
+            def adam_chain_runner(theta, m, v, t, steps, bounds, _ml=ml):
+                return _ml.sparse_adam_steps(theta, m, v, t, steps,
+                                             bounds=bounds)
+        common = dict(
+            objective_function=objective_function,
+            objective_function_gradient=objective_function_gradient,
+            objective_function_hessian=objective_function_hessian,
+            hyperparameter_bounds=np.asarray(hyperparameter_bounds,
+                                             dtype=np.float64),
+            init_hyperparameters=np.asarray(init_hyperparameters,
+                                            dtype=np.float64),
+            method=method, pop_size=pop_size, tolerance=tolerance,
+            max_iter=max_iter, mcmc_prior=mcmc_prior,
+            mcmc_prop_distrs=mcmc_prop_distrs, mcmc_args=mcmc_args,
+            bo_args=bo_args, local_optimizer=local_optimizer,
+            global_optimizer=global_optimizer, constraints=constraints,
+            info=info, fused_value_and_grad=fused_vg)
+        if asynchronous:
+            # the sequential-state gate must live as long as the background
+            # run: the actor wraps its whole thread in it
+            return self.trainer.train_async(
+                run_context=lambda: sequential_linalg_state(self.args,
+                                                            method),
+                **common)
         with sequential_linalg_state(self.args, method):
             hyperparameters = self.trainer.train(
-                objective_function=objective_function,
-                objective_function_gradient=objective_function_gradient,
-                objective_function_hessian=objective_function_hessian,
-                hyperparameter_bounds=np.asarray(hyperparameter_bounds,
-                                                 dtype=np.float64),
-                init_hyperparameters=np.asarray(init_hyperparameters,
-                                                dtype=np.float64),
-                method=method, pop_size=pop_size, tolerance=tolerance,
-                max_iter=max_iter, local_optimizer=local_optimizer,
-                constraints=constraints, mcmc_prior=mcmc_prior,
-                mcmc_prop_distrs=mcmc_prop_distrs, mcmc_args=mcmc_args,
-                info=info, batched_objective=batched_objective,
-                fused_value_and_grad=fused_vg)
+                batched_objective=batched_objective,
+                batched_value_and_grad=batched_vg,
+                adam_chain_runner=adam_chain_runner, **common)
             self.set_hyperparameters(hyperparameters)
         return hyperparameters
+
+    @staticmethod
+    def _warn_about_bo_suitability(hyperparameter_bounds, max_iter, bo_args):
+        """Warnings before a ``method="bo"`` run that cannot do well: a
+        budget the initial design eats whole, or too many
+        hyperparameters."""
+        from .gp_bo import default_initial_design_size
+        n_hps = len(hyperparameter_bounds)
+        n_init = int((bo_args or {}).get(
+            "n_init", default_initial_design_size(n_hps, max_iter)))
+        n_init = max(2, min(n_init, max_iter))
+        if n_init >= max_iter:
+            warnings.warn(
+                f"method='bo' has a budget of {max_iter} evaluations but its "
+                f"space-filling initial design alone needs {n_init} for "
+                f"{n_hps} hyperparameters, so the entire budget goes to that "
+                f"design and no Bayesian optimization is performed — this is "
+                f"random search. Raise max_iter well above {n_init}, or "
+                f"lower bo_args['n_init'].")
+        if n_hps > 20:
+            warnings.warn(
+                f"method='bo' is being asked to tune {n_hps} hyperparameters. "
+                f"Bayesian optimization is intended for a handful up to "
+                f"roughly 20; beyond that the result degrades without any "
+                f"error being raised. Consider 'mcmc' or 'global', or reduce "
+                f"the number of trained hyperparameters.")
+        elif n_hps > 10:
+            warnings.warn(
+                f"method='bo' is being asked to tune {n_hps} hyperparameters, "
+                f"which is at the edge of what it does well. Expect a less "
+                f"precise optimum than at 2-5 and give it a larger max_iter.")
+
+    def stop_training(self, opt_obj):
+        """Ask an asynchronous training run to stop."""
+        self.trainer.stop_training(opt_obj)
+
+    def kill_client(self, opt_obj):
+        """Stop an asynchronous training run and wait for its thread."""
+        self.trainer.kill_client(opt_obj)
+
+    def update_hyperparameters(self, opt_obj):
+        """Pull the latest hyperparameters from a running asynchronous
+        optimizer, commit them and return them."""
+        hps = self.trainer.update_hyperparameters(opt_obj)
+        self.set_hyperparameters(hps)
+        return hps
 
     def log_likelihood(self, hyperparameters=None):
         if hyperparameters is not None and not (
@@ -690,5 +793,6 @@ class NotPortedError(NotImplementedError, AttributeError):
     yet (also an AttributeError, so ``hasattr`` stays False)."""
 
 
-_NOT_PORTED = dict.fromkeys(("bo_info", "stop_training", "kill_client",
-                             "update_hyperparameters"), "1.5")
+# names of the JAX GP surface the port does not serve, each with the ROADMAP
+# item that brings it (none since item 1.5)
+_NOT_PORTED = {}

@@ -83,6 +83,41 @@ class GPMarginalLikelihood:
                 and self.prior._default_mean
                 and bool(self.args.get("gp2Scale_traced_lml", True)))
 
+    def _sparse_settings(self):
+        """The traced sparse program's settings, read from ``args`` and
+        the data, and ``key``: the cached program they build."""
+        args = self.args
+        n = len(self.x_data)
+        B = int(args.get("gp2Scale_block_size",
+                         min(self.prior.batch_size, 256)))
+        pwidth = int(args.get("gp2Scale_precond_width", 1))
+        row_mult = max(pwidth, 1)
+        ctol = args.get("sparse_cg_tol", None)
+        st = dict(
+            n=n, B=B, pwidth=pwidth,
+            nb=-(-(-(-n // B)) // row_mult) * row_mult,
+            dtype=config.linalg_dtype(args, self.data.device),
+            cg_iters=int(args.get("sparse_cg_maxiter",
+                                  args.get("sparse_krylov_maxiter", 64))
+                         or 64),
+            ctol=float(ctol) if ctol is not None else None,
+            sdt=config.as_torch_dtype(args.get("gp2Scale_solver_dtype",
+                                               None)),
+            probes=int(args.get("random_logdet_fixed_probes",
+                                max(16, int(args.get(
+                                    "random_logdet_min_num_samples", 10))))),
+            degree=int(args.get("random_logdet_lanczos_degree", 20)),
+            # "mbcg" (the default): one preconditioned CG over [y-m |
+            # probes] gives the solve and the log-determinant; "slq" runs
+            # an implicit-gradient CG and a fixed-degree Lanczos quadrature
+            # apart
+            solver=str(args.get("gp2Scale_solver", "mbcg")))
+        st["key"] = (n, B, st["nb"], st["cg_iters"], st["ctol"],
+                     st["probes"], st["degree"], str(st["dtype"]),
+                     str(st["sdt"]), st["solver"], pwidth,
+                     self.data.point_number)
+        return st
+
     def _sparse_lml_eval(self, hyperparameters, want_grad=False):
         from ..ops.sparse_lml import make_padded_inputs, make_sparse_lml
         from ..parallel.sharded_cov import (_bucket, _candidate_pairs,
@@ -94,12 +129,10 @@ class GPMarginalLikelihood:
         args = self.args
         device = self.data.device
         x = np.asarray(self.x_data, dtype=np.float64)
-        n = len(x)
-        B = int(args.get("gp2Scale_block_size", min(prior.batch_size, 256)))
-        pwidth = int(args.get("gp2Scale_precond_width", 1))
+        st = self._sparse_settings()
+        n, B, nb, pwidth, dtype = (st[k] for k in ("n", "B", "nb", "pwidth",
+                                                   "dtype"))
         row_mult = max(pwidth, 1)
-        nb = -(-(-(-n // B)) // row_mult) * row_mult
-        dtype = config.linalg_dtype(args, device)
 
         ls, radius = support_geometry(prior, hyperparameters, args)
         if ls is None:
@@ -139,21 +172,9 @@ class GPMarginalLikelihood:
             self._candidate_cache = ((data_token, B, float(radius)), ls_now,
                                      rows_f, cols_f)
 
-        cg_iters = int(args.get("sparse_cg_maxiter",
-                                args.get("sparse_krylov_maxiter", 64)) or 64)
-        ctol = args.get("sparse_cg_tol", None)
-        ctol = float(ctol) if ctol is not None else None
-        sdt = config.as_torch_dtype(args.get("gp2Scale_solver_dtype", None))
-        probes = int(args.get("random_logdet_fixed_probes",
-                              max(16, int(args.get(
-                                  "random_logdet_min_num_samples", 10)))))
-        degree = int(args.get("random_logdet_lanczos_degree", 20))
-        # "mbcg" (the default): one preconditioned CG over [y-m | probes]
-        # gives the solve and the log-determinant; "slq" runs an
-        # implicit-gradient CG and a fixed-degree Lanczos quadrature apart
-        solver = str(args.get("gp2Scale_solver", "mbcg"))
-        key = (n, B, nb, cg_iters, ctol, probes, degree, str(dtype), str(sdt),
-               solver, pwidth, self.data.point_number)
+        cg_iters, ctol, sdt, probes, degree, solver, key = (
+            st[k] for k in ("cg_iters", "ctol", "sdt", "probes", "degree",
+                            "solver", "key"))
         entry = self._sparse_cache.get(key)
         if entry is None:
             with phase_timer("sparse LML: padded inputs (host pad + "
@@ -172,7 +193,7 @@ class GPMarginalLikelihood:
                                   cg_tol=ctol)
             entry = {"lml": lml, "xb": xb, "mask": mask, "y_pad": y_pad,
                      "ypad_mask": ypad_mask, "noise_pad": noise_pad,
-                     "counter": 0, "schedule": None}
+                     "probes": probes, "counter": 0, "schedule": None}
             self._sparse_cache = {key: entry}
         generator = torch.Generator().manual_seed(42 + entry["counter"])
         entry["counter"] += 1
@@ -236,6 +257,9 @@ class GPMarginalLikelihood:
                      torch.as_tensor(cols_p).to(device))
             entry["schedule"] = sched
         rows_d, cols_d = sched[2], sched[3]
+        # what the Adam chain revalidates on entry: the support lengthscales
+        # and the data this structure was built for
+        entry["chain_ctx"] = {"ls_ref": ls_now, "data_token": data_token}
 
         Z = _rademacher_probes(nb * B, probes, dtype, device, generator)
         Z = Z * entry["ypad_mask"][:, None]
@@ -255,6 +279,95 @@ class GPMarginalLikelihood:
         if want_grad:
             return float(val.detach()), config.to_numpy(grad)
         return float(val)
+
+    def _chain_entry(self, theta):
+        """The cached sparse program for an Adam chunk at ``theta``: reused
+        while ``args`` still build it, the data is unchanged and the support
+        lengthscales stay within ``gp2Scale_filter_drift`` of the ones its
+        structure was built at, else refreshed by one value-and-gradient
+        evaluation at ``theta``."""
+        from ..parallel.sharded_cov import support_geometry
+        entry = self._sparse_cache.get(self._sparse_settings()["key"])
+        ctx = entry.get("chain_ctx") if entry is not None else None
+        if ctx is not None:
+            ls, _ = support_geometry(self.prior, theta, self.args)
+            if ls is None:                 # unknown support: never drifts
+                ls = np.ones_like(ctx["ls_ref"])
+            tol = float(self.args.get("gp2Scale_filter_drift", 0.05))
+            if (ctx["data_token"] == (self.data.point_number,
+                                      self.data.generation)
+                    and np.all(np.abs(np.asarray(ls, np.float64)
+                                      / ctx["ls_ref"] - 1.0) <= tol)):
+                return entry
+        self._sparse_lml_eval(theta, want_grad=True)
+        return self._sparse_cache[self._sparse_settings()["key"]]
+
+    def sparse_adam_steps(self, theta, m, v, t_start, n_steps, seed=0,
+                          lr=1e-2, beta1=0.9, beta2=0.999, eps=1e-8,
+                          bounds=None, probe_source=None):
+        """``n_steps`` Adam steps on the NEGATIVE sparse LML, every step a
+        value-and-gradient of the cached program (its mBCG launches K1) and
+        the moment update (``gp_training.adam_step``) on the device, in the
+        hyperparameters' dtype.
+
+        The structure (tile schedule, padded inputs) is revalidated against
+        ``theta`` on entry only: inside the chunk it is reused, the bet the
+        drift policy already makes, so staleness never exceeds one chunk.
+        Probes are fresh at every step, drawn from a generator seeded by
+        ``(seed, the entry's evaluation counter, t_start + i)``: the
+        ABSOLUTE step index, or chunk k+1 would replay chunk k's probes and
+        the estimator's noise would become a repeating bias.
+        ``probe_source`` (a callable ``step -> Z`` of shape
+        (padded N, probes)) replaces the generator.  Non-finite gradients
+        are zeroed; ``bounds`` clamps.  Returns ``(theta, m, v, fvals)`` as
+        numpy, ``fvals`` the per-step negative LML values.
+
+        The chain keeps the JAX chain's structure reuse and probe law; it
+        saves no dispatch (JAX fuses the chunk into one program, here each
+        step is one value-and-gradient, as in the host loop)."""
+        from .gp_training import adam_step
+        theta = np.asarray(theta, dtype=np.float64)
+        entry = self._chain_entry(theta)
+        device = self.data.device
+        dtype = config.linalg_dtype(self.args, device)
+        lml = entry["lml"]
+        rows_d, cols_d = entry["schedule"][2], entry["schedule"][3]
+        data = (entry["xb"], entry["mask"], entry["y_pad"],
+                entry["ypad_mask"], entry["noise_pad"])
+        n_pad = entry["xb"].shape[0] * entry["xb"].shape[1]
+
+        def dev(a):
+            return torch.as_tensor(np.asarray(a, np.float64),
+                                   dtype=dtype).to(device)
+
+        th, m, v = dev(theta), dev(m), dev(v)
+        if bounds is not None:
+            lo, hi = (dev(col) for col in np.asarray(bounds).T)
+        fvals = []
+        for i in range(int(n_steps)):
+            step = int(t_start) + i
+            if probe_source is not None:
+                Z = torch.as_tensor(probe_source(step), dtype=dtype).to(device)
+            else:
+                key = np.random.SeedSequence(
+                    [int(seed), int(entry["counter"]), step])
+                generator = torch.Generator().manual_seed(
+                    int(key.generate_state(1)[0]))
+                Z = _rademacher_probes(n_pad, entry["probes"], dtype,
+                                       device, generator)
+            Z = Z * entry["ypad_mask"][:, None]
+            h = th.detach().requires_grad_(True)
+            with torch.enable_grad():
+                val, _ = lml(h, rows_d, cols_d, *data, Z)
+                g = -torch.autograd.grad(val, h)[0]        # minimize -LML
+            g = torch.where(torch.isfinite(g), g, torch.zeros_like(g))
+            th, m, v = adam_step(th, g, m, v, step + 1, lr, beta1, beta2,
+                                 eps)
+            if bounds is not None:
+                th = torch.clamp(th, lo, hi)
+            fvals.append(-val.detach())
+        return (config.to_numpy(th), config.to_numpy(m), config.to_numpy(v),
+                config.to_numpy(torch.stack(fvals)))
 
     # ------------------------------------------------------------------
     # dense traced path
@@ -349,6 +462,77 @@ class GPMarginalLikelihood:
                                        torch.full_like(val, np.nan)))
                 del KV
         return config.to_numpy(torch.cat(out))
+
+    def batched_value_and_grad_device(self):
+        """A callable ``(pop, H) -> (values, grads)`` of the NEGATIVE dense
+        LML on the model's device (tensors in, tensors out; numpy is
+        accepted) — the engine of the ``hgdl`` lockstep phase.  None off the
+        traced path.
+
+        A chunk of members is one batched factorization and one
+        ``torch.autograd.grad`` of the sum of their values: the members are
+        independent, so row i of the gradient is member i's.  A member whose
+        K+V is not positive definite is masked out of the sum and returns
+        NaN; its gradient row may be non-finite (the caller zeroes it).
+        Autograd records the plain kernel formula (K3 serves no recorded
+        input), so a member holds about ten n² saved tensors besides K+V and
+        its factor: on the card one member's peak is measured once, with
+        the first member of the first call, and chunks fill half of the free
+        memory; on the CPU they fill 2 GiB at 13 n² per member."""
+        if not self._traced_ready():
+            return None
+        return self._batched_value_and_grad
+
+    def _vg_members(self, P):
+        """(-LML, its gradient) of one chunk of members."""
+        n = len(self.x_data)
+        hps = P.detach().clone().requires_grad_(True)
+        with torch.enable_grad():
+            KV = torch.empty((len(P), n, n), dtype=self.prior.dtype,
+                             device=self.data.device)
+            ym = []
+            for i in range(len(P)):
+                KV[i], r = self._dense_operands(hps[i])
+                ym.append(r)
+            val, info = self._lml_from(KV, torch.stack(ym))
+            ok = info == 0
+            del KV
+            total = torch.where(ok, val, torch.zeros_like(val)).sum()
+            grad = -torch.autograd.grad(total, hps)[0]
+        return torch.where(ok, -val.detach(),
+                           torch.full_like(val, float("nan"))), grad
+
+    def _batched_value_and_grad(self, P):
+        dev = self.data.device
+        P = torch.as_tensor(P, dtype=self.prior.dtype).to(dev)
+        n = len(self.x_data)
+        item = torch.finfo(self.prior.dtype).bits // 8
+        key = (n, str(self.prior.dtype), self.kv.mode)
+        vals, grads = [], []
+        s = 0
+        if dev.type == "cuda" and getattr(self, "_vg_member_bytes",
+                                          (None,))[0] != key:
+            torch.cuda.synchronize(dev)
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            v, g = self._vg_members(P[:1])
+            vals.append(v)
+            grads.append(g)
+            self._vg_member_bytes = (key, max(
+                torch.cuda.max_memory_allocated(dev) - base, 1))
+            s = 1
+        if dev.type == "cuda":
+            per_member = self._vg_member_bytes[1]
+            budget = torch.cuda.mem_get_info(dev)[0] // 2
+        else:
+            per_member, budget = 13 * n * n * item, 2 << 30
+        chunk = self._vg_chunk = max(1, budget // per_member)
+        while s < len(P):
+            v, g = self._vg_members(P[s:s + chunk])
+            vals.append(v)
+            grads.append(g)
+            s += chunk
+        return torch.cat(vals), torch.cat(grads)
 
     # ------------------------------------------------------------------
     # public surface

@@ -879,3 +879,103 @@ def test_custom_linalg_mode_on_card(cuda_device):
     np.testing.assert_allclose(gp.posterior_covariance(xp)["S"],
                                ref.posterior_covariance(xp)["S"], rtol=0,
                                atol=1e-10)
+
+
+# ---------------------------------------------------------------------------
+# the training slice: the batched value-and-gradient, the gp2Scale Adam
+# chain and the asynchronous actors on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_batched_value_and_grad_on_card_matches_single_members(cuda_device,
+                                                               dtype):
+    """Each member of the batched value-and-gradient (one chunk, and again
+    one member per chunk) against its own single-member evaluation on the
+    card; a member that is not positive definite is NaN alone."""
+    gp = _posterior_api_gp(str(cuda_device), args={"dtype": dtype})
+    ml = gp.marginal_likelihood
+    P = np.array([[1.0, 1.5, 1.5, 1.5], [2.0, 1.0, 2.0, 0.7],
+                  [-1.0, 1.5, 1.5, 1.5], [0.5, 3.0, 1.0, 2.0]])
+    vals, grads = ml.batched_value_and_grad_device()(P)
+    assert vals.device.type == "cuda" and ml._vg_member_bytes[1] > 0
+    key = ml._vg_member_bytes[0]
+    ml._vg_member_bytes = (key, 1 << 50)             # one member per chunk
+    vals1, grads1 = ml.batched_value_and_grad_device()(P)
+    tol = 1e-4 if dtype == "float32" else 1e-10
+    for v, g in ((vals, grads), (vals1, grads1)):
+        v = v.cpu().double().numpy()
+        g = g.cpu().double().numpy()
+        assert np.isnan(v[2]) and np.isfinite(np.delete(v, 2)).all()
+        for i in (0, 1, 3):
+            val, grad = ml.log_likelihood_value_and_gradient(P[i])
+            np.testing.assert_allclose(-v[i], val, rtol=tol)
+            np.testing.assert_allclose(-g[i], grad, rtol=0,
+                                       atol=tol * np.abs(grad).max())
+
+
+@pytest.mark.cuda
+def test_sparse_adam_chain_on_card_matches_the_cpu(cuda_device):
+    """Four chain steps at the same injected probes, float64 on the card
+    against the CPU (1e-8), and float32 on the card launching K1 at every
+    step."""
+    from fvgp_tpu_torch import GP
+    rng = np.random.default_rng(11)
+    n = 2000
+    x = rng.uniform(0, 18, (n, 3))
+    y = np.sin(0.5 * x[:, 0]) + 0.05 * rng.standard_normal(n)
+    hps = np.array([1.0, 2.0, 2.0, 2.0])
+    bounds = np.array([[0.05, 5.0], [1.9, 2.1], [1.9, 2.1], [1.9, 2.1]])
+    Zs = None
+    out = {}
+    for name, device, dtype in (("cpu", "cpu", "float64"),
+                                ("f64", str(cuda_device), "float64"),
+                                ("f32", str(cuda_device), "float32")):
+        gp = GP(x, y, init_hyperparameters=hps,
+                noise_variances=np.full(n, 1e-2), gp2Scale=True,
+                compute_device=device,
+                args={"gp2Scale_block_size": 64, "dtype": dtype,
+                      "random_logdet_fixed_probes": 8,
+                      "gp2Scale_structure_cache_dir": False})
+        ml = gp.marginal_likelihood
+        ml.log_likelihood_value_and_gradient(hps)
+        if Zs is None:
+            n_pad = next(iter(ml._sparse_cache.values()))["xb"].shape[0] * 64
+            probes = np.random.default_rng(4)
+            Zs = [probes.choice([-1.0, 1.0], (n_pad, 8)) for _ in range(4)]
+        before = HK.chunked_spmm.launches
+        out[name] = ml.sparse_adam_steps(hps, np.zeros(4), np.zeros(4), 0, 4,
+                                         bounds=bounds,
+                                         probe_source=lambda s: Zs[s])
+        if name == "f32":
+            assert HK.chunked_spmm.launches - before >= 4
+    np.testing.assert_allclose(out["f64"][0], out["cpu"][0], rtol=0,
+                               atol=1e-8)
+    np.testing.assert_allclose(out["f64"][3], out["cpu"][3], rtol=1e-8)
+    np.testing.assert_allclose(out["f32"][0], out["cpu"][0], rtol=0,
+                               atol=1e-3)
+    np.testing.assert_allclose(out["f32"][3], out["cpu"][3], rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_k3_launches_from_an_actor_thread(cuda_device):
+    """Grad mode is thread-local: an asynchronous mcmc's value-only LMLs,
+    evaluated in the actor thread, still reach K3 — one launch each."""
+    import threading
+    gp = _posterior_api_gp(str(cuda_device))
+    bounds = np.array([[0.1, 10.0]] + [[0.5, 5.0]] * 3)
+    ml = gp.marginal_likelihood
+    threads = []
+    lml = ml.log_likelihood
+    ml.log_likelihood = lambda h=None: threads.append(
+        threading.current_thread()) or lml(h)
+    before = HK.dense_covariance.launches
+    opt = gp.train(hyperparameter_bounds=bounds, method="mcmc", max_iter=30,
+                   asynchronous=True)
+    opt.actor.join(timeout=120)
+    assert opt.is_done() and "error" not in opt.actor.get_latest()
+    assert len(threads) >= 5
+    assert threading.main_thread() not in threads
+    assert HK.dense_covariance.launches - before == len(threads)
+    hps = gp.update_hyperparameters(opt)
+    assert np.all(np.isfinite(hps))

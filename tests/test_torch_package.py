@@ -33,6 +33,8 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "import fvgp_tpu_torch.ops.sparse_lml, fvgp_tpu_torch.interop\n"
         "import fvgp_tpu_torch.ops.dense, fvgp_tpu_torch.ops.hopper_kernels\n"
         "import fvgp_tpu_torch.kernels, fvgp_tpu_torch.models.gp_mcmc\n"
+        "import fvgp_tpu_torch.models.gp_bo, fvgp_tpu_torch.models.gp_actor\n"
+        "import fvgp_tpu_torch.models.gp_training\n"
         "import fvgp_tpu_torch.ops.krylov, fvgp_tpu_torch.ops.slq\n"
         "import fvgp_tpu_torch.ops.precond\n"
         "import fvgp_tpu_torch.parallel.block_sparse\n"
@@ -110,27 +112,33 @@ def test_dense_path_and_unported_methods_raise():
     with pytest.warns(UserWarning):
         dense = GP(x, y, compute_device="cpu")
     assert np.isfinite(dense.log_likelihood())
-    with pytest.raises(NotImplementedError, match="ROADMAP item 1.5"):
-        dense.train(method="hgdl")
+    # served since the training slice (item 1.5): hgdl trains
+    bounds = np.array([[0.05, 5.0], [0.2, 10.0], [0.2, 10.0]])
+    hps = dense.train(method="hgdl", hyperparameter_bounds=bounds,
+                      pop_size=4, max_iter=5)
+    assert hps.shape == (3,) and np.all(np.isfinite(hps))
     with pytest.raises(Exception, match="No Mode"):
         GP(x, y, compute_device="cpu", linalg_mode="sparseQR")
     # served since the posterior-API slice: custom modes, the posterior
     # gradients, the information suite and the metrics; item 1.5's names
-    # still raise
+    # since the training slice
     custom = GP(x, y, compute_device="cpu",
                 linalg_mode=[lambda KV: KV, lambda f, b: b, lambda f: 0.0])
     assert np.isfinite(custom.log_likelihood())
     assert np.isfinite(dense.crps(x, y)[0])
     assert np.isfinite(dense.gp_entropy(x[:3]))
     assert hasattr(dense, "posterior_mean_grad")
-    for name in ("bo_info", "stop_training", "kill_client",
-                 "update_hyperparameters"):
-        with pytest.raises(NotPortedError, match="ROADMAP item 1.5"):
-            getattr(dense, name)
+    from fvgp_tpu_torch.models.gp import _NOT_PORTED
+    assert _NOT_PORTED == {} and issubclass(NotPortedError,
+                                            NotImplementedError)
+    assert dense.bo_info is None
+    for name in ("stop_training", "kill_client", "update_hyperparameters"):
+        assert callable(getattr(dense, name))
     with pytest.warns(UserWarning):
         gp = GP(x, y, gp2Scale=True, compute_device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 1.5"):
-        gp.train(method="bo")
+    gp.train(method="bo", hyperparameter_bounds=bounds, max_iter=3,
+             bo_args={"n_init": 2, "surrogate_train_max_iter": 5})
+    assert gp.bo_info["n_evaluations"] == 3
     # served since the gp2Scale Hessian was ported: central differences of
     # the gradient, symmetric
     hess = gp.marginal_likelihood.neg_log_likelihood_hessian()
