@@ -19,6 +19,13 @@ it or JAX.  Two journeys run through the public ``GP``, on the card unless
 ``fvgp_tpu_torch.gp_lin_alg`` holds the reference-name linear-algebra
 functions (``calculate_sparse_conj_grad``, ``calculate_random_logdet``, ...).
 
+``fvGP`` is the multi-task GP: a ``GP`` over task-augmented points
+``[x, task]`` with NaN-masked (V, No) observations and task-major
+posteriors.  Host (numpy) kernel, mean and noise callables, their gradient
+callables, structured (``scipy.sparse`` / block-sparse) noise and
+non-Euclidean inputs (lists of objects) are served on both journeys; off
+the traced paths the LML gradient is the explicit formula.
+
 ``gpMCMC`` and ``ProposalDistribution`` are the adaptive Metropolis sampler
 behind ``train(method="mcmc")``, usable on their own.  Every TPU kernel of
 the JAX package has a hand-written Hopper counterpart in
@@ -26,8 +33,9 @@ the JAX package has a hand-written Hopper counterpart in
 """
 
 from .interop import gp_from_numpy_state
+from .models.fvgp import fvGP
 from .models.gp import GP, NotPortedError
 from .models.gp_mcmc import ProposalDistribution, gpMCMC
 
-__all__ = ["GP", "NotPortedError", "ProposalDistribution", "gpMCMC",
+__all__ = ["GP", "NotPortedError", "ProposalDistribution", "fvGP", "gpMCMC",
            "gp_from_numpy_state"]

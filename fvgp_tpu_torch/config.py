@@ -11,6 +11,10 @@
 * A pickled model holds host numpy arrays and device names only
   (:func:`host_state` / :func:`device_state`).
 * Float32 matrix products run in full float32: the port never turns TF32 on.
+* :func:`to_tensor`, :func:`returns_tensor` and :func:`hps_jacobian` are the
+  models' shared plumbing: host data onto the device, the "runs on torch
+  tensors" probe of a user callable, and its forward-mode derivative in the
+  hyperparameters.
 
 There is no global switch and no compile cache: every tensor is created with
 an explicit dtype and device.
@@ -111,3 +115,43 @@ def to_numpy(x):
     if out.dtype in (torch.float32, torch.float16, torch.bfloat16):
         out = out.to(torch.float64)
     return out.numpy()
+
+
+def to_tensor(a, device, dtype):
+    """``a`` (numpy, array-like or a tensor) as a tensor on ``device`` in
+    ``dtype``."""
+    if torch.is_tensor(a):
+        return a.to(device, dtype)
+    return torch.as_tensor(np.asarray(a, dtype=np.float64),
+                           dtype=dtype).to(device)
+
+
+def returns_tensor(fn, x, hps):
+    """The "differentiable by autograd" probe: True when ``fn(x, hps)``
+    (or ``fn(x, x, hps)`` via a wrapper) runs on torch tensors while
+    autograd records ``hps`` and returns a tensor.  A host (numpy) callable
+    fails here: numpy refuses a tensor that requires grad."""
+    try:
+        with torch.enable_grad():
+            return isinstance(fn(x, hps.detach().clone().requires_grad_(True)),
+                              torch.Tensor)
+    except Exception:
+        return False
+
+
+def hps_jacobian(fn, hps, direction=None):
+    """d fn(hps)/d hps by forward-mode AD, one basis direction at a time
+    (``jacfwd`` without ``vmap``, so any callable that forward-mode AD runs
+    through qualifies): (H, *out) for every direction, (*out) for one."""
+    from torch.autograd import forward_ad
+    dirs = range(len(hps)) if direction is None else [int(direction)]
+    out = []
+    for i in dirs:
+        e = torch.zeros_like(hps)
+        e[i] = 1.0
+        with forward_ad.dual_level():
+            primal, tangent = forward_ad.unpack_dual(
+                fn(forward_ad.make_dual(hps, e)))
+            out.append(torch.zeros_like(primal) if tangent is None
+                       else tangent)
+    return out[0] if direction is not None else torch.stack(out)

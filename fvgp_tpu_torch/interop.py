@@ -1,12 +1,13 @@
 """Carry a model's state from the JAX package to the port.
 
-``gp_from_numpy_state`` takes what the JAX ``GP`` exposes through its public
-properties — as numpy, so this module never imports JAX — and builds a port
-``GP`` that computes the same thing.
+``gp_from_numpy_state`` takes what the JAX ``GP`` or ``fvGP`` exposes
+through its public properties — as numpy, so this module never imports
+JAX — and builds a port model that computes the same thing.
 """
 
 import numpy as np
 
+from .models.fvgp import fvGP
 from .models.gp import GP
 from .parallel.block_sparse import from_numpy_state
 from .parallel.ordering import morton_order
@@ -14,43 +15,74 @@ from .parallel.ordering import morton_order
 __all__ = ["gp_from_numpy_state"]
 
 
-def gp_from_numpy_state(state, compute_device="cuda"):
-    """A port ``GP`` from a state dict with ``x_data``, ``y_data``,
-    ``noise_variances`` (or None), ``hyperparameters``, ``args`` and
-    optionally ``gp2Scale`` (default True), ``linalg_mode`` and
-    ``gp2Scale_batch_size``.  The default kernel, mean and noise of the
-    model kind are used.  A gp2Scale state may carry ``K``: the numpy dict
-    that the JAX ``BlockSparseMatrix.__getstate__`` gives (``n``,
-    ``n_cols``, ``block_size``, ``rows``, ``cols``, ``tiles``, ``diag``),
-    which becomes the model's stored covariance, so both packages solve
-    against one stored operator.
+def gp_from_numpy_state(state, compute_device="cuda", kernel_function=None):
+    """A port ``GP`` (or ``fvGP``) from a state dict with ``x_data``,
+    ``y_data``, ``noise_variances`` (or None), ``hyperparameters``, ``args``
+    and optionally ``gp2Scale`` (default True), ``linalg_mode`` and
+    ``gp2Scale_batch_size``.  The mean and noise are the model kind's
+    defaults, and so is the kernel unless given here (a non-Euclidean model
+    needs its kernel).  A gp2Scale state may carry ``K``: the numpy dict that the JAX
+    ``BlockSparseMatrix.__getstate__`` gives (``n``, ``n_cols``,
+    ``block_size``, ``rows``, ``cols``, ``tiles``, ``diag``), which becomes
+    the model's stored covariance, so both packages solve against one
+    stored operator.
 
-    A gp2Scale model's ``x_data`` is already Morton-ordered, so the port
-    keeps that order (``gp2Scale_reorder=False``) after checking that the
-    reorder would be the identity — a state whose order differs raises
-    instead of silently changing the tile blocking.  A dense state
-    (``gp2Scale`` False) keeps its order as it is."""
-    x = np.asarray(state["x_data"], dtype=np.float64)
-    y = np.asarray(state["y_data"], dtype=np.float64)
-    if y.ndim == 2 and y.shape[1] == 1:
-        y = y[:, 0]
-    nv = state.get("noise_variances")
+    * A multi-task state carries ``output_num`` and the untransformed
+      ``fvgp_x_data``, ``fvgp_y_data`` and ``fvgp_noise_variances``: the
+      port's ``fvGP`` is built from those, and its flattened product-space
+      data must equal the state's ``x_data`` / ``y_data``.
+    * A non-Euclidean state's ``x_data`` is a list of objects; it is kept
+      as it is.
+    * A Euclidean gp2Scale model's ``x_data`` is already Morton-ordered, so
+      the port keeps that order (``gp2Scale_reorder=False``) after checking
+      that the reorder would be the identity — a state whose order differs
+      raises instead of silently changing the tile blocking.  A dense state
+      (``gp2Scale`` False) keeps its order as it is."""
     args = dict(state.get("args") or {})
     gp2Scale = bool(state.get("gp2Scale", True))
-    if gp2Scale:
-        if args.get("gp2Scale_reorder", True) and not np.array_equal(
-                morton_order(x), np.arange(len(x))):
-            raise ValueError("gp_from_numpy_state: x_data is not in Morton "
-                             "order; pass the gp2Scale model's own x_data")
-        args["gp2Scale_reorder"] = False
-    gp = GP(x, y,
-            init_hyperparameters=np.asarray(state["hyperparameters"],
-                                            dtype=np.float64),
-            noise_variances=None if nv is None else np.asarray(
-                nv, dtype=np.float64),
-            compute_device=compute_device, gp2Scale=gp2Scale,
-            gp2Scale_batch_size=state.get("gp2Scale_batch_size", 10000),
-            linalg_mode=state.get("linalg_mode"), args=args)
+    multitask = state.get("output_num") is not None
+    euclidean = not isinstance(
+        state["fvgp_x_data"] if multitask else state["x_data"], list)
+    common = dict(
+        init_hyperparameters=np.asarray(state["hyperparameters"],
+                                        dtype=np.float64),
+        compute_device=compute_device, gp2Scale=gp2Scale,
+        gp2Scale_batch_size=state.get("gp2Scale_batch_size", 10000),
+        linalg_mode=state.get("linalg_mode"), kernel_function=kernel_function)
+    if multitask:
+        nv = state.get("fvgp_noise_variances")
+        x = state["fvgp_x_data"]
+        gp = fvGP(np.asarray(x, dtype=np.float64) if euclidean else list(x),
+                  np.asarray(state["fvgp_y_data"], dtype=np.float64),
+                  noise_variances=None if nv is None
+                  else np.asarray(nv, dtype=np.float64), args=args, **common)
+        if gp.output_num != int(state["output_num"]):
+            raise ValueError("gp_from_numpy_state: output_num disagrees with "
+                             "fvgp_y_data")
+        if euclidean and not (
+                np.array_equal(np.asarray(gp.x_data),
+                               np.asarray(state["x_data"]))
+                and np.array_equal(np.asarray(gp.y_data).ravel(),
+                                   np.asarray(state["y_data"]).ravel())):
+            raise ValueError("gp_from_numpy_state: the multi-task state's "
+                             "x_data / y_data are not the flattening of its "
+                             "fvgp_* arrays")
+    else:
+        x = state["x_data"]
+        x = np.asarray(x, dtype=np.float64) if euclidean else list(x)
+        y = np.asarray(state["y_data"], dtype=np.float64)
+        if y.ndim == 2 and y.shape[1] == 1:
+            y = y[:, 0]
+        nv = state.get("noise_variances")
+        if gp2Scale and euclidean:
+            if args.get("gp2Scale_reorder", True) and not np.array_equal(
+                    morton_order(x), np.arange(len(x))):
+                raise ValueError("gp_from_numpy_state: x_data is not in "
+                                 "Morton order; pass the gp2Scale model's "
+                                 "own x_data")
+            args["gp2Scale_reorder"] = False
+        gp = GP(x, y, noise_variances=None if nv is None
+                else np.asarray(nv, dtype=np.float64), args=args, **common)
     if gp2Scale and state.get("K") is not None:
         gp.prior.K = from_numpy_state(state["K"], device=gp.device)
     return gp

@@ -55,7 +55,16 @@ class GP:
     are torch callables ``k(x1, x2, hps)`` (or ``k(x1, x2, hps, args)``)
     that broadcast over a leading batch dimension (default: the anisotropic
     Matérn-3/2, or the anisotropic Wendland kernel under gp2Scale); means
-    ``m(x, hps)`` and noise ``noise(x, hps)`` likewise.
+    ``m(x, hps)`` and noise ``noise(x, hps)`` likewise.  A callable may
+    instead be a host (numpy) function, which takes numpy points and
+    hyperparameters; a noise callable may return a ``scipy.sparse`` matrix
+    or a ``BlockSparseMatrix``.  Such models train on the formula gradient
+    (``kernel_function_grad``, ``prior_mean_function_grad`` and
+    ``noise_function_grad`` — numpy in, numpy or a tensor out — supply its
+    derivatives; ``ram_economy=True`` asks for them one direction at a
+    time).  ``x_data`` may be a list of arbitrary objects (a non-Euclidean
+    input space): a host kernel and ``init_hyperparameters`` are then
+    required.
     """
 
     def __init__(self, x_data, y_data, init_hyperparameters=None,
@@ -94,7 +103,7 @@ class GP:
                            compute_device=compute_device,
                            gp2Scale_batch_size=gp2Scale_batch_size)
         hyperparameters = init_hyperparameters
-        if hyperparameters is None:
+        if hyperparameters is None and self.data.Euclidean:
             if callable(kernel_function) or callable(prior_mean_function) \
                     or callable(noise_function):
                 raise Exception(
@@ -102,6 +111,9 @@ class GP:
                     "functions but no initial hyperparameters.")
             hyperparameters = np.ones(self.index_set_dim + 1)
             warnings.warn("Hyperparameters initialized to a vector of ones.")
+        if hyperparameters is None:
+            raise Exception("'init_hyperparameters' not provided and could "
+                            "not be calculated. Please provide them.")
 
         self.trainer = GPtraining(self.data, hyperparameters)
         self.prior = GPprior(self.data, self.trainer,
@@ -270,6 +282,9 @@ class GP:
 
     def _get_default_hyperparameter_bounds(self):
         """Data-driven bounds for the default kernel."""
+        if not self.data.Euclidean:
+            raise Exception("Please provide custom hyperparameter bounds to "
+                            "the training in the non-Euclidean setting")
         if len(self.hyperparameters) != self.index_set_dim + 1:
             raise Exception("Please provide custom hyperparameter_bounds when "
                             "kernel, mean or noise functions are customized")
@@ -327,9 +342,10 @@ class GP:
                 and not ml._sparse_traced_ready():
             # off the traced path the sparse LML has a value and no gradient
             warnings.warn("gp2Scale off the traced LML path (a kernel that "
-                          "does not run on tensors, a mean function, a "
-                          "multi-column y or gp2Scale_traced_lml=False). "
-                          "Method switched to MCMC!")
+                          "does not run on tensors, a mean function, a noise "
+                          "function, non-Euclidean inputs, a multi-column y "
+                          "or gp2Scale_traced_lml=False). Method switched to "
+                          "MCMC!")
             method = "mcmc"
         _async_methods = {"hgdl", "mcmc", "adam", "bo"}
         if asynchronous and method not in _async_methods:

@@ -20,7 +20,8 @@ Owns the K+V factorization state and the reuse policy.  Modes:
   ``KV`` and ``b`` are torch tensors on the model's device (a
   ``BlockSparseMatrix`` under gp2Scale); a solution may come back as a
   tensor or a numpy array.  A custom mode serves the LML value, the
-  posterior and appends, not the traced LML gradient.
+  posterior and appends; its LML gradient is the formula gradient
+  (``GPMarginalLikelihood._formula_gradient``).
 
 Under gp2Scale everything is lazy: the stored K+V materializes on first
 access, and committed solves go through the committed-state fast solver
@@ -31,7 +32,11 @@ fingerprint (trace + Frobenius norm) and the drift-based invalidation of
 cached preconditioners and warm starts follow the JAX package, as does the
 ``sequential_linalg_state`` gate that restricts the reuse to MCMC.
 
-Not ported yet: structured (scipy / block-sparse) noise (ROADMAP item 1.6).
+Structured noise (``scipy.sparse`` or a ``BlockSparseMatrix`` from a noise
+callable) is folded into K+V by ``addKV``: densified on a dense K, tiled
+onto K's block grid (``from_scipy``, on K's device) and merged with K's tiles
+on a block-sparse K.  The committed fast solver serves per-point (diagonal)
+noise only; structured or matrix noise takes the stored K+V.
 """
 
 import contextlib
@@ -474,21 +479,32 @@ class GPkv:
 
     @staticmethod
     def addKV(K, V):
-        """K + V for a dense or block-sparse K and a per-point vector or
-        dense matrix V."""
+        """K + V for a dense or block-sparse K and a per-point vector, a
+        dense matrix or a structured (``scipy.sparse`` / block-sparse) V.
+        On a block-sparse K a structured V is tiled onto K's grid, on K's
+        device, with K's dense tile dtype (``from_scipy``), and the two tile
+        lists are merged; a float32 merge of bfloat16-stored K keeps the
+        noise at float32 precision.  On a dense K it is densified."""
+        from scipy.sparse import issparse
         if is_block_sparse(K):
-            from scipy.sparse import issparse
-            if issparse(V) or is_block_sparse(V):
-                raise NotImplementedError(
-                    "fvgp_tpu_torch: structured (scipy / block-sparse) noise "
-                    "on a block-sparse K is not ported yet (ROADMAP item "
-                    "1.6)")
+            from ..parallel.block_sparse import _dense_dtype, from_scipy, merge
+            if issparse(V):
+                return merge(K, from_scipy(V, K.block_size, device=K.device,
+                                           dtype=_dense_dtype(K.tiles.dtype)))
+            if is_block_sparse(V):
+                return merge(K, V)
             if not torch.is_tensor(V) or V.dim() != 1:
                 raise AssertionError("K is block-sparse; expected a 1-d "
-                                     "diagonal V")
+                                     "diagonal, scipy.sparse, or "
+                                     "BlockSparseMatrix V")
             return K.add_diagonal(V)
         if K.dim() != 2 or K.shape[0] != K.shape[1]:
             raise AssertionError("K must be a square 2-d matrix")
+        if issparse(V):
+            V = torch.as_tensor(V.toarray())
+        elif is_block_sparse(V):
+            V = V.to_dense()
+        V = V.to(K.device, K.dtype)
         if V.dim() == 1:
             return dops.add_diagonal(K, V)
         if V.dim() == 2:
@@ -620,8 +636,11 @@ class GPkv:
                 .reshape(y_mean.shape)
         return self._solve_with(mode, KV, y_mean, x0=x0).reshape(y_mean.shape)
 
-    def compute_new_KVlogdet_KVinvY(self, K, V, m, x0=None):
-        """KVinvY and log|KV| of a trial, sharing one factorization."""
+    def trial_state(self, K, V, m, x0=None):
+        """``(K+V, KVinvY, log|K+V|, Cholesky factor or None)`` of a trial,
+        nothing committed: the solve and the logdet share one factorization
+        (None in the iterative and custom modes), which the formula gradient
+        then takes instead of factoring again."""
         KV = self.addKV(K, V)
         x0 = self._validated_warm_start(KV, x0)
         self.Warm_start_fingerprint = self.matrix_fingerprint(KV)
@@ -629,12 +648,12 @@ class GPkv:
         mode = self._resolved_mode(KV)
         if self._is_custom(mode):
             factor = mode[0](KV)
-            return self._custom_result(mode[1](factor, y_mean)) \
-                .reshape(y_mean.shape), float(mode[2](factor))
+            return KV, self._custom_result(mode[1](factor, y_mean)) \
+                .reshape(y_mean.shape), float(mode[2](factor)), None
         chol = self._trial_chol(mode, KV)
         KVinvY = self._solve_with(mode, KV, y_mean, x0=x0, chol=chol)
-        return KVinvY.reshape(y_mean.shape), \
-            self._logdet_with(mode, KV, chol=chol)
+        return KV, KVinvY.reshape(y_mean.shape), \
+            self._logdet_with(mode, KV, chol=chol), chol
 
     # ------------------------------------------------------------------
     # committed-state fast sparse solver (in-place tiles; no stored KV)
@@ -644,7 +663,8 @@ class GPkv:
         tiles at the committed hyperparameters, or None when that path does
         not apply (untraceable kernel, unpruned structure, or a mode it
         does not serve)."""
-        if not (self.data.gp2Scale and self.prior.kernel_traceable) \
+        if not (self.data.gp2Scale and self.data.Euclidean
+                and self.prior.kernel_traceable) \
                 or self._is_custom(self.linalg_mode):
             return None
         from ..parallel.sharded_cov import (_bucket, _stable_kernel_closure,
@@ -678,8 +698,18 @@ class GPkv:
         if ctx is not None and ctx["key"] == key:
             return ctx if ctx.get("fn") is not None else None
 
+        # the noise diagonal on the host; a traceable noise callable's comes
+        # back from the device once per cache miss.  Structured or matrix
+        # noise has no diagonal to pad: the stored K+V serves it
         V = self.likelihood.calculate_V_host(self.x_data,
                                              self.prior.hyperparameters)
+        if V is None:
+            V_dev = self.likelihood.V
+            if torch.is_tensor(V_dev) and V_dev.dim() == 1:
+                V = config.to_numpy(V_dev)
+            else:
+                self._fast_solver_ctx = {"key": key, "fn": None}
+                return None
         x = np.asarray(self.x_data, np.float64)
         n = len(x)
         ls, radius = support_geometry(self.prior, hps, args)
@@ -931,6 +961,14 @@ class GPkv:
             self.mode = ctx["mode"]
         return self._fast_solve(ctx, b)
 
+    def _materialize(self):
+        """Under gp2Scale, build the stored K+V and its factorization if a
+        state change left them stale: the first access resolves the mode,
+        and after an append or new hyperparameters a factor kept from
+        before would belong to the old matrix."""
+        if self.gp2Scale and self._KV_dirty:
+            _ = self.KV
+
     def solve(self, b, x0=None):
         """(K+V)⁻¹ b against the committed state.  Under gp2Scale with a
         kernel that runs on tensors this goes through the committed-state
@@ -940,8 +978,7 @@ class GPkv:
         fast = self._fast_solve_or_none(b)
         if fast is not None:
             return fast
-        if self.mode is None and self.gp2Scale:
-            _ = self.KV            # lazy materialization resolves the mode
+        self._materialize()
         mode = self.mode
         if self._is_custom(mode):
             return self._custom_result(mode[1](self.custom_obj, b))
@@ -954,8 +991,7 @@ class GPkv:
 
     def logdet(self):
         """log|K+V| in the committed mode."""
-        if self.mode is None and self.gp2Scale:
-            _ = self.KV            # lazy materialization resolves the mode
+        self._materialize()
         mode = self.mode
         if self._is_custom(mode):
             return float(mode[2](self.custom_obj))

@@ -11,8 +11,22 @@ averaged over the columns of a multi-column y.
   jit).  Its Hessian is ``torch.autograd.functional.hessian``.  A
   population of hyperparameter vectors (``method="global"``, vectorized
   MCMC chains) is evaluated in chunks sized from the card's free memory.
-  Host (numpy) callables get the value through the committed-mode trial
-  solve; their gradient engine waits for ROADMAP item 1.6.
+* Dense models off that path — host (numpy) kernel, mean or noise
+  callables, user gradient callables' models, custom ``[factor, solve,
+  logdet]`` modes, non-Euclidean inputs, structured noise — take the value
+  from one trial assembly and solve in the committed mode, and the gradient
+  from the explicit formula
+  ``dL/dh_i = ½ bᵀ (∂(K+V)/∂h_i) b − ½ tr((K+V)⁻¹ ∂(K+V)/∂h_i) − (∂m/∂h_i)ᵀ b``
+  with ``b = (K+V)⁻¹(y−m)``: one batched ``cholesky_solve`` over the
+  (H, n, n) derivative stack, or one direction at a time under
+  ``ram_economy``.  The derivatives come from the user's gradient
+  callables, forward-mode AD or central differences (``GPprior.dk_dh``,
+  ``dm_dh``, ``GPlikelihood.calculate_V_grad``).  A hyperparameter with a
+  non-zero mean derivative takes the mean term only, as in the JAX
+  package.  The committed-state gradient (``hyperparameters=None``) takes
+  this formula on every dense model, also on the traced path, as the JAX
+  package does.  Its Hessian is central differences of the gradient with
+  the step ``1e-3·max(1, |h_i|)``.
 * gp2Scale: the differentiable program of ``ops/sparse_lml.make_sparse_lml``
   (``args["gp2Scale_solver"]``: ``"mbcg"``, the default, or ``"slq"`` with
   ``args["random_logdet_lanczos_degree"]``); its estimator variance is
@@ -22,12 +36,13 @@ averaged over the columns of a multi-column y.
   cached under the JAX package's drift policy, and the tile schedule is
   row-sorted once per structure for the K1 kernel.
 * gp2Scale off the traced path (``args["gp2Scale_traced_lml"] = False``, a
-  multi-column y, a prior mean function, a kernel that does not run on
-  tensors): the stored-K LML — a trial K+V assembled as a
-  ``BlockSparseMatrix``, solved in the resolved sparse mode with warm starts
+  multi-column y, a prior mean function, a noise callable, a kernel that
+  does not run on tensors, non-Euclidean inputs): the stored-K LML — a
+  trial K+V assembled as a ``BlockSparseMatrix``, solved in the resolved sparse mode with warm starts
   under ``args["sparse_krylov_warm_start"]``, the log-determinant exact
   below the dense cutoff and by SLQ above it; its estimator variance is
-  ``log_likelihood_variance``.
+  ``log_likelihood_variance``.  It has no gradient (as in the JAX
+  package): training off the traced path runs MCMC or BO.
 """
 
 import math
@@ -81,6 +96,7 @@ class GPMarginalLikelihood:
                 and self.y_data.shape[1] == 1
                 and self.prior.kernel_traceable
                 and self.prior._default_mean
+                and self.likelihood._mode != "callable"
                 and bool(self.args.get("gp2Scale_traced_lml", True)))
 
     def _sparse_settings(self):
@@ -538,19 +554,12 @@ class GPMarginalLikelihood:
     # public surface
     # ------------------------------------------------------------------
     def _require_gradient(self):
-        if self.data.gp2Scale:
-            if not self._sparse_traced_ready():
-                raise NotImplementedError(
-                    "fvgp_tpu_torch: the gp2Scale LML gradient exists on the "
-                    "traced path only (a kernel that runs on tensors, the "
-                    "default mean, one y column, gp2Scale_traced_lml on); the "
-                    "formula gradient engine is not ported yet (ROADMAP item "
-                    "1.6)")
-        elif not self._traced_ready():
-            raise NotImplementedError(
-                "fvgp_tpu_torch: LML gradients of host (numpy) kernel, mean "
-                "or noise callables need the formula gradient engine, which "
-                "is not ported yet (ROADMAP item 1.6)")
+        """Raise where the JAX package has no gradient: gp2Scale off the
+        traced sparse program."""
+        if self.data.gp2Scale and not self._sparse_traced_ready():
+            raise Exception("Can't compute neg_log_likelihood_gradient for "
+                            "gp2Scale with a non-traceable (host numpy) "
+                            "kernel")
 
     # ------------------------------------------------------------------
     # warm-start plumbing of the iterative trial solves
@@ -586,22 +595,23 @@ class GPMarginalLikelihood:
         self._update_warm_start(KVinvY)
         return KVinvY
 
-    def compute_new_KVlogdet_KVinvY(self, K, V, m):
-        x0 = self._iterative_initial_guess(tuple(self.y_data.shape))
-        KVinvY, KVlogdet = self.kv.compute_new_KVlogdet_KVinvY(K, V, m,
-                                                               x0=x0)
-        self._update_warm_start(KVinvY)
-        return KVinvY, KVlogdet
-
-    def _trial_value(self, hyperparameters):
-        """The LML from a trial K+V in the resolved mode: the dense LML of
-        host callables, and the stored-K LML under gp2Scale."""
+    def _trial(self, hyperparameters):
+        """One trial assembly and solve in the resolved mode: ``(K, V, m,
+        K+V, KVinvY, logdet, Cholesky factor or None)``."""
         prior = self.prior
         K = prior.compute_prior_covariance_matrix(self.x_data,
                                                   hyperparameters)
         V = self.likelihood.calculate_V(self.x_data, hyperparameters)
-        m = prior.compute_mean(self.x_data, hyperparameters)
-        KVinvY, logdet = self.compute_new_KVlogdet_KVinvY(K, V, m)
+        m = prior.compute_mean(prior._x_points(), hyperparameters)
+        x0 = self._iterative_initial_guess(tuple(self.y_data.shape))
+        KV, KVinvY, logdet, chol = self.kv.trial_state(K, V, m, x0=x0)
+        self._update_warm_start(KVinvY)
+        return K, V, m, KV, KVinvY, logdet, chol
+
+    def _trial_value(self, hyperparameters):
+        """The LML from a trial K+V in the resolved mode: the dense LML of
+        host callables, and the stored-K LML under gp2Scale."""
+        _, _, m, _, KVinvY, logdet, _ = self._trial(hyperparameters)
         return self._lml_value(self.kv._y_minus(m), KVinvY, logdet)
 
     @staticmethod
@@ -645,37 +655,118 @@ class GPMarginalLikelihood:
         return None if v is None else 0.25 * float(v)
 
     def log_likelihood_value_and_gradient(self, hyperparameters):
-        """(L, dL/dh) in one pass — the training hot loop calls this.  Off
-        the traced paths the value exists but the gradient raises."""
-        self._require_gradient()
+        """(L, dL/dh) in one pass — the training hot loop calls this.  Dense
+        models off the traced path share one trial assembly and
+        factorization between the value and the formula gradient; gp2Scale
+        off the traced path has no gradient and raises."""
         hyperparameters = np.asarray(hyperparameters)
-        if not self.data.gp2Scale:
+        if self._traced_ready():
             return self._traced_eval(hyperparameters, want_grad=True)
-        val, grad = self._sparse_lml_eval(hyperparameters, want_grad=True)
-        if not np.isfinite(val):
-            return -np.inf, np.zeros_like(hyperparameters, dtype=float)
+        if self._sparse_traced_ready():
+            val, grad = self._sparse_lml_eval(hyperparameters, want_grad=True)
+            if not np.isfinite(val):
+                return -np.inf, np.zeros_like(hyperparameters, dtype=float)
+            return val, grad
+        self._require_gradient()
+        try:
+            trial = self._trial(hyperparameters)
+        except dops.NonPositiveDefiniteError as e:
+            raise Exception(f"Linear algebra failed for hyperparameters "
+                            f"{hyperparameters}: {e}") from e
+        _, _, m, KV, KVinvY, logdet, chol = trial
+        val = self._lml_value(self.kv._y_minus(m), KVinvY, logdet)
+        grad = -self._formula_gradient(hyperparameters,
+                                       trial=(KV, KVinvY, chol))
         return val, grad
 
     def neg_log_likelihood_gradient(self, hyperparameters=None, component=0):
-        """Gradient of -L (at the committed hyperparameters when None)."""
-        hps = self.hyperparameters if hyperparameters is None \
-            else hyperparameters
-        _, grad = self.log_likelihood_value_and_gradient(np.asarray(hps))
-        return -grad
+        """Gradient of -L.  gp2Scale: the traced sparse program's (at the
+        committed hyperparameters when None), and none off it.  Dense: at
+        given hyperparameters autograd on the traced path, else the formula
+        gradient; at the committed state (None) the formula gradient of the
+        committed factorization, on every dense model (``component``: the
+        column of a multi-column y)."""
+        if self.data.gp2Scale:
+            hps = self.hyperparameters if hyperparameters is None \
+                else hyperparameters
+            _, grad = self.log_likelihood_value_and_gradient(np.asarray(hps))
+            return -grad
+        if hyperparameters is not None and self._traced_ready():
+            _, grad = self._traced_eval(np.asarray(hyperparameters),
+                                        want_grad=True)
+            return -grad
+        return self._formula_gradient(hyperparameters, component)
 
-    def neg_log_likelihood_hessian(self, hyperparameters=None):
-        """Hessian of -L.  Dense: the exact Hessian (autograd twice through
-        the dense LML).  gp2Scale: central differences of the gradient with
-        the step 1e-3·max(1, |h_i|), symmetrized — each gradient draws its
-        own probes, as the JAX package's do."""
-        self._require_gradient()
+    def _formula_gradient(self, hyperparameters, component=0, trial=None):
+        """dL/dh by the explicit formula (the NEGATIVE gradient's sign, as
+        the JAX package returns it): at the committed state when
+        ``hyperparameters`` is None, else at a trial — the caller's
+        ``trial=(K+V, KVinvY, Cholesky factor or None)`` or one assembled
+        here.  ``ram_economy=False``: the (H, n, n) stack of ∂(K+V)/∂h and
+        one batched ``cholesky_solve``; ``True``: one direction at a time,
+        skipping the solve of a direction whose mean term is non-zero."""
+        prior, lik, kv = self.prior, self.likelihood, self.kv
+        chol = None
         if hyperparameters is None:
             hyperparameters = self.hyperparameters
-        if not self.data.gp2Scale:
+            KV, KVinvY, chol = kv.KV, kv.KVinvY, kv.Chol_factor
+        elif trial is not None:
+            KV, KVinvY, chol = trial
+        else:
+            _, _, _, KV, KVinvY, _, chol = self._trial(hyperparameters)
+        hyperparameters = np.asarray(hyperparameters, dtype=np.float64)
+        x = prior._x_points()
+        b = KVinvY[:, component]
+        H = len(hyperparameters)
+        dm_term = prior.dm_dh(x, hyperparameters) @ b
+        L = chol if chol is not None \
+            else dops.cholesky_factor(kv._densify(KV))
+        if not self.data.ram_economy:
+            dKV = prior.dk_dh(x, x, hyperparameters)
+            if prior._user_dk_dh is not None:
+                dKV = dKV.clone()       # may share the user's array
+            noise_der = lik.calculate_V_grad(x, hyperparameters)
+            if noise_der.dim() == 2:
+                dKV.diagonal(dim1=-2, dim2=-1).add_(noise_der)
+            else:
+                dKV += noise_der
+            sol = torch.cholesky_solve(dKV, L)
+            traces = sol.diagonal(dim1=-2, dim2=-1).sum(-1)
+            del sol
+            quad = torch.einsum("i,hij,j->h", b, dKV, b)
+            grads = torch.where(dm_term == 0.0, -0.5 * (quad - traces),
+                                torch.zeros_like(quad))
+            return config.to_numpy(grads) - config.to_numpy(dm_term)
+        dL_dH = np.zeros(H)
+        dL_dHm = -config.to_numpy(dm_term)
+        for i in range(H):
+            if dL_dHm[i] != 0.0:
+                continue
+            dKV = prior.dk_dh(x, x, hyperparameters, direction=i)
+            noise_der = lik.calculate_V_grad(x, hyperparameters, direction=i)
+            if noise_der.dim() == 1:
+                dKV = dops.add_diagonal(dKV, noise_der)
+            else:
+                dKV = dKV + noise_der
+            trace = torch.cholesky_solve(dKV, L).diagonal().sum()
+            dL_dH[i] = -0.5 * (float(b @ (dKV @ b)) - float(trace))
+        return dL_dH + dL_dHm
+
+    def neg_log_likelihood_hessian(self, hyperparameters=None):
+        """Hessian of -L.  The dense traced path: the exact Hessian
+        (autograd twice through the dense LML).  Elsewhere central
+        differences of the gradient with the step 1e-3·max(1, |h_i|),
+        symmetrized — under gp2Scale each gradient draws its own probes, as
+        the JAX package's do; a host callable's gradient carries its own
+        difference-quotient noise, which a smaller step would amplify."""
+        if hyperparameters is None:
+            hyperparameters = self.hyperparameters
+        if self._traced_ready():
             hess = torch.autograd.functional.hessian(
                 lambda h: -self._dense_lml(h)[0],
                 self._hps_tensor(hyperparameters))
             return np.asarray(config.to_numpy(hess), dtype=np.float64)
+        self._require_gradient()
         H = len(hyperparameters)
         d2 = np.zeros((H, H))
         for i in range(H):

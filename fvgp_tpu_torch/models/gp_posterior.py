@@ -23,7 +23,12 @@ arrays with the JAX package's keys and task-major ``x_out`` layouts.
   joint-prior family densifies K (with a warning under gp2Scale) and adds
   1e-9 to the diagonal, as the JAX package does.
 
-Multi-task ``x_out`` models (fvGP) wait for ROADMAP item 1.6.
+Multi-task models (``fvGP``) take ``x_out``, a 1-d array of task indices:
+the prediction set is the task-major product ``[x, task]`` and results are
+reshaped task-major (``m(x)[i, t]``, ``S[i, j, t, u]``).  On a
+non-Euclidean input space ``x_pred`` is a list of objects (pairs
+``[object, task]`` under ``x_out``); its cross covariances come from the
+host kernel and skip the memo.
 """
 
 import math
@@ -100,7 +105,11 @@ class GPposterior:
 
     def _cross_cov(self, x_pred, hyperparameters):
         """k(x_data, x_pred), memoizing the LAST (data, hps, x_pred) triple
-        (posterior_mean then posterior_covariance assemble the same k)."""
+        (posterior_mean then posterior_covariance assemble the same k); a
+        list of objects skips the memo."""
+        if not isinstance(x_pred, np.ndarray):
+            return self.prior.compute_data_cross_covariance(x_pred,
+                                                            hyperparameters)
         key = self._cross_cov_key(self.data, x_pred, hyperparameters)
         memo = self._cross_cov_memo
         if memo is not None and memo[0] == key:
@@ -178,12 +187,13 @@ class GPposterior:
         return torch.cat(parts, dim=0 if diag else 1)
 
     def _perform_input_checks(self, x_pred, x_out):
-        if not isinstance(x_pred, np.ndarray):
+        if not isinstance(x_pred, (np.ndarray, list)):
             raise AssertionError("wrong format in x_pred")
-        if x_pred.ndim != 2:
-            raise AssertionError("wrong dim in x_pred, has to be 2-d")
-        if x_pred.shape[1] != self.data.input_set_dim:
-            raise AssertionError("wrong number of columns in x_pred")
+        if isinstance(x_pred, np.ndarray):
+            if x_pred.ndim != 2:
+                raise AssertionError("wrong dim in x_pred, has to be 2-d")
+            if x_pred.shape[1] != self.data.input_set_dim:
+                raise AssertionError("wrong number of columns in x_pred")
         if not (isinstance(x_out, np.ndarray) or x_out is None
                 or isinstance(x_out, list)):
             raise AssertionError("wrong format in x_out")
@@ -195,9 +205,12 @@ class GPposterior:
 
     @staticmethod
     def cartesian_product(x, y):
-        """Task-major product-space points."""
+        """Task-major product-space points (``[object, task]`` pairs for a
+        list of objects)."""
         if not (isinstance(y, np.ndarray) and y.ndim == 1):
             raise AssertionError("x_out must be a 1-d np.ndarray")
+        if isinstance(x, list):
+            return [[xi, yj] for yj in y for xi in x]
         n, d = x.shape
         out = np.empty((len(y) * n, d + 1))
         out[:, :d] = np.tile(x, (len(y), 1))
@@ -209,7 +222,8 @@ class GPposterior:
         if x_out is None:
             x_out = self.x_out
         self._perform_input_checks(x_pred, x_out)
-        x_orig = x_pred.copy()
+        x_orig = x_pred.copy() if isinstance(x_pred, np.ndarray) \
+            else list(x_pred)
         if isinstance(x_out, np.ndarray):
             x_pred = self.cartesian_product(x_pred, x_out)
         return x_orig, x_pred, x_out
@@ -569,11 +583,19 @@ class GPposterior:
         """Add a noise callable's noise at x_pred to the variances ``v`` and
         covariance ``S`` (numpy arrays, or device tensors); the measured and
         default noise have no value away from the data, so they add
-        nothing."""
+        nothing.  Structured (``scipy.sparse`` / block-sparse) noise is
+        densified at the prediction size."""
         if self.noise_function_available:
+            from scipy.sparse import issparse
             noise = self.likelihood.calculate_V(x_pred, self.hyperparameters)
+            if issparse(noise):
+                noise = torch.as_tensor(noise.toarray())
+            elif is_block_sparse(noise):
+                noise = noise.to_dense()
             diag = torch.diag
-            if not torch.is_tensor(v):
+            if torch.is_tensor(v):
+                noise = noise.to(v.device, v.dtype)
+            else:
                 noise, diag = config.to_numpy(noise), np.diag
             if noise.ndim == 1:
                 v = v + noise

@@ -5,8 +5,12 @@ Kernels are torch functions ``k(x1, x2, hps)`` (or with a fourth ``args``
 argument, arity sniffed) that broadcast over a leading batch dimension;
 means are ``m(x, hps)`` or ``m(x, hps, args)``.  A callable that runs on
 torch tensors is "traceable": autograd differentiates it inside the traced
-LML.  Host (numpy) callables give K and m, but their gradient engine waits
-for ROADMAP item 1.6.
+LML, and its hyperparameter derivatives (``dk_dh``, ``dm_dh``) are
+forward-mode AD.  A host (numpy) callable takes numpy points and numpy
+hyperparameters and returns numpy (a kernel may return ``scipy.sparse``);
+its derivatives are central differences evaluated in float64, unless the
+user gives ``kernel_function_grad`` / ``prior_mean_function_grad`` (numpy
+in; numpy or a tensor out), which win over both.
 
 * Dense (``gp2Scale=False``): the default kernel is the anisotropic
   Matérn-3/2 (``kernels.default_matern_ard``), the default mean the
@@ -18,6 +22,10 @@ for ROADMAP item 1.6.
   them back to the linalg dtype (on the card ``"float32"`` under a float64
   linalg dtype runs K3 in float32; ``"bfloat16"`` takes the plain formula,
   K3 having no bfloat16 route).
+* Non-Euclidean inputs (``x_data`` a list of arbitrary objects): a user
+  kernel is required; it is a host callable and receives lists (slices of
+  the data list, or the prediction list) unchanged.  No device copy of the
+  points exists.
 * Input derivatives (the posterior gradients): ``d_kernel_dx`` and
   ``dm_dx`` by forward-mode AD of a shift of one input column for callables
   that run on tensors, by forward differences evaluated in float64 for
@@ -45,7 +53,6 @@ from torch.autograd import forward_ad
 
 from .. import config
 from ..kernels import default_matern_ard, wendland_anisotropic
-from .gp_likelihood import _returns_tensor
 
 warnings.filterwarnings("once", category=UserWarning,
                         module=r"fvgp_tpu_torch(\..*)?")
@@ -81,7 +88,10 @@ def _dense_cross_product_scan(kernel_fn, xc, xp, hps, vc):
 
 
 def _host(a):
-    """A host numpy array of a tensor or array-like (for host callables)."""
+    """Points for a host callable: a host numpy array of a tensor or an
+    array-like; a list (non-Euclidean points) stays the list it is."""
+    if isinstance(a, list):
+        return a
     return a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
 
 
@@ -95,13 +105,6 @@ class GPprior:
     def __init__(self, data, trainer, kernel=None, prior_mean_function=None,
                  kernel_grad=None, prior_mean_function_grad=None,
                  gp2Scale_batch_size=10000, gp2Scale_distribution="blockwise"):
-        for fn, name in ((kernel_grad, "kernel_function_grad"),
-                         (prior_mean_function_grad,
-                          "prior_mean_function_grad")):
-            if callable(fn):
-                raise NotImplementedError(
-                    f"fvgp_tpu_torch: {name} is not ported yet (ROADMAP "
-                    "item 1.6, the formula gradient engine)")
         if gp2Scale_distribution not in ("blockwise", "rowwise"):
             raise AssertionError("gp2Scale_distribution must be `blockwise` "
                                  "or `rowwise`")
@@ -116,10 +119,10 @@ class GPprior:
         hps = self.hyperparameters
         if not (isinstance(hps, np.ndarray) and hps.ndim == 1):
             raise AssertionError("hyperparameters must be a 1-d np.ndarray")
-        if not self.Euclidean:
-            raise NotImplementedError(
-                "fvgp_tpu_torch: non-Euclidean inputs are not ported yet "
-                "(ROADMAP item 1.6)")
+        if not self.Euclidean and not callable(kernel):
+            raise Exception("For GPs on non-Euclidean input spaces you need a "
+                            "user-defined kernel and initial "
+                            "hyperparameters.")
 
         if self.gp2Scale and not callable(kernel):
             warnings.warn("gp2Scale enabled without a compactly supported "
@@ -133,6 +136,9 @@ class GPprior:
                               if self._default_mean else prior_mean_function)
         self.m_n_params = 2 if self._default_mean \
             else _n_params(prior_mean_function)
+        self._user_dk_dh = kernel_grad if callable(kernel_grad) else None
+        self._user_dm_dh = prior_mean_function_grad \
+            if callable(prior_mean_function_grad) else None
         self._x_dev = None
         self._refresh_device_data()
         self._probe_traceability()
@@ -176,6 +182,10 @@ class GPprior:
         return self.data.gp2Scale
 
     @property
+    def ram_economy(self):
+        return self.data.ram_economy
+
+    @property
     def x_old(self):
         return self.data.x_old
 
@@ -200,7 +210,7 @@ class GPprior:
             if self.gp2Scale:
                 # the mean alone: assembling K here would cost the stored
                 # tile set on paths that never read it
-                self._m = self.compute_mean(self._x_dev,
+                self._m = self.compute_mean(self._x_points(),
                                             self.hyperparameters)
             else:
                 self._m, self._K = self._compute_prior(self.x_data,
@@ -219,20 +229,29 @@ class GPprior:
 
     # ----------------------------------------------------------------------
     def _tensor(self, a, dtype=None):
-        return torch.as_tensor(np.asarray(a, dtype=np.float64),
-                               dtype=dtype or self.dtype).to(self.device)
+        return config.to_tensor(a, self.device, dtype or self.dtype)
 
     def _refresh_device_data(self):
-        self._x_dev = self._tensor(self.x_data)
+        self._x_dev = self._tensor(self.x_data) if self.Euclidean else None
+
+    def _x_points(self):
+        """The data points as the callables take them: the device copy, or
+        the list of objects of a non-Euclidean input space."""
+        return self._x_dev if self.Euclidean else self.x_data
 
     def _probe_traceability(self):
         """Decide, once, whether kernel and mean run on torch tensors (the
-        "differentiable by autograd" probe; host callables return numpy)."""
+        "differentiable by autograd" probe; host callables return numpy).
+        On a non-Euclidean input space both are host callables."""
+        if not self.Euclidean:
+            self.kernel_traceable = False
+            self.mean_traceable = self._default_mean
+            return
         x2 = self._x_dev[: min(2, len(self.x_data))]
         hps = self._tensor(self.hyperparameters)
-        self.kernel_traceable = _returns_tensor(
+        self.kernel_traceable = config.returns_tensor(
             lambda x, h: self._apply_kernel(x, x, h), x2, hps)
-        self.mean_traceable = self._default_mean or _returns_tensor(
+        self.mean_traceable = self._default_mean or config.returns_tensor(
             self._apply_mean, x2, hps)
 
     # ----------------------------------------------------------------------
@@ -325,13 +344,14 @@ class GPprior:
                 return k
             return self._gp2Scale_covariance(self.x_data, x_pred,
                                              hyperparameters)
-        return self.compute_covariances(self._x_dev, x_pred, hyperparameters)
+        return self.compute_covariances(self._x_points(), x_pred,
+                                        hyperparameters)
 
     def _compute_prior(self, x_data, hyperparameters):
-        m = self.compute_mean(self._x_dev, hyperparameters)
+        m = self.compute_mean(self._x_points(), hyperparameters)
         # the block-sparse structure pass reads the host float64 points
         K = self.compute_prior_covariance_matrix(
-            x_data if self.gp2Scale else self._x_dev, hyperparameters)
+            x_data if self.gp2Scale else self._x_points(), hyperparameters)
         if m.dim() != 1:
             raise AssertionError("mean function returned non-1-d result")
         return m, K
@@ -435,6 +455,76 @@ class GPprior:
         out = _dense_cross_product_scan(self._kernel_fn(), xc, xp, hps,
                                         vpad.reshape(nch, R, -1))
         return out[:n_pred]
+
+    # ----------------------------------------------------------------------
+    # hyperparameter derivatives (the formula gradient)
+    # ----------------------------------------------------------------------
+    def dk_dh(self, x1, x2, hyperparameters, direction=None):
+        """∂k(x1, x2)/∂hps as an (H, n1, n2) device tensor, or the (n1, n2)
+        slice of one ``direction``: the user's ``kernel_function_grad``
+        (``(x1, x2, hps)``, or ``(x1, x2, hps, direction)`` under
+        ``ram_economy``), else forward-mode AD of a kernel that runs on
+        tensors, else central differences of a host kernel."""
+        if self._user_dk_dh is not None:
+            hps = np.asarray(hyperparameters, dtype=np.float64)
+            a, b = _host(x1), _host(x2)
+            g = self._user_dk_dh(a, b, hps, direction) if self.ram_economy \
+                else self._user_dk_dh(a, b, hps)
+            return self._tensor(g)
+        if self.kernel_traceable:
+            a, b = self._tensor(x1), self._tensor(x2)
+            return config.hps_jacobian(
+                lambda h: self._apply_kernel(a, b, h),
+                self._tensor(hyperparameters), direction).to(self.dtype)
+        if direction is not None:
+            return self._fd_dk_dh(x1, x2, hyperparameters, direction)
+        return torch.stack([self._fd_dk_dh(x1, x2, hyperparameters, i)
+                            for i in range(len(hyperparameters))])
+
+    def _fd_dk_dh(self, x1, x2, hyperparameters, direction):
+        """Central difference of a host kernel in one direction, with the
+        JAX package's step ``1e-6·max(1, |h_i|)`` (near the float64 optimum
+        cbrt(eps), scaled by the hyperparameter's magnitude), taken in
+        float64 whatever the linalg dtype."""
+        h0 = float(np.asarray(hyperparameters, np.float64)[direction])
+        eps = 1e-6 * max(1.0, abs(h0))
+        h1 = np.array(hyperparameters, dtype=np.float64)
+        h2 = np.array(hyperparameters, dtype=np.float64)
+        h1[direction] += eps
+        h2[direction] -= eps
+        f64 = torch.float64
+        return ((self.compute_covariances(x1, x2, h1, f64)
+                 - self.compute_covariances(x1, x2, h2, f64))
+                / (2.0 * eps)).to(self.dtype)
+
+    def dm_dh(self, x, hyperparameters):
+        """∂m(x)/∂hps as an (H, n) device tensor: the user's
+        ``prior_mean_function_grad(x, hps)``, else exact zeros for the
+        default mean, forward-mode AD of a mean that runs on tensors, or
+        central differences (step 1e-6, in float64) of a host mean."""
+        H = len(hyperparameters)
+        if self._user_dm_dh is not None:
+            return self._tensor(self._user_dm_dh(
+                _host(x), np.asarray(hyperparameters, dtype=np.float64)))
+        if self._default_mean:
+            return torch.zeros((H, len(x)), dtype=self.dtype,
+                               device=self.device)
+        if self.mean_traceable:
+            a = self._tensor(x)
+            return config.hps_jacobian(
+                lambda h: self._apply_mean(a, h),
+                self._tensor(hyperparameters)).to(self.dtype)
+        eps = 1e-6
+        f64 = torch.float64
+        rows = []
+        for i in range(H):
+            h1 = np.array(hyperparameters, dtype=np.float64)
+            h2 = np.array(hyperparameters, dtype=np.float64)
+            h1[i] += eps
+            h2[i] -= eps
+            rows.append((self.compute_mean(x, h1, f64)
+                         - self.compute_mean(x, h2, f64)) / (2 * eps))
+        return torch.stack(rows).to(self.dtype)
 
     # ----------------------------------------------------------------------
     # input derivatives (posterior gradients)

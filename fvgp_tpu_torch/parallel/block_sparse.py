@@ -441,10 +441,19 @@ class BlockSparseMatrix:
         uniq, inv, counts = np.unique(key, return_inverse=True,
                                       return_counts=True)
         if len(uniq) != len(key):
-            for g in np.nonzero(counts > 1)[0]:
-                idx = live_idx[np.nonzero(inv == g)[0]]
-                tg = s.tiles[torch.as_tensor(idx).to(self.device)].to(acc)
-                sg = torch.sum(tg, dim=0)
+            # the duplicate groups' tiles, group by group, summed in slices
+            # of groups (one pass each, not one per group: a merged noise
+            # at N = 1M makes ~23k groups)
+            dup = counts[inv] > 1
+            order = np.argsort(inv[dup], kind="stable")
+            idx = live_idx[dup][order]
+            grp = np.unique(inv[dup][order], return_inverse=True)[1]
+            for g0 in range(0, int(grp[-1]) + 1, _TILE_SLICE):
+                a, b = np.searchsorted(grp, [g0, g0 + _TILE_SLICE])
+                tg = s.tiles[torch.as_tensor(idx[a:b]).to(self.device)] \
+                    .to(acc)
+                sg = _segment_sum_sorted(tg, grp[a:b] - g0,
+                                         int(grp[b - 1]) - g0 + 1)
                 fro2 += float(torch.sum(sg * sg) - torch.sum(tg * tg))
         if self.diag is not None:
             fro2 += 2.0 * float(torch.sum(base * self.diag)) \
@@ -597,21 +606,27 @@ def from_numpy_state(state, device=None):
         device=dev)
 
 
-def from_scipy(sp_mat, block_size, device=None):
-    """Tile-ify a scipy.sparse matrix onto the fixed block grid (float64
-    tiles): grouped by (row block, col block) and scattered into dense B×B
-    tiles on the host."""
+def from_scipy(sp_mat, block_size, device=None, dtype=None):
+    """Tile-ify a scipy.sparse matrix onto the fixed block grid: grouped by
+    (row block, col block) and scattered into dense B×B tiles on the host,
+    then moved to ``device`` (the card by default, ``"cpu"`` where asked
+    for) in ``dtype`` (float64 by default).  ``GPkv.addKV`` passes the
+    device and dense dtype of the K the noise is added to."""
+    dtype = dtype or torch.float64
     coo = sp_mat.tocoo()
     n, n_cols = coo.shape
     B = int(block_size)
     nb_cols = -(-n_cols // B)
     key = (coo.row // B).astype(np.int64) * nb_cols + coo.col // B
     uniq, tile_of = np.unique(key, return_inverse=True)
-    tiles = np.zeros((len(uniq), B, B), dtype=np.float64)
+    host_dt = np.float64 if dtype == torch.float64 else np.float32
+    tiles = np.zeros((len(uniq), B, B), dtype=host_dt)
     np.add.at(tiles, (tile_of, coo.row % B, coo.col % B), coo.data)
     rows = (uniq // nb_cols).astype(np.int32)
     cols = (uniq % nb_cols).astype(np.int32)
-    return BlockSparseMatrix(n, n_cols, B, rows, cols, tiles, device=device)
+    return BlockSparseMatrix(n, n_cols, B, rows, cols,
+                             torch.as_tensor(tiles).to(dtype),
+                             device="cuda" if device is None else device)
 
 
 def merge(A, B_mat):
@@ -624,6 +639,9 @@ def merge(A, B_mat):
     down to bfloat16 would quantize structured noise to 8 mantissa bits."""
     if (A.shape != B_mat.shape) or (A.block_size != B_mat.block_size):
         raise ValueError("merge requires matching shapes and block grids")
+    if A.device != B_mat.device:
+        raise ValueError(f"merge requires both matrices on one device, got "
+                         f"{A.device} and {B_mat.device}")
     d = A.diag
     if B_mat.diag is not None:
         d = B_mat.diag if d is None else d + B_mat.diag

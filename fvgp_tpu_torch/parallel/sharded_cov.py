@@ -15,8 +15,11 @@
    copy of the tile buffer is ever made.
 
 A kernel that does not run on tensors takes the same path with the tile
-loop on the host.  The multi-device layout waits for ROADMAP item 1.8,
-non-Euclidean (list) inputs for item 1.6.
+loop on the host.  Non-Euclidean inputs (lists of arbitrary objects) have a
+host kernel by construction and no geometry: every tile pair is scheduled
+(the upper triangle when symmetric), the host tile loop hands the kernel
+slices of the lists, and the exact zero-tile filter drops the dead tiles.
+The multi-device layout waits for ROADMAP item 1.8.
 """
 
 import warnings
@@ -180,13 +183,15 @@ def distributed_covariance(prior, x1, x2, hyperparameters, *,
         raise NotImplementedError(
             "fvgp_tpu_torch: the multi-device covariance layout is not "
             "ported yet (ROADMAP item 1.8)")
-    if isinstance(x1, list) or isinstance(x2, list):
-        raise NotImplementedError(
-            "fvgp_tpu_torch: non-Euclidean (list) inputs are not ported yet "
-            "(ROADMAP item 1.6)")
     args = args or {}
-    x1 = np.asarray(x1, dtype=np.float64)
-    x2 = x1 if symmetric else np.asarray(x2, dtype=np.float64)
+    non_euclidean = isinstance(x1, list) or isinstance(x2, list)
+    if non_euclidean:
+        # arbitrary-object points: the lists reach the host kernel as they
+        # are (slices of them), never through numpy
+        x2 = x1 if symmetric else x2
+    else:
+        x1 = np.asarray(x1, dtype=np.float64)
+        x2 = x1 if symmetric else np.asarray(x2, dtype=np.float64)
     block_size = int(args.get("gp2Scale_block_size",
                               min(int(batch_size), 256)))
     device = prior.device
@@ -196,11 +201,20 @@ def distributed_covariance(prior, x1, x2, hyperparameters, *,
     storage_dtype = config.as_torch_dtype(
         args.get("gp2Scale_storage_dtype", None)) or dtype
 
-    lengthscales, radius = support_geometry(prior, hyperparameters, args)
-    rows, cols = _candidate_pairs(x1, None if symmetric else x2,
-                                  lengthscales, radius, block_size, symmetric)
     nb1 = -(-len(x1) // block_size)
     nb2 = -(-len(x2) // block_size)
+    if non_euclidean:
+        # no geometric prune for opaque objects: every tile pair
+        ii, jj = np.meshgrid(np.arange(nb1), np.arange(nb2), indexing="ij")
+        keep = ii <= jj if symmetric else np.ones_like(ii, dtype=bool)
+        rows, cols = ii[keep].astype(np.int32), jj[keep].astype(np.int32)
+        radius = np.inf
+    else:
+        lengthscales, radius = support_geometry(prior, hyperparameters,
+                                                args)
+        rows, cols = _candidate_pairs(x1, None if symmetric else x2,
+                                      lengthscales, radius, block_size,
+                                      symmetric)
     # the box prune is loose (boxes overlap even when no point pair is
     # inside the support): the exact-zero tiles are dropped BEFORE they are
     # retained, so they never occupy device memory
@@ -208,7 +222,7 @@ def distributed_covariance(prior, x1, x2, hyperparameters, *,
                  and np.isfinite(radius))
     chunk = max(1, int(args.get("gp2Scale_tile_chunk", 512)))
 
-    if not prior.kernel_traceable:
+    if non_euclidean or not prior.kernel_traceable:
         return _host_kernel_covariance(prior, x1, x2, hyperparameters, rows,
                                        cols, symmetric, block_size,
                                        storage_dtype, device, args)
@@ -269,8 +283,10 @@ def _host_kernel_covariance(prior, x1, x2, hyperparameters, rows, cols,
                             symmetric, block_size, storage_dtype, device,
                             args):
     """The tile loop on the host, for a kernel that does not run on tensors
-    (any numpy callable): tiles one by one, the exact zero-tile filter as one
-    host reduction, mirror and padding in numpy, one transfer."""
+    (any numpy callable, and every kernel of a non-Euclidean input space,
+    which takes slices of the point lists): tiles one by one, the exact
+    zero-tile filter as one host reduction, mirror and padding in numpy, one
+    transfer."""
     from scipy.sparse import issparse
     nb1 = -(-len(x1) // block_size)
     nb2 = -(-len(x2) // block_size)

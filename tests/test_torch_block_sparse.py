@@ -300,6 +300,30 @@ def test_nnz_and_fingerprint_ignore_sentinel_padding():
     assert A2.nnz == 2 * B * B
 
 
+@pytest.mark.parametrize("tile_slice", [1, 3, 16384])
+def test_merged_duplicate_groups_across_tile_slices(monkeypatch,
+                                                    tile_slice):
+    """trace_and_fro sums the duplicate groups of a merge in slices of
+    ``_TILE_SLICE`` groups: with the slice cut to 1 or 3 the groups cross
+    slice boundaries, and the norm still matches the dense sum and JAX."""
+    J1, A1, d1 = _pair(n=61, B=8, seed=3, frac=0.7)
+    J2, A2, d2 = _pair(n=61, B=8, seed=4, frac=0.7)
+    M, JM = tbs.merge(A1, A2), jbs.merge(J1, J2)
+    st = M._store
+    live = st.rows_h < M.nb
+    _, counts = np.unique(st.rows_h[live].astype(np.int64) * M.nb_cols
+                          + st.cols_h[live], return_counts=True)
+    assert np.sum(counts > 1) > 3
+    monkeypatch.setattr(tbs, "_TILE_SLICE", tile_slice)
+    tr, fro = M.trace_and_fro()
+    assert abs(tr - np.trace(d1 + d2)) < 1e-10
+    assert abs(fro - np.linalg.norm(d1 + d2)) < 1e-10
+    # JAX returns the Frobenius norm of a merge in float32
+    jtr, jfro = JM.trace_and_fro()
+    assert abs(tr - float(jtr)) < 1e-10
+    assert abs(fro - float(jfro)) < 1e-6 * fro
+
+
 def test_merge_dtype_rule_keeps_structured_noise_precision():
     B = 8
     K = tbs.BlockSparseMatrix(B, B, B, np.array([0]), np.array([0]),
@@ -545,9 +569,20 @@ def test_unserved_inputs_raise_with_their_roadmap_item(stored):
     with pytest.raises(NotImplementedError, match="ROADMAP item 1.8"):
         distributed_covariance(gp.prior, x, x, HPS, symmetric=True,
                                args=gp.args, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP item 1.6"):
-        distributed_covariance(gp.prior, list(x), list(x), HPS,
+    # list inputs are served since ROADMAP item 1.6: a host kernel takes
+    # slices of the lists in the host tile loop, every tile pair scheduled
+
+    def list_kernel(x1, x2, hps):
+        d = np.linalg.norm(np.asarray(x1)[:, None, :] / hps[1:]
+                           - np.asarray(x2)[None, :, :] / hps[1:], axis=-1)
+        return hps[0] * np.maximum(1.0 - d, 0.0) ** 2
+
+    host = _gp(GP, stored["x"], stored["y"], {"gp2Scale_block_size": 64},
+               kernel_function=list_kernel)
+    K = distributed_covariance(host.prior, list(x), list(x), HPS,
                                symmetric=True, args=gp.args)
+    np.testing.assert_allclose(K.toarray(), list_kernel(x, x, HPS),
+                               atol=1e-12)
 
 
 def test_jax_kernel_is_the_same_function():

@@ -35,6 +35,9 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "import fvgp_tpu_torch.kernels, fvgp_tpu_torch.models.gp_mcmc\n"
         "import fvgp_tpu_torch.models.gp_bo, fvgp_tpu_torch.models.gp_actor\n"
         "import fvgp_tpu_torch.models.gp_training\n"
+        "import fvgp_tpu_torch.models.fvgp, fvgp_tpu_torch.models.gp_kv\n"
+        "import fvgp_tpu_torch.models.gp_likelihood\n"
+        "import fvgp_tpu_torch.models.gp_marginal_likelihood\n"
         "import fvgp_tpu_torch.ops.krylov, fvgp_tpu_torch.ops.slq\n"
         "import fvgp_tpu_torch.ops.precond\n"
         "import fvgp_tpu_torch.parallel.block_sparse\n"
@@ -66,10 +69,10 @@ def test_entry_points_default_to_the_card():
     one, exactly like an explicit ``"cuda"``."""
     import inspect
 
-    from fvgp_tpu_torch import gp_from_numpy_state
+    from fvgp_tpu_torch import fvGP, gp_from_numpy_state
     from fvgp_tpu_torch.config import resolve_device
     from fvgp_tpu_torch.models.gp_data import GPdata
-    for fn in (GP, GPdata, gp_from_numpy_state, resolve_device):
+    for fn in (GP, fvGP, GPdata, gp_from_numpy_state, resolve_device):
         default = inspect.signature(fn).parameters["compute_device"].default
         assert default == "cuda", fn
     if torch.cuda.is_available():
@@ -90,7 +93,8 @@ def test_entry_points_default_to_the_card():
     tile = np.eye(32)[None]
     bsm_state = dict(n=32, n_cols=32, block_size=32, rows=np.zeros(1, int),
                      cols=np.zeros(1, int), tiles=tile, diag=None)
-    for make in (lambda: GP(x, y), lambda: GPdata(x, y),
+    y2 = np.stack([y, 2 * y], axis=1)
+    for make in (lambda: GP(x, y), lambda: GPdata(x, y), lambda: fvGP(x, y2),
                  lambda: gp_from_numpy_state(state), resolve_device,
                  lambda: tbs.BlockSparseMatrix(32, 32, 32, [0], [0], tile),
                  lambda: tbs.from_scipy(sparse.identity(32, format="csr"), 32),
@@ -148,25 +152,53 @@ def test_dense_path_and_unported_methods_raise():
     assert 0.0 <= probability["probability"] < np.inf
     with pytest.raises(AttributeError):
         gp.no_such_attribute
-    # the stored-K slice's own raising sites: the multi-device layout,
-    # structured noise, list inputs
+    # the stored-K slice's raising site that stays: the multi-device layout
+    # (ROADMAP item 1.8)
     from scipy import sparse
 
     from fvgp_tpu_torch.parallel.sharded_cov import distributed_covariance
     with pytest.raises(NotImplementedError, match="ROADMAP item 1.8"):
         distributed_covariance(gp.prior, x, x, gp.hyperparameters,
                                symmetric=True, args=gp.args, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP item 1.6"):
-        distributed_covariance(gp.prior, list(x), list(x),
-                               gp.hyperparameters, symmetric=True,
-                               args=gp.args)
-    for V in (sparse.identity(len(x), format="csr"), gp.K):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 1.6"):
-            gp.kv.addKV(gp.K, V)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 1.6"):
-        GP(x, y, gp2Scale=True, compute_device="cpu",
-           init_hyperparameters=np.ones(3),
-           noise_function=lambda x, hps: hps[0] * torch.ones(len(x)))
+    # served since item 1.6: list inputs (a host kernel takes the lists),
+    # structured noise on a block-sparse K, a noise callable under
+    # gp2Scale, the gradient callables and host callables' gradients
+    def list_kernel(a, b, hps):
+        return hps[0] * np.exp(-np.abs(np.asarray(a)[:, None, 0]
+                                       - np.asarray(b)[None, :, 0]))
+
+    host = GP(list(x), y, gp2Scale=True, compute_device="cpu",
+              init_hyperparameters=np.ones(1), kernel_function=list_kernel)
+    K = distributed_covariance(host.prior, list(x), list(x), np.ones(1),
+                               symmetric=True, args=host.args)
+    np.testing.assert_allclose(K.toarray(), list_kernel(x, x, np.ones(1)),
+                               atol=1e-12)
+    noise = sparse.identity(len(x), format="csr")
+    for V in (noise, gp.K):
+        np.testing.assert_allclose(gp.kv.addKV(gp.K, V).toarray(),
+                                   gp.K.toarray() + (noise.toarray()
+                                                     if V is noise
+                                                     else gp.K.toarray()),
+                                   atol=1e-12)
+    noisy = GP(x, y, gp2Scale=True, compute_device="cpu",
+               init_hyperparameters=np.ones(3),
+               noise_function=lambda x, hps: hps[0] * torch.ones(len(x)))
+    assert np.isfinite(noisy.log_likelihood())
+    assert np.all(np.isfinite(noisy.posterior_mean(x[:3])["m(x)"]))
+    grads = GP(x, y, compute_device="cpu", init_hyperparameters=np.ones(3),
+               kernel_function=lambda a, b, h: h[0] * np.exp(-np.abs(
+                   np.asarray(a)[:, None, 0] - np.asarray(b)[None, :, 0])),
+               kernel_function_grad=lambda a, b, h: np.stack([
+                   np.exp(-np.abs(np.asarray(a)[:, None, 0]
+                                  - np.asarray(b)[None, :, 0])),
+                   np.zeros((len(a), len(b))), np.zeros((len(a), len(b)))]),
+               noise_function=lambda x, h: np.full(len(x), 0.1 * h[1]),
+               noise_function_grad=lambda x, h: np.stack([
+                   np.zeros(len(x)), np.full(len(x), 0.1), np.zeros(len(x))]),
+               prior_mean_function=lambda x, h: np.zeros(len(x)),
+               prior_mean_function_grad=lambda x, h: np.zeros((3, len(x))))
+    fd, an = grads.test_log_likelihood_gradient(np.ones(3), epsilon=1e-7)
+    np.testing.assert_allclose(fd, an, rtol=1e-4, atol=1e-4)
 
 
 def test_sparse_modes_and_gp2scale_appends_are_served():

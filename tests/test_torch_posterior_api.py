@@ -396,8 +396,8 @@ CUSTOM = [_cho_factor, _cho_solve, _cho_logdet]
 def test_custom_linalg_mode_serves_lml_posterior_and_append():
     """A user's numpy [factor, solve, logdet] takes the port's CPU tensors
     (numpy reads them) and gives what the JAX package gives: the LML at the
-    committed and at trial hyperparameters, the posterior, an append; the
-    gradient raises for the formula engine (ROADMAP item 1.6)."""
+    committed and at trial hyperparameters, the posterior, an append, and
+    the LML gradient through the formula engine (ROADMAP item 1.6)."""
     jgp, tgp = _pair(linalg_mode=CUSTOM)
     x, y, xp = _dense_data()
     for gp in (jgp, tgp):
@@ -414,8 +414,10 @@ def test_custom_linalg_mode_serves_lml_posterior_and_append():
                           noise_variances_new=np.full(6, 1e-3))
     _close(tgp.log_likelihood(), jgp.log_likelihood())
     _close(tgp.posterior_mean(xp)["m(x)"], jgp.posterior_mean(xp)["m(x)"])
-    with pytest.raises(NotImplementedError, match="ROADMAP item 1.6"):
-        tgp.marginal_likelihood.log_likelihood_value_and_gradient(hps)
+    tv, tg = tgp.marginal_likelihood.log_likelihood_value_and_gradient(hps)
+    jv, jg = jgp.marginal_likelihood.log_likelihood_value_and_gradient(hps)
+    _close(tv, jv)
+    _close(tg, jg)
 
 
 def test_custom_linalg_mode_with_torch_callables():
