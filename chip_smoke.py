@@ -109,8 +109,22 @@ at 64 points; then K1 on the merged float32 K+V against the plain product);
 9c. non-Euclidean gp2Scale at N=4,096 ragged sequences (LML, posterior at
 64 objects, an append of 64, counted).
 
-K4's entry point, phases 6-6e, 7-7c and 9-9c and the two counted pieces
-of 5d are the paths: every
+Since the extensions slice also: 9d. the extensions against the CPU in
+float64 at N <= 2,000 (``extensions_cross_check``: the deep-kernel GP, GPm,
+GPLVM, GGMP at 1,000 stations with its EM weights, and the batched GGMP
+path against the per-GP path on the card); 9e. the extensions at full
+width, each call counted (``extensions_phases``): (a) the deep-kernel GP,
+BASELINE config 4, at N = 10,000, D = 2 (LML+gradient, ``hgdl``, mean and
+variance at 500 points; no K3 launch expected), (b) GPm at N = 10,000,
+D = 6, Q = 3, L = 1 (LML, 20 Adam steps, mean and variance), (c) GPLVM at
+N = 10,000, Q = 5, L = 1 (20 Adam steps, ``local``, mean, variance, both
+latent gradients, entropy and mutual information at 500 latent points),
+(d) GGMP at 5,000 stations x K = 3 and at 2,000 stations x 2 tasks on
+fvGP components, per-GP and batched (initialization, ``local`` training
+with density EM, mean, variance and pdf at 500 points).
+
+K4's entry point, phases 6-6e, 7-7c, 9-9c and 9e and the two counted
+pieces of 5d are the paths: every
 kernel's launch counter is reset just before each and read just after it,
 and the ``launches`` of a kernel is its sum over them.  The line before the
 last is
@@ -2747,6 +2761,473 @@ def non_euclidean_phase():
     return total
 
 
+# ---------------------------------------------------------------------------
+# item 1.7: the extensions (deep kernel, GPm, GPLVM, GGMP)
+# ---------------------------------------------------------------------------
+
+# the extensions on the card against the CPU in float64.  In float64 on the
+# card every output within 1e-8 (relative for the LML and its gradient, of
+# the output's scale otherwise): the port's own parity bound, now with K3
+# in float64 serving the no-grad covariances.  In float32, PERF.md section
+# 2's dense bounds (LML relative, gradient relative 2-norm, mean absolute,
+# variance of its largest value), held for GGMP (its K+V has a condition
+# number ~1e3 at these sizes) and for the batched GGMP path against the
+# per-GP path; the deep-kernel GP, GPm and GPLVM at N = 2,000 have K+V of
+# condition number 1e5-2e5, where float32's unit roundoff times the
+# condition number is ~1e-2: their float32 errors are printed beside the
+# condition number, measured only (held to the dense bounds, three of the
+# four models exceeded them on an H100 80GB HBM3 at 700 W: PERF.md)
+EXT_BOUNDS = {"lml": 1e-4, "grad": 1e-3, "mean": 1e-3, "var": 1e-3,
+              "mean_grad": 1e-3, "weights": 1e-3}
+EXT64_BOUNDS = {k: 1e-8 for k in EXT_BOUNDS}
+
+
+def deep_kernel_data(N, seed=2):
+    """``examples/deep_kernel.py``'s data at N points (D = 2, a
+    multiplicative structure) with 0.05 noise."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0, 2, (N, 2))
+    y = np.sin(4 * x[:, 0] * x[:, 1]) + 0.05 * rng.standard_normal(N)
+    return x, y, rng.uniform(0, 2, (500, 2))
+
+
+def deep_kernel_model(x, y, device, args=None):
+    """BASELINE config 4: ``WarpNet(2, 4, 4, 2)`` + Matérn-5/2, 44
+    hyperparameters (random weights from a seed, then [1, 1]); its hgdl
+    box."""
+    from fvgp_tpu_torch import GP
+    from fvgp_tpu_torch.models.deep_kernel_network import (WarpNet,
+                                                           make_deep_kernel)
+    net = WarpNet(2, 4, 4, 2)
+    hps = np.concatenate([0.3 * np.random.default_rng(7).standard_normal(
+        net.number_of_hps), [1.0, 1.0]])
+    bounds = np.vstack([np.tile([-3.0, 3.0], (net.number_of_hps, 1)),
+                        [[0.01, 10.0], [0.1, 10.0]]])
+    gp = GP(x, y, init_hyperparameters=hps, compute_device=device,
+            noise_variances=np.full(len(x), 1e-2),
+            kernel_function=make_deep_kernel(net), args=dict(args or {}))
+    return gp, hps, bounds
+
+
+def gpm_data(N, seed=3):
+    """``examples/manifold_gpm.py``'s data at N points: D = 6 inputs, Q = 3
+    outputs of one latent direction."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-2, 2, (N, 6))
+    t = x @ np.array([1.0, -0.5, 0.25, 0.0, 0.0, 0.0])
+    y = np.stack([np.sin(t), np.cos(t), 0.5 * t], axis=1)
+    return x, y + 0.02 * rng.standard_normal(y.shape), \
+        rng.uniform(-2, 2, (500, 6))
+
+
+def gplvm_data(N, seed=0):
+    """``examples/gplvm_latent.py``'s data at N points: a curve observed in
+    Q = 5 dimensions."""
+    rng = np.random.default_rng(seed)
+    t = np.sort(rng.uniform(0, np.pi, N))
+    Y = np.stack([np.sin(t), np.cos(t), np.sin(2 * t), np.cos(2 * t),
+                  0.3 * t], axis=1)
+    return Y + 0.01 * rng.standard_normal(Y.shape)
+
+
+def ggmp_data(n, n_tasks=1):
+    """``examples/ggmp_multitask.py``'s generator: n stations on [0, 10],
+    per task a bimodal density (modes at c ± 0.6, variance 0.15, c =
+    sin(x) for task 0 and cos(x) for task 1) on a 200-point grid; one
+    task gives single-task stations."""
+    from fvgp_tpu_torch.models.ggmp import gaussian_pdf
+    x = np.linspace(0, 10, n).reshape(-1, 1)
+    domain = np.linspace(-6, 6, 200)
+    y = []
+    for xi in x[:, 0]:
+        tasks = []
+        for t in range(n_tasks):
+            c = np.sin(xi) if t == 0 else np.cos(xi)
+            tasks.append((domain, 0.5 * gaussian_pdf(domain, c - 0.6, 0.15)
+                          + 0.5 * gaussian_pdf(domain, c + 0.6, 0.15)))
+        y.append(tasks if n_tasks > 1 else tasks[0])
+    return x, y, domain
+
+
+def ggmp_model(x, y, K, device, parallel, multi_task, args=None):
+    """A GGMP of K components (constant mean, hps [1, 2, mean] single-task;
+    fvGP's default mean and [1, 1, 1] multi-task), likelihoods and GPs
+    initialized; ``args`` go to every component."""
+    from fvgp_tpu_torch.models.ggmp import GGMP, hyperparameters
+    if multi_task:
+        hps = [np.ones(3) for _ in range(K)]
+        bounds = [np.tile([0.01, 10.0], (3, 1)) for _ in range(K)]
+    else:
+        hps = [np.array([1.0, 2.0, 0.0]) for _ in range(K)]
+        bounds = [np.array([[0.01, 10.0], [0.5, 10.0], [-10.0, 10.0]])
+                  for _ in range(K)]
+    hobj = hyperparameters(np.full(K, 1.0 / K), np.tile([0.0, 1.0], (K, 1)),
+                           hps, bounds)
+    g = GGMP(x, y, hps_obj=hobj, likelihood_terms=K,
+             gp_init_kwargs={"compute_device": device,
+                             "args": dict(args or {})},
+             gp_eval_parallel=parallel)
+    g.initLikelihoods()
+    g.initGPs()
+    return g
+
+
+def _gpm_value_and_grad(m):
+    import torch
+    leaves = [p.detach().clone().requires_grad_(True) for p in m._params()]
+    with torch.enable_grad():
+        val = m._neg_lml(*leaves)
+        grads = torch.autograd.grad(val, leaves)
+    return -float(val), -np.concatenate([host64(g).ravel() for g in grads])
+
+
+def _condition(KV, device):
+    """The 2-norm condition number of a symmetric positive definite KV
+    (float64 eigenvalues on ``device``)."""
+    import torch
+    ev = torch.linalg.eigvalsh(KV.detach().to(device, torch.float64))
+    return float(ev[-1] / ev[0])
+
+
+def _ext_errors(got, ref):
+    """Errors of named outputs: relative for "lml", relative 2-norm for
+    "grad", absolute for "mean" and "weights", of the largest value for
+    "mean_grad" and "var" (with "var_abs" measured)."""
+    errs = {}
+    for key, r in ref.items():
+        g = got[key]
+        if key == "lml":
+            errs[key] = _rel(g, r)
+        elif key == "grad":
+            errs[key] = _rel2(g, r)
+        elif key == "var":
+            errs.update(_var_errs(g, r))
+        elif key == "mean_grad":
+            errs[key] = _maxabs(g, r) / float(np.abs(np.asarray(r)).max())
+        else:
+            errs[key] = _maxabs(g, r)
+    return errs
+
+
+def _ext_compare(tag, evaluate, ref, card, hold32, cond):
+    """``evaluate(device, args)`` -> named outputs on ``card`` in float32
+    and float64 against ``ref``, the same outputs on the CPU in float64:
+    the float64 errors held to ``EXT64_BOUNDS``, the float32 ones to
+    ``EXT_BOUNDS`` where ``hold32`` (else measured), each printed beside
+    ``cond``, the condition number of K+V.  Returns the float32 outputs."""
+    out = {}
+    for dname, args in (("float32", {"dtype": "float32"}),
+                        ("float64", {"dtype": "float64"})):
+        out[dname] = evaluate(card, args)
+        bounds = EXT64_BOUNDS if dname == "float64" else (
+            EXT_BOUNDS if hold32 else {})
+        held(f"{tag}, {card} {dname} vs CPU float64, cond(K+V) {cond:.3e}",
+             _ext_errors(out[dname], ref), bounds)
+    return out["float32"]
+
+
+def extensions_cross_check(card="cuda"):
+    """The four extensions on the card against the CPU in float64 at
+    N <= 2,000 (``_ext_compare``): the deep-kernel GP (LML, gradient, mean,
+    variance), GPm (LML and its gradient in (W, log hps, log noise), mean,
+    variance), GPLVM (LML, hyperparameter gradient, mean, its latent
+    gradient, variance), GGMP at 1,000 stations x K = 3 per-GP and batched
+    (component means and variances; the EM weights from the CPU's trained
+    hyperparameters, density EM on each device's posteriors), and the
+    batched GGMP path against the per-GP path on the card in float32.
+    ``card="cpu"`` rehearses it, float32 asked for explicitly."""
+    import torch
+
+    from fvgp_tpu_torch import GPLVM, GPm
+    x, y, xp = deep_kernel_data(2_000)
+
+    def deep(device, args):
+        gp, hps, _ = deep_kernel_model(x, y, device, args)
+        val, grad = gp.marginal_likelihood \
+            .log_likelihood_value_and_gradient(hps)
+        if device == "cpu":
+            deep.cond = _condition(gp.prior.K + torch.diag(gp.likelihood.V),
+                                   card)
+        return {"lml": val, "grad": grad,
+                "mean": gp.posterior_mean(xp)["m(x)"],
+                "var": gp.posterior_covariance(xp, variance_only=True)[
+                    "v(x)"]}
+
+    _ext_compare("deep-kernel GP N=2,000, 44 hps", deep, deep("cpu", {}),
+                 card, False, deep.cond)
+
+    x, y, xq = gpm_data(2_000)
+
+    def gpm(device, args):
+        m = GPm(x, y, manifold_dim=1, compute_device=device, args=args)
+        val, grad = _gpm_value_and_grad(m)
+        if device == "cpu":
+            z = m._x @ m.W
+            K = m.kernel(z, z, m._tensor(m.hyperparameters))
+            gpm.cond = _condition(K + np.exp(m.log_noise) * torch.eye(
+                len(K), dtype=K.dtype), card)
+        return {"lml": val, "grad": grad, "mean": m.posterior_mean(xq),
+                "var": m.posterior_variance(xq)}
+
+    _ext_compare("GPm N=2,000, D=6, Q=3, L=1", gpm, gpm("cpu", {}), card,
+                 False, gpm.cond)
+
+    Y = gplvm_data(2_000)
+    zq = np.linspace(-1.5, 1.5, 200)[:, None]
+
+    def gplvm(device, args):
+        m = GPLVM(Y, latent_dim=1, compute_device=device, args=args)
+        if device == "cpu":
+            K = m.kernel(m.X, m.X, m._tensor(m.hyperparameters))
+            gplvm.cond = _condition(K + np.exp(m.log_noise) * torch.eye(
+                len(K), dtype=K.dtype), card)
+        return {"lml": m.log_likelihood(),
+                "grad": m.neg_log_likelihood_gradient(),
+                "mean": m.posterior_mean(zq)["m(x)"],
+                "mean_grad": m.posterior_mean_grad(zq)["dm/dx"],
+                "var": m.posterior_covariance(zq, variance_only=True)[
+                    "v(x)"]}
+
+    _ext_compare("GPLVM N=2,000, Q=5, L=1", gplvm, gplvm("cpu", {}), card,
+                 False, gplvm.cond)
+
+    x, y, _ = ggmp_data(1_000)
+    xg = np.linspace(0, 10, 200).reshape(-1, 1)
+    cpu = ggmp_model(x, y, 3, "cpu", False, False)
+    cpu.train(method="local", max_iter=3, weight_max_iter=20)
+    trained = [np.asarray(gp.hyperparameters) for gp in cpu.gps]
+    cond = max(_condition(gp.prior.K + torch.diag(gp.likelihood.V), card)
+               for gp in cpu.gps)
+    mean, var = cpu._component_posteriors(xg)
+    ref_g = {"mean": mean, "var": var,
+             "weights": [lk.weight for lk in cpu.likelihoods]}
+
+    def ggmp(parallel):
+        def evaluate(device, args):
+            g = ggmp_model(x, y, 3, device, parallel, False, args)
+            g.train(init_hyperparameters=trained, method=lambda t: np.asarray(
+                t.hyperparameters), weight_max_iter=20)
+            mean, var = g._component_posteriors(xg)
+            return {"mean": mean, "var": var,
+                    "weights": [lk.weight for lk in g.likelihoods]}
+        return evaluate
+
+    got = {parallel: _ext_compare(
+        f"GGMP 1,000 stations x K=3, {'batched' if parallel else 'per-GP'}",
+        ggmp(parallel), ref_g, card, True, cond)
+        for parallel in (False, True)}
+    held(f"GGMP 1,000 stations x K=3, {card} float32 batched vs per-GP",
+         _ext_errors({k: got[True][k] for k in ("mean", "var")},
+                     {k: got[False][k] for k in ("mean", "var")}),
+         EXT_BOUNDS)
+
+
+def _stepper():
+    """(step, times, total): ``step(key, fn)`` runs one counted public call,
+    records its seconds under ``key`` and adds its launches to ``total``."""
+    times, total = {}, {name: 0 for name in REPLACES}
+
+    def step(key, fn):
+        out, secs, launches = counted(fn)
+        times[key] = secs
+        for k in total:
+            total[k] += launches[k]
+        return out
+    return step, times, total
+
+
+def _phase_report(label, times, total):
+    import torch
+    log(f"{label} phase times: " + json.dumps(
+        {k: round(t, 4) for k, t in times.items()}) + "; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"K3 launches {total['dense_covariance']}; launches "
+        f"{json.dumps(total)}")
+
+
+def deep_kernel_phase(N=10_000, hgdl_epochs=2):
+    """(a) BASELINE config 4 at the dense cell's N = 10,000, D = 2: the
+    deep-kernel GP (``WarpNet(2, 4, 4, 2)`` + Matérn-5/2, 44
+    hyperparameters), float32 — construction, LML+gradient,
+    ``train("hgdl", pop_size=4)`` with ``hgdl_epochs`` epochs, mean and
+    variance at 500 points, every call counted.  A user kernel is not
+    routed to K3: 0 launches expected."""
+    import torch
+    x, y, xp = deep_kernel_data(N)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step, times, total = _stepper()
+    gp, hps, bounds = step("construction_s",
+                           lambda: deep_kernel_model(x, y, "cuda"))
+    val, grad = step("lml_grad_s", lambda: gp.marginal_likelihood
+                     .log_likelihood_value_and_gradient(hps))
+    step(f"train_hgdl_{hgdl_epochs}_s", lambda: gp.train(
+        hyperparameter_bounds=bounds, method="hgdl", pop_size=4,
+        max_iter=hgdl_epochs))
+    lml = step("lml_s", lambda: gp.log_likelihood())
+    m = step("posterior_mean_500_s", lambda: gp.posterior_mean(xp)["m(x)"])
+    v = step("posterior_variance_500_s", lambda: gp.posterior_covariance(
+        xp, variance_only=True)["v(x)"])
+    log(f"deep-kernel GP N={N}: lml {val:.4f} -> {lml:.4f} after hgdl, "
+        f"|grad| {np.linalg.norm(grad):.4e}; mean {m.shape}, variance "
+        f"range [{v.min():.3e}, {v.max():.3e}]")
+    _phase_report("deep-kernel GP", times, total)
+    if not (np.isfinite(lml) and lml >= val and m.shape == (500,)
+            and np.all(np.isfinite(m)) and np.all(v >= 0.0)
+            and np.all(np.isfinite(grad))):
+        raise AssertionError("the deep-kernel phase gave wrong shapes, "
+                             "non-finite results or a lower LML")
+    if total["dense_covariance"] != 0:
+        raise AssertionError("a user kernel reached K3")
+    return total
+
+
+def gpm_phase(N=10_000, steps=20):
+    """(b) GPm at ``examples/manifold_gpm.py``'s width: N = 10,000, D = 6,
+    Q = 3, ``manifold_dim=1``, float32 — the LML, ``steps`` Adam steps,
+    mean and variance at 500 points, every call counted (K3 serves the
+    no-grad covariances)."""
+    import torch
+
+    from fvgp_tpu_torch import GPm
+    x, y, xq = gpm_data(N)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step, times, total = _stepper()
+    m = step("construction_s", lambda: GPm(x, y, manifold_dim=1,
+                                           compute_device="cuda"))
+    lml0 = step("lml_s", m.log_likelihood)
+    step(f"train_adam_{steps}_s", lambda: m.train(max_iter=steps,
+                                                  learning_rate=5e-2))
+    lml = m.log_likelihood()
+    mean = step("posterior_mean_500_s", lambda: m.posterior_mean(xq))
+    var = step("posterior_variance_500_s", lambda: m.posterior_variance(xq))
+    log(f"GPm N={N}: lml {lml0:.4f} -> {lml:.4f} after {steps} Adam "
+        f"steps; mean {mean.shape}, variance range [{var.min():.3e}, "
+        f"{var.max():.3e}]")
+    _phase_report("GPm", times, total)
+    if not (np.isfinite(lml) and mean.shape == (500, 3)
+            and np.all(np.isfinite(mean)) and np.all(var >= 0.0)):
+        raise AssertionError("the GPm phase gave wrong shapes or non-finite "
+                             "results")
+    if total["dense_covariance"] < 1:
+        raise AssertionError("K3 never launched under GPm")
+    return total
+
+
+def gplvm_phase(N=10_000, steps=20):
+    """(c) GPLVM at ``examples/gplvm_latent.py``'s width: N = 10,000, Q = 5,
+    ``latent_dim=1``, float32 — ``steps`` Adam steps,
+    ``train("local", max_iter=5)``, mean, variance and both latent
+    gradients at 500 latent points, ``gp_entropy`` and
+    ``gp_mutual_information`` (their 10,500² log-determinants in float64
+    on the card), every call counted.  ``sample_latent`` is left out: at
+    this width it is a 10^4-dimensional chain."""
+    import torch
+
+    from fvgp_tpu_torch import GPLVM
+    Y = gplvm_data(N)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step, times, total = _stepper()
+    m = step("construction_s", lambda: GPLVM(Y, latent_dim=1,
+                                             compute_device="cuda"))
+    lml0 = m.log_likelihood()
+    step(f"train_adam_{steps}_s", lambda: m.train(max_iter=steps))
+    bounds = np.array([[1e-2, 1e2], [1e-2, 1e2], [1e-5, 1.0]])
+    step("train_local_5_s", lambda: m.train(
+        method="local", hyperparameter_bounds=bounds, max_iter=5))
+    lml = step("lml_s", m.log_likelihood)
+    z = m.latent_coordinates[:, 0]
+    zq = np.linspace(z.min(), z.max(), 500)[:, None]
+    mean = step("posterior_mean_500_s", lambda: m.posterior_mean(zq)["m(x)"])
+    var = step("posterior_variance_500_s", lambda: m.posterior_covariance(
+        zq, variance_only=True)["v(x)"])
+    dm = step("posterior_mean_grad_500_s",
+              lambda: m.posterior_mean_grad(zq)["dm/dx"])
+    dv = step("posterior_covariance_grad_500_s",
+              lambda: m.posterior_covariance_grad(zq)["dv/dx"])
+    ent = step("gp_entropy_500_s", lambda: m.gp_entropy(zq))
+    mi = step("gp_mutual_information_500_s", lambda: m.gp_mutual_information(
+        zq)["mutual information"])
+    log(f"GPLVM N={N}: lml {lml0:.4f} -> {lml:.4f}, theta "
+        f"{np.array2string(m.get_hyperparameters(), precision=4)}; mean "
+        f"{mean.shape}, variance range [{var.min():.3e}, {var.max():.3e}], "
+        f"dm/dx {dm.shape}, dv/dx {dv.shape}, entropy {ent:.4f}, mutual "
+        f"information {mi:.4f}")
+    _phase_report("GPLVM", times, total)
+    if not (np.isfinite(lml) and mean.shape == (500, 5)
+            and dm.shape == (500, 5, 1) and dv.shape == (500, 1)
+            and all(np.all(np.isfinite(a)) for a in (mean, var, dm, dv))
+            and np.all(var >= 0.0) and np.isfinite(ent) and np.isfinite(mi)):
+        raise AssertionError("the GPLVM phase gave wrong shapes or "
+                             "non-finite results")
+    if total["dense_covariance"] < 1:
+        raise AssertionError("K3 never launched under GPLVM")
+    return total
+
+
+def ggmp_phase(n=5_000, n_mt=2_000, K=3, weight_iters=20):
+    """(d) GGMP: ``n`` stations, D = 1, K components, bimodal densities on a
+    200-point grid (``examples/ggmp_multitask.py``'s generator, one task),
+    then ``n_mt`` stations x 2 tasks on fvGP components; float32.  For each
+    and for ``gp_eval_parallel`` False and True: ``initLikelihoods``,
+    ``initGPs``, ``train("local", max_iter=5)`` with density EM
+    (``weight_iters`` EM iterations), posterior mean, variance and pdf at
+    500 points, every call counted.  Returns the launches of the per-GP
+    and of the batched evaluations."""
+    import torch
+    paths = {}
+    for label, stations, tasks in (("single-task", n, 1),
+                                   ("multi-task", n_mt, 2)):
+        x, y, domain = ggmp_data(stations, tasks)
+        xp = np.linspace(0, 10, 500).reshape(-1, 1)
+        for parallel in (False, True):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            step, times, total = _stepper()
+            g = step("init_s", lambda: ggmp_model(x, y, K, "cuda", parallel,
+                                                   tasks > 1))
+            step("train_local_5_s", lambda: g.train(
+                method="local", max_iter=5, weight_max_iter=weight_iters))
+            mean = step("posterior_mean_500_s", lambda: g.posterior_mean(xp))
+            var = step("posterior_variance_500_s",
+                       lambda: g.posterior_variance(xp))
+            pdf = step("posterior_pdf_500_s",
+                       lambda: g.posterior_pdf(xp, domain))
+            path = "batched" if parallel else "per-GP"
+            tag = f"GGMP {label} {stations} stations x {tasks} task(s), " \
+                f"K={K}, {path}"
+            w = [lk.weight for lk in g.likelihoods]
+            log(f"{tag}: weights {np.array2string(np.asarray(w), precision=4)}"
+                f", mean {mean.shape}, variance range [{var.min():.3e}, "
+                f"{var.max():.3e}], pdf {pdf.shape}, batched calls "
+                f"{getattr(g, '_batched_eval_count', 0)}")
+            _phase_report(tag, times, total)
+            shape = (500,) if tasks == 1 else (500, tasks)
+            if not (mean.shape == shape and var.shape == shape
+                    and pdf.shape == shape + (len(domain),)
+                    and np.all(np.isfinite(mean)) and np.all(var > 0.0)
+                    and np.all(pdf >= 0.0) and abs(sum(w) - 1.0) < 1e-9
+                    and getattr(g, "_batched_eval_count", 0)
+                    >= (3 if parallel else 0)):
+                raise AssertionError(f"{tag}: wrong shapes, non-finite "
+                                     "results or the batched path unused")
+            if total["dense_covariance"] < 1:
+                raise AssertionError(f"K3 never launched under {tag}")
+            paths[f"{label} {path}"] = total
+    return paths
+
+
+def extensions_phases():
+    """Phases (a)-(d), each counted; returns {path: launches}."""
+    paths = {"deep-kernel GP": deep_kernel_phase(),
+             "GPm": gpm_phase(), "GPLVM": gplvm_phase()}
+    for key, total in ggmp_phase().items():
+        paths[f"GGMP {key}"] = total
+    return paths
+
+
 def main():
     import torch
     smi = smi_line()
@@ -2830,6 +3311,14 @@ def main():
     t0 = time.time()
     non_euclidean_launches = non_euclidean_phase()
     log(f"non-Euclidean gp2Scale phase: {time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    extensions_cross_check()
+    log(f"extensions cross-check phase: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    extension_launches = extensions_phases()
+    log(f"extensions phases (deep kernel, GPm, GPLVM, GGMP): "
+        f"{time.time() - t0:.1f} s")
     # each kernel's launches on the four paths, each read just after its
     # run: K4's ops entry, the dense journey, the gp2Scale journey, the
     # stored-K journey
@@ -2838,7 +3327,8 @@ def main():
              slice_launches["two_level"], slice_launches["posterior_api"],
              slice_launches["training"], stored_launches, merged_launches,
              diagonal_launches, multitask_launches, formula_launches,
-             structured_launches, non_euclidean_launches]
+             structured_launches, non_euclidean_launches,
+             *extension_launches.values()]
     launches = {name: sum(p[name] for p in paths) for name in REPLACES}
     for kern, name in (("K1", "chunked_spmm"), ("K2", "row_chunk_sums")):
         log(f"{kern} launches by path: " + json.dumps(
@@ -2857,7 +3347,9 @@ def main():
          "dense posterior API": dense_api_launches["dense_covariance"],
          "dense training": dense_train_launches["dense_covariance"],
          "fvGP multi-task": multitask_launches["dense_covariance"],
-         "formula gradient": formula_launches["dense_covariance"]}))
+         "formula gradient": formula_launches["dense_covariance"],
+         **{path: total["dense_covariance"]
+            for path, total in extension_launches.items()}}))
     log("K1 on the merged float32 K+V (bfloat16 K + scipy noise, N = 1M), "
         "k = 1: " + json.dumps(merged_record))
     log("K1 at the SLQ batch width (k = 16, N = 1M structure): "

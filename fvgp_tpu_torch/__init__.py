@@ -27,15 +27,32 @@ non-Euclidean inputs (lists of objects) are served on both journeys; off
 the traced paths the LML gradient is the explicit formula.
 
 ``gpMCMC`` and ``ProposalDistribution`` are the adaptive Metropolis sampler
-behind ``train(method="mcmc")``, usable on their own.  Every TPU kernel of
-the JAX package has a hand-written Hopper counterpart in
+behind ``train(method="mcmc")``, usable on their own.
+
+The extensions: a deep kernel (``models/deep_kernel_network.py``: a
+parameter-free ``nn.Module`` MLP whose weights ride in the hyperparameter
+vector, warping a stationary kernel; a torch kernel that ``GP`` trains by
+autograd), ``GPm`` (multi-output GP on a learned linear manifold),
+``GPLVM`` (latent-variable GP with its posterior suite at new latents) and
+``GGMP`` (Gaussian-mixture distributional regression over K component
+``GP`` / ``fvGP`` models; ``ggmp`` is its module with the numpy helpers).
+Each takes ``compute_device`` like ``GP``.  ``interop`` carries JAX model
+states across (``gp_from_numpy_state``, ``gpm_from_numpy_state``,
+``gplvm_from_numpy_state``, ``ggmp_from_numpy_state``).
+
+Every TPU kernel of the JAX package has a hand-written Hopper counterpart in
 ``ops/hopper_kernels.py`` (K1-K4).
 """
 
 from .interop import gp_from_numpy_state
+from .models import ggmp
 from .models.fvgp import fvGP
+from .models.ggmp import GGMP
 from .models.gp import GP, NotPortedError
 from .models.gp_mcmc import ProposalDistribution, gpMCMC
+from .models.gplvm import GPLVM
+from .models.gpm import GPm
 
-__all__ = ["GP", "NotPortedError", "ProposalDistribution", "fvGP", "gpMCMC",
+__all__ = ["GGMP", "GP", "GPLVM", "GPm", "NotPortedError",
+           "ProposalDistribution", "fvGP", "ggmp", "gpMCMC",
            "gp_from_numpy_state"]

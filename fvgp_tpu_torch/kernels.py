@@ -14,7 +14,8 @@ used, as in the JAX package.
 kernel (``ops/hopper_kernels.dense_covariance``); everything else — the
 CPU, batched inputs, every evaluation that autograd records, and every
 input that carries a forward-mode tangent (``torch.autograd.forward_ad``,
-as the posterior gradients' ``d_kernel_dx`` uses) — takes the plain formula.
+as the posterior gradients' ``d_kernel_dx`` uses) and every input wrapped by
+a ``torch.func`` transform — takes the plain formula.
 K3 is a launch with no derivative rule: a dual input would lose its
 tangent there.
 """
@@ -180,18 +181,42 @@ def wendland_anisotropic(x1, x2, hyperparameters):
 def _k3_applies(x1, x2, hps):
     """True when K3 computes this covariance: 2-D float32/float64 CUDA
     inputs of one dtype and device, D <= 32, autograd recording none of
-    x1, x2, hps, and none of them carrying a forward-mode tangent."""
+    x1, x2, hps, none of them carrying a forward-mode tangent, and none
+    of them wrapped by a ``torch.func`` transform (``vmap``, ``jacrev``,
+    ``jvp``: K3 reads raw pointers, which a wrapper does not expose)."""
     if not (x1.is_cuda and x1.dim() == 2 and x2.dim() == 2
             and x1.dtype in (torch.float32, torch.float64)
             and x2.dtype == x1.dtype and x2.device == x1.device
             and x1.shape[1] <= _EXACT_MAX_DIM):
         return False
     if any(forward_ad.unpack_dual(t).tangent is not None
+           or (torch.is_tensor(t)
+               and torch._C._functorch.is_functorch_wrapped_tensor(t))
            for t in (x1, x2, hps)):
         return False
     return not (torch.is_grad_enabled()
                 and (x1.requires_grad or x2.requires_grad
                      or hps.requires_grad))
+
+
+def _k3_hyperparameters(hps, dim):
+    """The ``[signal variance, l_1..l_D]`` vector that makes K3 compute the
+    plain formula at ``hps``, or None.  The formula divides the points by
+    ``hps[1:]`` with broadcasting, so besides D lengthscales it takes one
+    lengthscale for every dimension, and, on one input dimension, several
+    trailing entries that act as pseudo-dimensions (GGMP's constant mean
+    puts its mean there): Σ_j ((x − x')/l_j)² = (x − x')² Σ_j l_j⁻², one
+    lengthscale (Σ_j l_j⁻²)^(−1/2)."""
+    if hps.dim() != 1 or hps.shape[0] < 2:
+        return None
+    ls = hps[1:]
+    if ls.shape[0] == dim:
+        return hps
+    if ls.shape[0] == 1:
+        return torch.cat([hps[:1], ls.expand(dim)])
+    if dim == 1:
+        return torch.stack([hps[0], torch.rsqrt(torch.sum(ls ** -2))])
+    return None
 
 
 def default_matern_ard(x1, x2, hyperparameters):
@@ -200,10 +225,13 @@ def default_matern_ard(x1, x2, hyperparameters):
 
     Differentiable by autograd and forward-mode AD (the plain formula); a
     2-D CUDA covariance that no derivative follows runs the K3 kernel
-    instead."""
+    instead, with the lengthscales the formula's broadcast gives
+    (:func:`_k3_hyperparameters`)."""
     hps = torch.as_tensor(hyperparameters, dtype=x1.dtype, device=x1.device)
     if _k3_applies(x1, x2, hps):
-        from .ops.hopper_kernels import dense_covariance
-        return dense_covariance(x1, x2, hps, kind="matern32")
+        k3_hps = _k3_hyperparameters(hps, x1.shape[1])
+        if k3_hps is not None:
+            from .ops.hopper_kernels import dense_covariance
+            return dense_covariance(x1, x2, k3_hps, kind="matern32")
     d = get_anisotropic_distance_matrix(x1, x2, hps[1:])
     return hps[0] * matern_kernel_diff1(d, 1.0)

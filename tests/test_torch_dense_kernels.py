@@ -387,3 +387,25 @@ def test_non_positive_definite_raises_the_typed_error(rng):
     np.testing.assert_allclose(
         TD.solve(T(S), T(np.ones((4, 1)))).numpy(),
         np.linalg.lstsq(S, np.ones((4, 1)), rcond=None)[0], atol=1e-10)
+
+
+@pytest.mark.parametrize("D,hps", [
+    (1, [1.3, 2.0, 1.7]),            # GGMP's constant mean: [var, l, mean]
+    (1, [0.7, 2.0, -1.5, 3.0]),
+    (3, [1.3, 0.8]),                 # one lengthscale for every dimension
+    (3, [1.3, 0.8, 1.1, 2.0])])
+def test_k3_takes_the_lengthscales_of_the_formulas_broadcast(rng, D, hps):
+    """JAX's ``default_matern_ard`` divides the points by ``hps[1:]`` with
+    broadcasting; the K3 operands from ``_k3_hyperparameters`` (K3's plain
+    twin here, the kernel on the card) give the same covariance."""
+    x1 = rng.uniform(0, 5, (40, D))
+    x2 = rng.uniform(0, 5, (30, D))
+    h = np.asarray(hps)
+    k3 = TK._k3_hyperparameters(T(h), D)
+    K = HK.dense_covariance(T(x1), T(x2), k3, kind="matern32")
+    ref = np.asarray(JK.default_matern_ard(x1, x2, h))
+    np.testing.assert_allclose(K.numpy(), ref, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(
+        TK.default_matern_ard(T(x1), T(x2), T(h)).numpy(), ref, rtol=0,
+        atol=1e-12)
+    assert TK._k3_hyperparameters(T(np.ones(3)), 3) is None

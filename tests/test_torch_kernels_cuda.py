@@ -979,3 +979,63 @@ def test_k3_launches_from_an_actor_thread(cuda_device):
     assert HK.dense_covariance.launches - before == len(threads)
     hps = gp.update_hyperparameters(opt)
     assert np.all(np.isfinite(hps))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_torch_func_transforms_of_the_default_kernel_take_the_plain_formula(
+        cuda_device, dtype):
+    """``torch.func.vmap`` hands the kernel a ``BatchedTensor`` (2-D, no
+    grad, no tangent) and ``jacrev`` a grad-tracking wrapper: K3 reads raw
+    pointers, so the gate refuses both, and each transform equals the plain
+    formula's result with no K3 launch."""
+    from fvgp_tpu_torch.kernels import (default_matern_ard,
+                                        get_anisotropic_distance_matrix,
+                                        matern_kernel_diff1)
+
+    def plain(x1, x2, h):
+        return h[0] * matern_kernel_diff1(
+            get_anisotropic_distance_matrix(x1, x2, h[1:]), 1.0)
+
+    rng = np.random.default_rng(21)
+    x = torch.as_tensor(rng.uniform(0, 3, (6, 40, 3)), dtype=dtype,
+                        device=cuda_device)
+    xq = torch.as_tensor(rng.uniform(0, 3, (25, 3)), dtype=dtype,
+                         device=cuda_device)
+    h = torch.as_tensor([1.3, 0.8, 1.1, 1.6], dtype=dtype,
+                        device=cuda_device)
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    before = HK.dense_covariance.launches
+    got = torch.func.vmap(lambda xi: default_matern_ard(xi, xq, h))(x)
+    want = torch.stack([plain(xi, xq, h) for xi in x])
+    torch.testing.assert_close(got, want, rtol=0, atol=tol)
+    jac = torch.func.jacrev(lambda hh: default_matern_ard(x[0], xq, hh))(h)
+    want_jac = torch.func.jacrev(lambda hh: plain(x[0], xq, hh))(h)
+    torch.testing.assert_close(jac, want_jac, rtol=0, atol=tol)
+    assert HK.dense_covariance.launches == before
+    # the same call outside any transform still launches K3
+    torch.testing.assert_close(default_matern_ard(x[0], xq, h),
+                               plain(x[0], xq, h), rtol=0, atol=tol)
+    assert HK.dense_covariance.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,hps", [(1, [1.3, 2.0, 1.7]), (3, [1.3, 0.8])])
+def test_default_kernel_on_k3_follows_the_formulas_broadcast(cuda_device, D,
+                                                             hps):
+    """Trailing entries beyond D lengthscales (GGMP's constant mean on one
+    input dimension) and one shared lengthscale: K3 launches with the
+    broadcast's lengthscales and equals the plain formula."""
+    from fvgp_tpu_torch.kernels import (default_matern_ard,
+                                        get_anisotropic_distance_matrix,
+                                        matern_kernel_diff1)
+    rng = np.random.default_rng(22)
+    x1 = torch.as_tensor(rng.uniform(0, 5, (300, D)), device=cuda_device)
+    x2 = torch.as_tensor(rng.uniform(0, 5, (120, D)), device=cuda_device)
+    h = torch.as_tensor(hps, dtype=torch.float64, device=cuda_device)
+    want = h[0] * matern_kernel_diff1(
+        get_anisotropic_distance_matrix(x1, x2, h[1:]), 1.0)
+    before = HK.dense_covariance.launches
+    got = default_matern_ard(x1, x2, h)
+    assert HK.dense_covariance.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-12)

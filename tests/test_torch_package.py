@@ -42,8 +42,12 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "import fvgp_tpu_torch.ops.precond\n"
         "import fvgp_tpu_torch.parallel.block_sparse\n"
         "import fvgp_tpu_torch.parallel.sharded_cov\n"
+        "import fvgp_tpu_torch.models.deep_kernel_network\n"
+        "import fvgp_tpu_torch.models.gpm, fvgp_tpu_torch.models.gplvm\n"
+        "import fvgp_tpu_torch.models.ggmp\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'fvgp_tpu' or m.startswith('fvgp_tpu.')]\n"
+        " or m == 'fvgp_tpu' or m.startswith('fvgp_tpu.')"
+        " or m == 'optax' or m.startswith('optax.')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)")
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -69,10 +73,15 @@ def test_entry_points_default_to_the_card():
     one, exactly like an explicit ``"cuda"``."""
     import inspect
 
-    from fvgp_tpu_torch import fvGP, gp_from_numpy_state
+    from fvgp_tpu_torch import GPLVM, GPm, fvGP, gp_from_numpy_state
     from fvgp_tpu_torch.config import resolve_device
+    from fvgp_tpu_torch.interop import (ggmp_from_numpy_state,
+                                        gplvm_from_numpy_state,
+                                        gpm_from_numpy_state)
     from fvgp_tpu_torch.models.gp_data import GPdata
-    for fn in (GP, fvGP, GPdata, gp_from_numpy_state, resolve_device):
+    for fn in (GP, fvGP, GPdata, gp_from_numpy_state, resolve_device, GPm,
+               GPLVM, gpm_from_numpy_state, gplvm_from_numpy_state,
+               ggmp_from_numpy_state):
         default = inspect.signature(fn).parameters["compute_device"].default
         assert default == "cuda", fn
     if torch.cuda.is_available():
@@ -95,6 +104,7 @@ def test_entry_points_default_to_the_card():
                      cols=np.zeros(1, int), tiles=tile, diag=None)
     y2 = np.stack([y, 2 * y], axis=1)
     for make in (lambda: GP(x, y), lambda: GPdata(x, y), lambda: fvGP(x, y2),
+                 lambda: GPm(x, y2), lambda: GPLVM(y2),
                  lambda: gp_from_numpy_state(state), resolve_device,
                  lambda: tbs.BlockSparseMatrix(32, 32, 32, [0], [0], tile),
                  lambda: tbs.from_scipy(sparse.identity(32, format="csr"), 32),
@@ -247,8 +257,11 @@ def test_package_exports_the_mcmc_sampler():
         info = sampler.run_mcmc(x0=np.zeros(2), n_updates=60)
         traces[name] = (np.asarray(sampler.trace["x"]),
                         np.asarray(sampler.trace["f(x)"]), info)
-    assert set(fvgp_tpu_torch.__all__) >= {"GP", "gpMCMC",
-                                           "ProposalDistribution"}
+    # the JAX package's whole public surface comes through the package name
+    assert set(fvgp_tpu_torch.__all__) >= set(fvgp_tpu.__all__)
+    for name in fvgp_tpu.__all__:
+        assert getattr(fvgp_tpu_torch, name).__name__.rsplit(".", 1)[-1] \
+            == getattr(fvgp_tpu, name).__name__.rsplit(".", 1)[-1]
     np.testing.assert_array_equal(traces["torch"][0], traces["jax"][0])
     np.testing.assert_array_equal(traces["torch"][1], traces["jax"][1])
     assert traces["torch"][0].shape == (60, 2)
