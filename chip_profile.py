@@ -464,7 +464,7 @@ def k1_order():
             err = lib.fvgp_chunked_spmm(
                 hk._ptr(t), hk._ptr(Xp), hk._ptr(row_ptr),
                 hk._ptr(order) if ordered else None, hk._ptr(c32),
-                hk._ptr(out), nb_, B, 17, 24, hk._KERNEL_DTYPES[t.dtype],
+                hk._ptr(out), nb_, nb_, B, 17, 24, hk._KERNEL_DTYPES[t.dtype],
                 hk._stream(Xp))
             if err:
                 raise RuntimeError(f"K1 launch failed: {err}")

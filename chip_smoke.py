@@ -80,13 +80,13 @@ injected probes (K1 launches counted); 5c. the training pieces against the
 CPU in float64 — the batched value-and-gradient of the dense LML (N=2,000,
 four members, one not positive definite; card float32 and float64) and a
 14-evaluation BO run on an analytic bowl (card float64); 6c. on the dense
-journey's model ``train`` with ``"hgdl"`` (4 starts, 5 epochs since the
-host-callable slice, which cut it from 10 to keep the smoke's time),
-``"adam"`` (20 steps), ``"bo"`` (14 evaluations) and an asynchronous
-``"mcmc"`` polled through ``update_hyperparameters`` and then stopped, each
-call counted; 7c. on the N=1M journey's model ``train`` with ``"adam"`` (8
-steps: one device chain chunk) and ``"bo"`` (14 evaluations), each call
-counted.
+journey's model ``train`` with ``"hgdl"`` (4 starts, 3 epochs: the
+host-callable slice cut it from 10 to 5, the mesh slice to 3, to keep the
+smoke's time), ``"adam"`` (20 steps), ``"bo"`` (14 evaluations) and an
+asynchronous ``"mcmc"`` polled through ``update_hyperparameters`` and then
+stopped, each call counted; 7c. on the N=1M journey's model ``train`` with
+``"adam"`` (4 steps, within one device chain chunk) and ``"bo"`` (8
+evaluations; the mesh slice cut them from 8 and 14), each call counted.
 
 Since the host-callable slice also: 5d. against the CPU in float64 — the
 formula gradient of a numpy host Matérn kernel (dense N=2,000, value and
@@ -123,8 +123,22 @@ latent gradients, entropy and mutual information at 500 latent points),
 fvGP components, per-GP and batched (initialization, ``local`` training
 with density EM, mean, variance and pdf at 500 points).
 
-K4's entry point, phases 6-6e, 7-7c, 9-9c and 9e and the two counted
-pieces of 5d are the paths: every
+Since the mesh slice (ROADMAP item 1.8, first part) also: in phase 3, K1
+with its own output block count (rank 0 of 2 at the N=1M structure: its
+rows against the gathered X of every block) against its plain version,
+timed beside it and the rank's rectangular BSR ``torch.sparse.mm``; 10.
+the mesh phase (``mesh_phase``), spawned ranks on the card: 2 gloo ranks
+sharing it run the N=10,000 journey of phase 4 in float32 and with
+bfloat16 streaming, held against one rank on the card and against phase
+4's CPU float64 reference at the same probes, then the N=1M journey's
+configuration of phase 7 across both ranks (construction, LML+gradient
+twice, posterior_mean on 500 points; counted, times labelled as two ranks
+time-sliced on one card); then side by side 4 gloo ranks as a 2 x 2 mesh
+with the hierarchical halo forced and a one-rank NCCL world, each at
+N=10,000 in float32 against the CPU.
+
+K4's entry point, phases 6-6e, 7-7c, 9-9c, 9e and 10's N=1M journey and
+the two counted pieces of 5d are the paths: every
 kernel's launch counter is reset just before each and read just after it,
 and the ``launches`` of a kernel is its sum over them.  The line before the
 last is
@@ -291,21 +305,24 @@ def launch_counts():
     return {name: getattr(hk, name).launches for name in REPLACES}
 
 
-def bsr_library_ms(rows, cols, tiles, X, nb, B):
+def bsr_library_ms(rows, cols, tiles, X, nb, B, nb_out=None):
     """Time of one ``torch.sparse.mm`` of a ``sparse_bsr_tensor`` built
     once (build excluded) from the live tiles — the library call that
-    computes K1's and K4's product — or None where the library refuses the
+    computes K1's and K4's product (``nb_out`` row blocks against X's
+    ``nb``; default square) — or None where the library refuses the
     dtype.  Timed here only; the port never calls it."""
     import torch
-    live = (rows < nb) & (cols < nb)
+    nb_out = nb if nb_out is None else nb_out
+    live = (rows < nb_out) & (cols < nb)
     r, c, t = rows[live], cols[live], tiles[live]
     order = torch.argsort(r.long() * (nb + 1) + c.long())
     r, c, t = r[order], c[order], t[order]
-    crow = torch.searchsorted(r, torch.arange(nb + 1, device=r.device,
+    crow = torch.searchsorted(r, torch.arange(nb_out + 1, device=r.device,
                                               dtype=r.dtype))
     try:
         A = torch.sparse_bsr_tensor(crow.to(torch.int64), c.to(torch.int64),
-                                    t.contiguous(), size=(nb * B, nb * B))
+                                    t.contiguous(),
+                                    size=(nb_out * B, nb * B))
         Xc = X.to(t.dtype)
         torch.sparse.mm(A, Xc)
         torch.cuda.synchronize()
@@ -394,6 +411,64 @@ def k1_case(label, r, c, tiles, X, nb, B, mvd):
         f" ms, library {lib_ms} ms; {share(rec)}")
     if not (err <= tol):
         raise AssertionError(f"K1 ({label}) disagrees with its plain "
+                             f"version: {err} > {tol}")
+    return rec
+
+
+def k1_rank_case(x, nb, rows_p, cols_p, hps, B, k, gen, device):
+    """K1 with its own output block count: rank 0's rows of the N=1M
+    journey's structure over two ranks (the blocking padded to a multiple
+    of 2 and partitioned by row ownership, as the mesh facade does; Morton
+    order keeps the two equal ranges within the layout's 5% balance)
+    against the gathered X of every block — the mesh SpMM's local tail
+    under the all-gather.  Held against its plain version, timed beside it
+    and the rank's rectangular BSR ``torch.sparse.mm``; bound from the
+    rank's live tiles, X and the rank's float32 output, each once."""
+    import torch
+
+    from fvgp_tpu_torch.ops import hopper_kernels as hk
+    from fvgp_tpu_torch.parallel.partition import partition_schedule
+    n_dev = 2
+    nb2 = -(-nb // n_dev) * n_dev
+    W = nb2 // n_dev
+    live = rows_p < nb
+    rp, cp, _, per = partition_schedule(rows_p[live], cols_p[live], nb2,
+                                        n_dev)
+    tiles, r, c = assemble(x, nb, B, rp[:per], cp[:per], hps,
+                           torch.bfloat16, torch.float32, device)
+    r_loc = torch.where(r < W, r, torch.full_like(r, W))
+    cc = c.clamp(max=nb - 1)
+    X = torch.randn((nb2 * B, k), generator=gen).to(device)
+    mvd = torch.bfloat16
+    got = hk.chunked_spmm(r_loc, cc, tiles, X, nb2, B, mv_dtype=mvd,
+                          nb_out=W)
+    ref = hk.chunked_spmm_reference(r_loc, cc, tiles, X, nb2, B,
+                                    mv_dtype=mvd, nb_out=W)
+    square = hk.chunked_spmm(r_loc, cc, tiles, X, nb2, B, mv_dtype=mvd)
+    if got.shape != (W * B, k) or not torch.equal(got, square[:W * B]):
+        raise AssertionError("K1 with nb_out is not the square launch's "
+                             "first rows")
+    err = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    tol = KERNEL_RTOL * scale
+    del got, ref, square
+    ms = cuda_ms(lambda: hk.chunked_spmm(r_loc, cc, tiles, X, nb2, B,
+                                         mv_dtype=mvd, nb_out=W))
+    plain_ms = cuda_ms(lambda: hk.chunked_spmm_reference(
+        r_loc, cc, tiles, X, nb2, B, mv_dtype=mvd, nb_out=W), reps=3)
+    lib_ms = bsr_library_ms(r_loc, cc, tiles, X, nb2, B, nb_out=W)
+    n_live = int((r < W).sum())
+    rec = spmm_record(err, ms, plain_ms,
+                      n_live * B * B * tiles.element_size()
+                      + nb2 * B * k * 4 + W * B * k * 4 + 8 * n_live,
+                      2 * n_live * B * B * k, "bfloat16", lib_ms)
+    log(f"K1 chunked_spmm [rank 0 of 2 at the N=1M structure, nb_out={W} "
+        f"of nb={nb2}, B={B}, k={k}, T={per}, live {n_live}]: max_abs_err "
+        f"{err:.3e} (tol {tol:.3e}); kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, library {lib_ms} ms (rectangular BSR); "
+        f"{share(rec)}")
+    if not (err <= tol):
+        raise AssertionError(f"K1 (nb_out) disagrees with its plain "
                              f"version: {err} > {tol}")
     return rec
 
@@ -513,6 +588,9 @@ def kernel_phase(device):
     records["k1_slq_batch"] = k1_case("bfloat16 tiles, N=1M, SLQ batch", r,
                                       c, tiles, X16, nb, B1, torch.bfloat16)
     del tiles, X1, X16, r, c
+    torch.cuda.empty_cache()
+    records["k1_rank"] = k1_rank_case(x, nb, rows_p, cols_p, hps1, B1, k,
+                                      gen, device)
     torch.cuda.empty_cache()
     # ---- K2 at committed-solver shapes: c=128 in both dtypes, and in
     # bfloat16 the N=1M journey's widths (posterior mean 8, variance 512)
@@ -804,6 +882,7 @@ def cross_check():
         if bad:
             raise AssertionError(f"cross-check {name} out of bounds: {bad}")
     adam_chain_cross_check(models, hps)
+    return ref[:4]
 
 
 def slice_cross_check():
@@ -1703,14 +1782,15 @@ def _trained(tag, hps):
 
 def dense_training_phase(gp):
     """The training methods on the dense journey's model (N=10,000,
-    float32), each a counted public call: hgdl (4 starts, 5 epochs), adam
+    float32), each a counted public call: hgdl (4 starts, 3 epochs since
+    the mesh slice, which cut it from 5 to keep the smoke's time), adam
     (20 steps), bo (14 evaluations) and an asynchronous mcmc polled through
     ``update_hyperparameters`` then stopped.  K3 must launch under bo and
     under the asynchronous run.  Returns every kernel's summed launches."""
     import torch
     total = {name: 0 for name in REPLACES}
     rows = []
-    calls = (("hgdl", dict(pop_size=4, max_iter=5)),
+    calls = (("hgdl", dict(pop_size=4, max_iter=3)),
              ("adam", dict(max_iter=20)),
              ("bo", dict(max_iter=14)))
     ml = gp.marginal_likelihood
@@ -1767,13 +1847,14 @@ def dense_training_phase(gp):
 
 def gp2scale_training_phase(gp):
     """The training methods on the N=1M journey's model after its
-    training: adam (8 steps, one device chain chunk; K1 launches per step)
-    and bo (14 evaluations on the estimator's variance), each a counted
-    public call.  Returns every kernel's summed launches."""
+    training: adam (4 steps, within one device chain chunk; K1 launches per
+    step) and bo (8 evaluations on the estimator's variance), each a
+    counted public call.  The mesh slice cut them from 8 and 14 to keep the
+    smoke's time.  Returns every kernel's summed launches."""
     import torch
     bounds = np.array([[0.1, 10.0]] + [[1.5, 2.5]] * 3)
     total = {name: 0 for name in REPLACES}
-    for method, max_iter in (("adam", 8), ("bo", 14)):
+    for method, max_iter in (("adam", 4), ("bo", 8)):
         torch.cuda.reset_peak_memory_stats()
         hps, secs, got = counted(lambda: gp.train(
             hyperparameter_bounds=bounds, method=method, max_iter=max_iter))
@@ -1782,7 +1863,8 @@ def gp2scale_training_phase(gp):
             total[k] += got[k]
         extra = ""
         if method == "adam":
-            extra = f", K1 launches per step {got['chunked_spmm'] / 8:.1f}"
+            extra = (f", K1 launches per step "
+                     f"{got['chunked_spmm'] / max_iter:.1f}")
         else:
             info = gp.bo_info
             extra = (f", {info['n_evaluations']} evaluations, stopping "
@@ -3228,6 +3310,321 @@ def extensions_phases():
     return paths
 
 
+# ---------------------------------------------------------------------------
+# the mesh (ROADMAP item 1.8, first part): gloo ranks sharing the one card
+# ---------------------------------------------------------------------------
+
+# mesh against one rank, both on the card in float32, same probes: two
+# reduction orders of the same float32 solves, held at the dryrun's bounds
+# (loss 1e-5 rel, gradient 1e-4, variance 1e-5 of their scale;
+# __graft_entry__.py:201-204) but for the mean: the dryrun's 1e-6 is a
+# float64 bound, and the committed float32 CG exits at a relative residual
+# of 1e-4, so two summation orders leave two solutions up to that far apart
+# (the first run on the card read 2.7e-5, PERF.md section 6; this bound was
+# set after that reading)
+MESH_ONE_RANK_BOUNDS = {"loss": 1e-5, "grad": 1e-4, "mean": 1e-4,
+                        "var": 1e-5}
+MESH_WORLD_TIMEOUT = 420.0       # seconds for one spawned world
+MESH_COLLECTIVE_TIMEOUT = 300.0  # seconds a rank waits in one collective
+
+
+def _mesh_rank(rank, world, store, out_dir, task):
+    """One spawned rank: a gloo world on a file store (none for the
+    one-rank NCCL task, which builds its own), the task, its result
+    pickled for the parent."""
+    import datetime
+    import os
+    import pickle
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+    warnings.simplefilter("ignore")
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        if store is not None:
+            dist.init_process_group(
+                "gloo", store=dist.FileStore(store, world), rank=rank,
+                world_size=world,
+                timeout=datetime.timedelta(seconds=MESH_COLLECTIVE_TIMEOUT))
+        try:
+            payload = {"ok": globals()[task](rank, world)}
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+    except BaseException:
+        payload = {"error": traceback.format_exc()}
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(payload, f)
+
+
+def _start_world(task, world, gloo=True):
+    """Spawn ``world`` ranks running ``task``; ``_join_world`` collects
+    them."""
+    import multiprocessing
+    import os
+    import tempfile
+    out_dir = tempfile.mkdtemp(prefix="fvgp_mesh_")
+    store = os.path.join(out_dir, "store") if gloo else None
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_mesh_rank,
+                         args=(r, world, store, out_dir, task))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    return task, procs, out_dir, time.time()
+
+
+def _join_world(started):
+    """The results of a started world in rank order.  A world that
+    overruns MESH_WORLD_TIMEOUT from its start is killed and raises."""
+    import os
+    import pickle
+    task, procs, out_dir, t0 = started
+    world = len(procs)
+    for p in procs:
+        p.join(max(0.0, MESH_WORLD_TIMEOUT - (time.time() - t0)))
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+        p.join(10)
+    if hung:
+        raise AssertionError(f"mesh world {task}: {len(hung)} of {world} "
+                             f"ranks killed after {MESH_WORLD_TIMEOUT:.0f} s")
+    out = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
+            payload = pickle.load(f)
+        if "error" in payload:
+            raise AssertionError(f"mesh world {task}, rank {r}:\n"
+                                 f"{payload['error']}")
+        out.append(payload["ok"])
+    return out
+
+
+def _mesh_journey_inputs():
+    """The gp2Scale cross-check's N=10,000 data and arguments."""
+    x, y, xp = journey_data(10_000, seed=2)
+    base = {"gp2Scale_block_size": 128, "sparse_cg_maxiter": 64,
+            "random_logdet_fixed_probes": 16,
+            "gp2Scale_structure_cache_dir": False}
+    return x, y, xp[:64], np.array([1.0, 2.0, 2.0, 2.0]), base
+
+
+def _exchange_of(gp):
+    entry, = gp.marginal_likelihood._sparse_cache.values()
+    return entry["schedule"][2].get("exchange", "one rank")
+
+
+def _journey_values(x, y, xp, hps, args):
+    out = run_journey(x, y, xp, hps, "cuda", args)
+    return {"lml": float(out[0]), "grad": np.asarray(out[1]),
+            "mean": np.asarray(out[2]), "var": np.asarray(out[3]),
+            "exchange": _exchange_of(out[4])}
+
+
+def _mesh_pair_task(rank, world):
+    """Two gloo ranks on the card: the N=10,000 journey in float32 and with
+    bfloat16 streaming, rank 0 also alone, then the N=1M journey."""
+    from fvgp_tpu_torch.ops import hopper_kernels as hk
+    from fvgp_tpu_torch.parallel import mesh as pm
+    hk.build_kernels()
+    mesh = pm.make_mesh(layout="1d")
+    x, y, xp, hps, base = _mesh_journey_inputs()
+    out = {"device": str(mesh.device), "backend": mesh.backend}
+    for name, extra in (("float32", {}),
+                        ("bfloat16", {"gp2Scale_solver_dtype": "bfloat16"})):
+        if rank == 0:
+            out[f"{name} one rank"] = _journey_values(x, y, xp, hps,
+                                                      {**base, **extra})
+        with pm.use_mesh(mesh):
+            out[name] = _journey_values(x, y, xp, hps, {**base, **extra})
+    out["n1m"] = _mesh_full_journey(mesh, 1_000_000)
+    out["ops"] = dict(mesh.ops)
+    return out
+
+
+def _mesh_hier_task(rank, world):
+    """Four gloo ranks on the card as a 2 x 2 mesh, the hierarchical halo
+    forced: the N=10,000 journey in float32."""
+    from fvgp_tpu_torch.ops import hopper_kernels as hk
+    from fvgp_tpu_torch.parallel import mesh as pm
+    hk.build_kernels()
+    mesh = pm.make_mesh_2d(2, 2, timeout=MESH_COLLECTIVE_TIMEOUT)
+    x, y, xp, hps, base = _mesh_journey_inputs()
+    with pm.use_mesh(mesh):
+        out = _journey_values(x, y, xp, hps,
+                              {**base, "gp2Scale_halo_exchange": "hier"})
+    out["ops"] = dict(mesh.ops)
+    return out
+
+
+def _mesh_nccl_task(rank, world):
+    """A one-rank NCCL world (``make_mesh()``'s default on a card, no
+    torchrun environment): the collectives on CUDA tensors and the N=10,000
+    journey in float32 under it."""
+    import torch
+
+    from fvgp_tpu_torch.ops import hopper_kernels as hk
+    from fvgp_tpu_torch.parallel import mesh as pm
+    hk.build_kernels()
+    mesh = pm.make_mesh()
+    if mesh.backend != "nccl" or mesh.device.type != "cuda":
+        raise AssertionError(f"make_mesh() on a card gave {mesh}")
+    t = torch.arange(12.0, device=mesh.device).reshape(4, 3)
+    for name, got in (("all_reduce", pm._all_reduce(t, mesh)),
+                      ("all_gather", pm._all_gather(t, mesh)),
+                      ("all_to_all", pm._all_to_all(t, mesh, mesh.group))):
+        if not torch.equal(got, t):
+            raise AssertionError(f"NCCL {name} on one rank changed its input")
+    x, y, xp, hps, base = _mesh_journey_inputs()
+    with pm.use_mesh(mesh):
+        out = _journey_values(x, y, xp, hps, base)
+    out["ops"] = dict(mesh.ops)
+    return out
+
+
+def _mesh_full_journey(mesh, N):
+    """The N=1M journey's configuration (phase 7) across the mesh's ranks:
+    construction, the first LML+gradient (the host structure pass
+    included), one more timed, posterior_mean on 500 points; K1 launches
+    counted (set to 0 just before, read just after), peak memory, the
+    exchange and its bytes per matvec."""
+    import torch
+
+    from fvgp_tpu_torch.ops import hopper_kernels as hk
+    from fvgp_tpu_torch.parallel import mesh as pm
+    from fvgp_tpu_torch.parallel.partition import schedule_stats
+    x, y, xp = journey_data(N)
+    hps = np.array([1.0, 2.0, 2.0, 2.0])
+    times = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hk.reset_launch_counts()
+    with pm.use_mesh(mesh):
+        t0 = time.time()
+        gp = journey_model(x, y, hps)
+        times["construction_s"] = time.time() - t0
+        ml = gp.marginal_likelihood
+        t0 = time.time()
+        val, grad = ml.log_likelihood_value_and_gradient(hps)
+        torch.cuda.synchronize()
+        times["first_lml_grad_s"] = time.time() - t0
+        t0 = time.time()
+        val, grad = ml.log_likelihood_value_and_gradient(hps * (1 + 1e-4))
+        torch.cuda.synchronize()
+        times["lml_grad_s"] = time.time() - t0
+        t0 = time.time()
+        pm_ = gp.posterior_mean(xp)["m(x)"]
+        torch.cuda.synchronize()
+        times["posterior_mean_500_s"] = time.time() - t0
+    launches = launch_counts()
+    run = next(iter(ml._sparse_cache.values()))["schedule"][2]
+    rows_p, cols_p, nb_eff, n_dev = run["schedule"]
+    stats = schedule_stats(rows_p, cols_p, nb_eff, n_dev, 128, n_rhs=17,
+                           elt_bytes=2)
+    if not (np.isfinite(val) and np.all(np.isfinite(grad))
+            and pm_.shape == (500,) and np.all(np.isfinite(pm_))):
+        raise AssertionError("the N=1M mesh journey gave non-finite or "
+                             "misshapen results")
+    return {"lml": float(val), "grad": np.asarray(grad), "times": times,
+            "launches": launches, "exchange": run["exchange"],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "bytes_per_matvec": {k: stats[k] for k in (
+                "allgather_bytes", "halo_bytes", "allreduce_bytes")},
+            "tiles_per_rank": stats["tiles_per_device"],
+            "committed_iters": gp.kv.last_solve_info["iterations"]}
+
+
+def _dryrun_errs(got, one):
+    """The dryrun's relative errors (__graft_entry__.py:193-196)."""
+    def rel(a, b):
+        return float(np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-12))
+    return {"loss": abs(got["lml"] - one["lml"]) / max(abs(one["lml"]), 1.0),
+            "grad": rel(got["grad"], one["grad"]),
+            "mean": rel(got["mean"], one["mean"]),
+            "var": rel(got["var"], one["var"])}
+
+
+def _held_against_cpu(tag, got, ref, dtype):
+    errs = {"lml": abs(got["lml"] - ref[0]) / abs(ref[0]),
+            "grad": float(np.linalg.norm(got["grad"] - ref[1])
+                          / np.linalg.norm(ref[1])),
+            "mean": float(np.abs(got["mean"] - ref[2]).max()),
+            "var": float(np.abs(got["var"] - ref[3]).max())}
+    bounds = BOUNDS[dtype]
+    log(f"mesh {tag} vs CPU float64: " + ", ".join(
+        f"{k} {errs[k]:.3e} (bound {bounds[k]:g})" for k in errs))
+    bad = [k for k in errs if not errs[k] <= bounds[k]]
+    if bad:
+        raise AssertionError(f"mesh {tag} out of bounds against the CPU: "
+                             f"{bad}")
+
+
+def mesh_phase(ref):
+    """ROADMAP item 1.8's first part on the card: 2 gloo ranks sharing it
+    (N=10,000 float32 and bfloat16 streaming against one rank and against
+    the CPU's float64 ``ref`` at the same probes; then the N=1M journey),
+    then, side by side on the card, 4 gloo ranks as 2 x 2 with the
+    hierarchical halo and a one-rank NCCL world.  Returns the K1 launches
+    of the N=1M mesh journey (both ranks)."""
+    import torch
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    pair = _join_world(_start_world("_mesh_pair_task", 2))
+    log(f"mesh: 2 gloo ranks on {pair[0]['device']} ({time.time() - t0:.1f} "
+        f"s with the N=1M journey); collectives of rank 0: "
+        f"{json.dumps(pair[0]['ops'])} (gloo takes CUDA tensors for all of "
+        f"them: none staged through host memory)")
+    for name in ("float32", "bfloat16"):
+        got, one = pair[0][name], pair[0][f"{name} one rank"]
+        if not (pair[1][name]["lml"] == got["lml"]
+                and np.array_equal(pair[1][name]["mean"], got["mean"])):
+            raise AssertionError(f"mesh {name}: the ranks disagree")
+        _held_against_cpu(f"2 ranks ({got['exchange']}) {name}", got, ref,
+                          name)
+        errs = _dryrun_errs(got, one)
+        log(f"mesh 2 ranks {name} vs one rank on the card: " + ", ".join(
+            f"{k} {errs[k]:.3e} (dryrun bound {MESH_ONE_RANK_BOUNDS[k]:g})"
+            for k in errs))
+        if name == "float32":
+            bad = [k for k in errs if not errs[k] <= MESH_ONE_RANK_BOUNDS[k]]
+            if bad:
+                raise AssertionError(f"mesh float32 vs one rank: {bad}")
+    n1m = [r["n1m"] for r in pair]
+    log("mesh N=1M gp2Scale journey, 2 gloo ranks time-sliced on one card, "
+        "not a scaling figure: " + json.dumps({
+            "times_rank0": {k: round(v, 4) for k, v in
+                            n1m[0]["times"].items()},
+            "times_rank1": {k: round(v, 4) for k, v in
+                            n1m[1]["times"].items()},
+            "peak_gib": [round(r["peak_gib"], 2) for r in n1m],
+            "k1_launches": [r["launches"]["chunked_spmm"] for r in n1m],
+            "exchange": n1m[0]["exchange"],
+            "bytes_per_matvec": n1m[0]["bytes_per_matvec"],
+            "tiles_per_rank": n1m[0]["tiles_per_rank"],
+            "committed_cg_iterations": n1m[0]["committed_iters"],
+            "lml": n1m[0]["lml"]}))
+    if n1m[0]["lml"] != n1m[1]["lml"]:
+        raise AssertionError("mesh N=1M: the ranks disagree")
+    for r in n1m:
+        if r["launches"]["chunked_spmm"] < 1:
+            raise AssertionError("K1 never launched on the mesh journey")
+    t0 = time.time()
+    started = (_start_world("_mesh_hier_task", 4),
+               _start_world("_mesh_nccl_task", 1, gloo=False))
+    hier, (nccl,) = (_join_world(w) for w in started)
+    log(f"mesh: the 2 x 2 gloo world and the one-rank NCCL world, side by "
+        f"side, {time.time() - t0:.1f} s")
+    if hier[0]["exchange"] != "hier":
+        raise AssertionError(f"the 2 x 2 mesh ran {hier[0]['exchange']}")
+    _held_against_cpu(f"4 ranks 2 x 2 ({hier[0]['exchange']}) float32",
+                      hier[0], ref, "float32")
+    _held_against_cpu("one-rank NCCL float32", nccl, ref, "float32")
+    total = {name: sum(r["launches"][name] for r in n1m) for name in REPLACES}
+    return total
+
+
 def main():
     import torch
     smi = smi_line()
@@ -3266,7 +3663,7 @@ def main():
     records.update(dense_kernel_phase("cuda"))
     log(f"kernel phase: {time.time() - t0:.1f} s")
     t0 = time.time()
-    cross_check()
+    cpu_ref = cross_check()
     log(f"gp2Scale cross-check phase: {time.time() - t0:.1f} s")
     t0 = time.time()
     dense_cross_check()
@@ -3319,6 +3716,9 @@ def main():
     extension_launches = extensions_phases()
     log(f"extensions phases (deep kernel, GPm, GPLVM, GGMP): "
         f"{time.time() - t0:.1f} s")
+    t0 = time.time()
+    mesh_launches = mesh_phase(cpu_ref)
+    log(f"mesh phase: {time.time() - t0:.1f} s")
     # each kernel's launches on the four paths, each read just after its
     # run: K4's ops entry, the dense journey, the gp2Scale journey, the
     # stored-K journey
@@ -3328,7 +3728,7 @@ def main():
              slice_launches["training"], stored_launches, merged_launches,
              diagonal_launches, multitask_launches, formula_launches,
              structured_launches, non_euclidean_launches,
-             *extension_launches.values()]
+             *extension_launches.values(), mesh_launches]
     launches = {name: sum(p[name] for p in paths) for name in REPLACES}
     for kern, name in (("K1", "chunked_spmm"), ("K2", "row_chunk_sums")):
         log(f"{kern} launches by path: " + json.dumps(
@@ -3341,7 +3741,8 @@ def main():
              "merged K+V LML (N=10,240)": merged_launches[name],
              "diagonal noise callable posterior": diagonal_launches[name],
              "structured noise N=1M": structured_launches[name],
-             "non-Euclidean gp2Scale": non_euclidean_launches[name]}))
+             "non-Euclidean gp2Scale": non_euclidean_launches[name],
+             "mesh N=1M (2 ranks)": mesh_launches[name]}))
     log("K3 launches by path: " + json.dumps(
         {"dense journey": dense_launches["dense_covariance"],
          "dense posterior API": dense_api_launches["dense_covariance"],
@@ -3354,6 +3755,8 @@ def main():
         "k = 1: " + json.dumps(merged_record))
     log("K1 at the SLQ batch width (k = 16, N = 1M structure): "
         + json.dumps(records.pop("k1_slq_batch")))
+    log("K1 with nb_out != nb (rank 0 of 2, N = 1M structure): "
+        + json.dumps(records.pop("k1_rank")))
     log("K1 from BlockSparseMatrix at the stored-K journey's shapes: "
         + json.dumps(stored_records))
 

@@ -29,7 +29,10 @@ _DTYPES = {"float64": torch.float64, "float32": torch.float32,
 
 def resolve_device(compute_device="cuda"):
     """The torch device for a ``compute_device`` string (default: the
-    card)."""
+    card).  Under an active mesh (``parallel.mesh.use_mesh``) ``"cuda"`` /
+    ``"gpu"`` is the rank's card; an explicit ``"cuda:i"`` or ``"cpu"``
+    wins."""
+    from .parallel.mesh import current_mesh
     name = str(compute_device).lower()
     if name == "cpu":
         return torch.device("cpu")
@@ -38,6 +41,10 @@ def resolve_device(compute_device="cuda"):
             raise RuntimeError(
                 f"compute_device={compute_device!r} asks for a CUDA device, "
                 "but torch.cuda.is_available() is False on this machine")
+        mesh = current_mesh()
+        if name in ("cuda", "gpu") and mesh is not None \
+                and mesh.device.type == "cuda":
+            return mesh.device
         return torch.device("cuda" if name == "gpu" else name)
     raise ValueError(f"unknown compute_device {compute_device!r}; use 'cpu' "
                      "or 'cuda'/'gpu'")

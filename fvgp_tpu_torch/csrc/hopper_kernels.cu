@@ -1092,22 +1092,29 @@ int launch_cov(const void* x1, const void* x2, const void* hps, void* out, int n
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (tiles and X alike).  X has ldx columns
-// (a multiple of 8, >= k), of which the first k are live.  order (nb,) is
-// the row blocks by descending tile count, the launch order for a grid of
-// at most two waves.  Each function returns the CUDA error code of its
-// launch (0 on success).
+// dtype: 0 = float32, 1 = bfloat16 (tiles and X alike).  X has nb blocks
+// of B rows and ldx columns (a multiple of 8, >= k), of which the first k
+// are live; out has nb_out row blocks.  nb_out == nb is the square product;
+// a mesh rank multiplies its own nb_out row blocks against the gathered X
+// of nb blocks (all-gather: every block; halo: its own blocks and the
+// received ones).  row_ptr (nb_out + 1,) are the CSR row offsets, order
+// (nb_out,) the row blocks by descending tile count, the launch order for a
+// grid of at most two waves.  Each function returns the CUDA error code of
+// its launch (0 on success).
 extern "C" int fvgp_chunked_spmm(const void* tiles, const void* X, const int* row_ptr,
                                  const int* order, const int* cols, float* out, int nb,
-                                 int B, int k, int ldx, int dtype, void* stream) {
+                                 int nb_out, int B, int k, int ldx, int dtype,
+                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (nb_out < 0) return static_cast<int>(cudaErrorInvalidValue);
   const long long n = static_cast<long long>(nb) * B;
+  const long long n_out = static_cast<long long>(nb_out) * B;
   if (dtype == 0)
-    return launch_mma<float, float>(tiles, X, row_ptr, order, 0, cols, out, nb, B, k, ldx,
-                                    nb, n, n, s);
+    return launch_mma<float, float>(tiles, X, row_ptr, order, 0, cols, out, nb_out, B, k, ldx,
+                                    nb, n, n_out, s);
   if (dtype == 1)
-    return launch_mma<bf16, float>(tiles, X, row_ptr, order, 0, cols, out, nb, B, k, ldx,
-                                   nb, n, n, s);
+    return launch_mma<bf16, float>(tiles, X, row_ptr, order, 0, cols, out, nb_out, B, k, ldx,
+                                   nb, n, n_out, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

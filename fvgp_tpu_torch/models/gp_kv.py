@@ -50,6 +50,7 @@ from ..ops import dense as dops
 from ..ops import krylov, slq
 from ..ops.precond import build_preconditioner_op
 from ..parallel.block_sparse import is_block_sparse
+from ..parallel.mesh import all_agree, gather_rows
 
 # ---------------------------------------------------------------------------
 # sequential-state gate
@@ -662,13 +663,25 @@ class GPkv:
         """Context for committed-state solves that assemble the covariance
         tiles at the committed hyperparameters, or None when that path does
         not apply (untraceable kernel, unpruned structure, or a mode it
-        does not serve)."""
+        does not serve).
+
+        Under a mesh of more than one rank the solver is built like the
+        training step: the schedule is partitioned by row ownership
+        (``partition.partition_schedule``), each rank assembles its own
+        tiles and preconditioner blocks, and the CG matvec gathers the
+        iterate (all-gather, or the halo plan ``choose_halo`` picks, as in
+        training).  Every rank returns the whole solution."""
         if not (self.data.gp2Scale and self.data.Euclidean
                 and self.prior.kernel_traceable) \
                 or self._is_custom(self.linalg_mode):
             return None
+        from ..parallel.mesh import current_mesh, tile_device_count
         from ..parallel.sharded_cov import (_bucket, _stable_kernel_closure,
                                             support_geometry)
+        mesh = current_mesh()
+        n_dev = tile_device_count(mesh) if mesh is not None else 1
+        if n_dev <= 1:
+            mesh, n_dev = None, 1
         hps = np.asarray(self.prior.hyperparameters, np.float64)
         args = self.args
         B = int(args.get("gp2Scale_block_size",
@@ -693,7 +706,9 @@ class GPkv:
                bool(args.get("gp2Scale_posterior_fused_spmm", True)),
                bool(args.get("gp2Scale_tile_filter", True)),
                args.get("gp2Scale_posterior_budget"),
-               args.get("gp2Scale_posterior_col_budget"), args.get("dtype"))
+               args.get("gp2Scale_posterior_col_budget"), args.get("dtype"),
+               mesh, args.get("gp2Scale_halo_exchange", "auto"),
+               args.get("gp2Scale_dcn_ici_ratio"))
         ctx = self._fast_solver_ctx
         if ctx is not None and ctx["key"] == key:
             return ctx if ctx.get("fn") is not None else None
@@ -750,7 +765,7 @@ class GPkv:
         device = self.data.device
         xb, mask, _, _, noise_pad = make_padded_inputs(
             x, np.zeros(n), V, B, dtype=dtype, device=device,
-            row_multiple=pwidth)
+            row_multiple=pwidth * n_dev)
         nb = int(xb.shape[0])
         # row-sort the schedule (stable, host-side, once): the SpMMs own
         # one output row block at a time (the mirrored upper-triangle
@@ -761,14 +776,47 @@ class GPkv:
         # chunks — the (T, B, c) product never exists.  float64 keeps the
         # plain scan (the kernel accumulates float32).
         C_fused = 8
-        use_fused = (dtype != torch.float64
+        use_fused = (mesh is None and dtype != torch.float64
                      and bool(args.get("gp2Scale_posterior_fused_spmm",
                                        True)))
+        # a rank's rows of every vector (all of them on one device)
+        halo_S, halo_args, cols_solve, rsl = None, (), None, slice(None)
         if use_fused:
             from ..ops.hopper_kernels import row_aligned_schedule
             rows_p, cols_p, rowsc, _ = row_aligned_schedule(
                 rows_f, cols_f, nb, C=C_fused)
             solver_rows = torch.as_tensor(rowsc).to(device)
+        elif mesh is not None:
+            # row-partitioned schedule (the training step's ownership
+            # model); the exchange is chosen by the same cost model.  The
+            # assembly keeps the global columns, the solve's gather reads
+            # the remapped ones of a halo plan
+            from ..parallel.partition import choose_halo, partition_schedule
+            W = nb // n_dev
+            cnt = np.bincount(np.minimum(rows_f // W, n_dev - 1),
+                              minlength=n_dev) if len(rows_f) \
+                else np.ones(1)
+            rows_p, cols_p, _, per = partition_schedule(
+                rows_f, cols_f, nb, n_dev, pad_to=_bucket(int(cnt.max())))
+            choice = choose_halo(
+                rows_p, cols_p, nb, mesh,
+                halo_mode=args.get("gp2Scale_halo_exchange", "auto"),
+                dcn_ratio=float(args.get("gp2Scale_dcn_ici_ratio", 8.0)),
+                bucket=max(8, W // 8))
+            r = mesh.rank
+            seg = slice(r * per, (r + 1) * per)
+            rsl = slice(r * W * B, (r + 1) * W * B)
+            if choice is not None and choice["engaged"] is not None:
+                halo_S = choice["halo_S"]
+                cols_solve = torch.as_tensor(
+                    choice["cols_remap"][seg]).to(device)
+                halo_args = tuple(
+                    torch.as_tensor(p[r]).to(device) if p.dtype.kind == "i"
+                    else torch.as_tensor(p[r], dtype=dtype).to(device)
+                    for p in choice["plan"])
+            rows_p, cols_p = rows_p[seg], cols_p[seg]
+            noise_pad = noise_pad[rsl]
+            solver_rows = None
         else:
             T_pad = _bucket(max(len(rows_f), 1))
             rows_p = np.full(T_pad, nb, np.int32)
@@ -807,27 +855,38 @@ class GPkv:
             _stable_kernel_closure(self.prior), nb, B, cg_iters=maxiter,
             solver_dtype=sdt, precond_width=pwidth, cg_tol=tol,
             row_chunk=C_fused if use_fused else None,
-            precond_type=ptype, coarse_width=coarse_w)
+            precond_type=ptype, coarse_width=coarse_w, mesh=mesh,
+            halo_S=halo_S)
         # Column budget: the fixed residents (tiles + preconditioner) come
         # off the memory budget first; the rest divides by the per-column
         # cost (5 live CG buffers + the matvec's cast copy + the SpMM
-        # accumulator).  Default budget: 80% of the card's memory.
+        # accumulator).  Default budget: 80% of the card's memory, shared
+        # by the ranks that sit on one card.  On a mesh a rank holds its
+        # share of the tiles and the rows, plus the gathered iterate and
+        # the plain product's per-tile (T_local, B, c) array (JAX charges
+        # both, ``gp_kv.py:956-967``).
         n_pad = nb * B
         budget = args.get("gp2Scale_posterior_budget", None)
         if budget is None:
             limit = torch.cuda.mem_get_info(device)[1] \
                 if device.type == "cuda" else 0
-            budget = int(0.8 * limit) if limit else (5 << 30)
+            share = mesh.ranks_per_device if mesh is not None else 1
+            budget = int(0.8 * limit) // share if limit else (5 << 30)
         budget = int(budget)
         item = torch.finfo(dtype).bits // 8
         sitem = torch.finfo(sdt).bits // 8 if sdt is not None else 0
-        fixed = (T_pad * B * B * (sitem or item)
-                 + nb * pwidth * B * B * item + (512 << 20))
+        T_all = T_pad * n_dev
+        fixed = (T_all * B * B * (sitem or item)
+                 + nb * pwidth * B * B * item) // n_dev + (512 << 20)
         if _normalize_committed_precond(ptype) == "two_level":
             # the (nbg, nbg) float32 coarse inverse and its Cholesky workspace
             nbg = -(-nb // _coarse_width(nb, coarse_w))
             fixed += 3 * nbg * nbg * 4
-        bytes_per_col = n_pad * (5 * item + sitem + 4)
+        bytes_per_col = n_pad * (5 * item + sitem + 4) // n_dev
+        if mesh is not None:
+            bytes_per_col += (n_pad * (sitem or item)
+                              + T_pad * B * (8 if dtype == torch.float64
+                                             and sdt is None else 4))
         col_budget = max(1, max(budget - fixed, budget // 8)
                          // max(bytes_per_col, 1))
         if use_fused and col_budget >= 128:
@@ -836,11 +895,15 @@ class GPkv:
         if override is not None:
             col_budget = max(1, int(override))
         arows = torch.as_tensor(rows_p).to(device)
+        acols = torch.as_tensor(cols_p).to(device)
         ctx = {"key": key, "fn": solver, "mode": mode, "assemble": assemble,
                "tiles": None, "Minv": None,
                "arows": arows,              # per-tile rows (assembly)
                "rows": solver_rows if solver_rows is not None else arows,
-               "cols": torch.as_tensor(cols_p).to(device),
+               "cols": acols,               # global columns (assembly)
+               "scols": cols_solve if cols_solve is not None else acols,
+               "halo_args": halo_args, "mesh": mesh, "rsl": rsl,
+               "bytes_per_col": int(bytes_per_col),
                "xb": xb, "mask": mask, "noise_pad": noise_pad,
                "hps": torch.as_tensor(hps, dtype=dtype).to(device),
                "n": n, "n_pad": n_pad, "col_budget": int(col_budget)}
@@ -891,6 +954,21 @@ class GPkv:
             return [min(max(8, 1 << (c_total - 1).bit_length()), cb)]
         return [cb] * (-(-c_total // cb))
 
+    @staticmethod
+    def _mesh_chunk_fits(ctx, c_eff):
+        """Whether this rank can hold a mesh solve of ``c_eff`` columns: a
+        trial allocation of its per-column working set on the card (the
+        CPU has no such limit)."""
+        device = ctx["xb"].device
+        if device.type != "cuda":
+            return True
+        try:
+            torch.empty(c_eff * ctx["bytes_per_col"], dtype=torch.uint8,
+                        device=device)
+        except torch.cuda.OutOfMemoryError:
+            return False
+        return True
+
     def _fast_solve(self, ctx, b):
         dtype = self.dtype
         b = b.to(dtype)
@@ -909,6 +987,7 @@ class GPkv:
                 ctx["tiles"], ctx["Minv"] = ctx["assemble"](
                     ctx["hps"], ctx["arows"], ctx["cols"], ctx["xb"],
                     ctx["mask"], ctx["noise_pad"])
+        mesh = ctx["mesh"]
         while True:
             outs, its, s = [], [], 0
             try:
@@ -917,8 +996,18 @@ class GPkv:
                     rhs_pad = torch.zeros((n_pad, c_eff), dtype=dtype,
                                           device=b.device)
                     rhs_pad[:n, :c] = b[:, s:s + c]
+                    # on a mesh every rank retreats together: a retreat on
+                    # one rank alone would leave the others waiting in the
+                    # CG's collectives
+                    if mesh is not None and not all_agree(
+                            self._mesh_chunk_fits(ctx, c_eff), mesh):
+                        raise torch.cuda.OutOfMemoryError(
+                            "a mesh rank cannot hold the chunk")
                     X, it = ctx["fn"](ctx["tiles"], ctx["Minv"], ctx["rows"],
-                                      ctx["cols"], ctx["noise_pad"], rhs_pad)
+                                      ctx["scols"], ctx["noise_pad"],
+                                      rhs_pad[ctx["rsl"]], *ctx["halo_args"])
+                    if mesh is not None:
+                        X = gather_rows(X, mesh)
                     outs.append(X[:n, :c])
                     its.append(it)
                     s += c

@@ -100,17 +100,26 @@ class GPMarginalLikelihood:
                 and bool(self.args.get("gp2Scale_traced_lml", True)))
 
     def _sparse_settings(self):
-        """The traced sparse program's settings, read from ``args`` and
-        the data, and ``key``: the cached program they build."""
+        """The traced sparse program's settings, read from ``args``, the
+        data and the active mesh, and ``key``: the cached program they
+        build.  Under a mesh of n ranks the blocking is padded to a
+        multiple of n·pwidth, so every rank owns the same number of row
+        blocks and each rank's block count divides by the preconditioner
+        width."""
+        from ..parallel.mesh import current_mesh, tile_device_count
         args = self.args
         n = len(self.x_data)
         B = int(args.get("gp2Scale_block_size",
                          min(self.prior.batch_size, 256)))
         pwidth = int(args.get("gp2Scale_precond_width", 1))
-        row_mult = max(pwidth, 1)
+        mesh = current_mesh()
+        n_dev = tile_device_count(mesh) if mesh is not None else 1
+        if n_dev <= 1:
+            mesh, n_dev = None, 1
+        row_mult = n_dev * max(pwidth, 1)
         ctol = args.get("sparse_cg_tol", None)
         st = dict(
-            n=n, B=B, pwidth=pwidth,
+            n=n, B=B, pwidth=pwidth, mesh=mesh, n_dev=n_dev,
             nb=-(-(-(-n // B)) // row_mult) * row_mult,
             dtype=config.linalg_dtype(args, self.data.device),
             cg_iters=int(args.get("sparse_cg_maxiter",
@@ -131,12 +140,14 @@ class GPMarginalLikelihood:
         st["key"] = (n, B, st["nb"], st["cg_iters"], st["ctol"],
                      st["probes"], st["degree"], str(st["dtype"]),
                      str(st["sdt"]), st["solver"], pwidth,
-                     self.data.point_number)
+                     self.data.point_number, mesh,
+                     args.get("gp2Scale_halo_exchange", "auto"),
+                     args.get("gp2Scale_dcn_ici_ratio", 8.0))
         return st
 
     def _sparse_lml_eval(self, hyperparameters, want_grad=False):
         from ..ops.sparse_lml import make_padded_inputs, make_sparse_lml
-        from ..parallel.sharded_cov import (_bucket, _candidate_pairs,
+        from ..parallel.sharded_cov import (_candidate_pairs,
                                             _stable_kernel_closure,
                                             support_geometry)
         from ..utils import structure_cache as sc
@@ -148,7 +159,7 @@ class GPMarginalLikelihood:
         st = self._sparse_settings()
         n, B, nb, pwidth, dtype = (st[k] for k in ("n", "B", "nb", "pwidth",
                                                    "dtype"))
-        row_mult = max(pwidth, 1)
+        row_mult = st["n_dev"] * max(pwidth, 1)
 
         ls, radius = support_geometry(prior, hyperparameters, args)
         if ls is None:
@@ -202,14 +213,19 @@ class GPMarginalLikelihood:
                     dtype=dtype, device=device, row_multiple=row_mult)
             if xb.shape[0] != nb:
                 raise AssertionError((tuple(xb.shape), nb))
-            lml = make_sparse_lml(_stable_kernel_closure(prior), nb, B,
-                                  cg_iters=cg_iters, slq_degree=degree,
-                                  with_variance=True, solver_dtype=sdt,
-                                  solver=solver, precond_width=pwidth,
-                                  cg_tol=ctol)
-            entry = {"lml": lml, "xb": xb, "mask": mask, "y_pad": y_pad,
-                     "ypad_mask": ypad_mask, "noise_pad": noise_pad,
-                     "probes": probes, "counter": 0, "schedule": None}
+            kern = _stable_kernel_closure(prior)
+
+            def lml_for(nb_eff, halo_S=None):
+                return make_sparse_lml(kern, nb_eff, B, cg_iters=cg_iters,
+                                       slq_degree=degree, with_variance=True,
+                                       solver_dtype=sdt, solver=solver,
+                                       precond_width=pwidth, cg_tol=ctol,
+                                       mesh=st["mesh"], halo_S=halo_S)
+
+            entry = {"lml_for": lml_for, "xb": xb, "mask": mask,
+                     "y_pad": y_pad, "ypad_mask": ypad_mask,
+                     "noise_pad": noise_pad, "probes": probes, "counter": 0,
+                     "schedule": None}
             self._sparse_cache = {key: entry}
         generator = torch.Generator().manual_seed(42 + entry["counter"])
         entry["counter"] += 1
@@ -256,37 +272,32 @@ class GPMarginalLikelihood:
             rows_f = rows_f[keep]
             cols_f = cols_f[keep]
 
-        # row-sorted, bucket-padded schedule (sentinels at the tail) —
-        # sorted once per structure, reused while the structure is unchanged
+        # the program's schedule and bound inputs, built once per structure
+        # and reused while the filtered structure is unchanged: meshless, the
+        # row-sorted, bucket-padded schedule (sentinels at the tail); under
+        # a mesh, the rank's segment of the partitioned schedule
         sched = entry["schedule"]
         if (sched is None or len(sched[0]) != len(rows_f)
                 or not np.array_equal(sched[0], rows_f)
                 or not np.array_equal(sched[1], cols_f)):
-            order = np.argsort(rows_f, kind="stable")
-            T_pad = _bucket(max(len(rows_f), 1))
-            rows_p = np.full(T_pad, nb, np.int32)
-            cols_p = np.full(T_pad, nb, np.int32)
-            rows_p[:len(rows_f)] = rows_f[order]
-            cols_p[:len(cols_f)] = cols_f[order]
-            sched = (rows_f.copy(), cols_f.copy(),
-                     torch.as_tensor(rows_p).to(device),
-                     torch.as_tensor(cols_p).to(device))
+            run = (self._mesh_run(entry, rows_f, cols_f, st)
+                   if st["mesh"] is not None
+                   else self._single_run(entry, rows_f, cols_f, nb, device))
+            sched = (rows_f.copy(), cols_f.copy(), run)
             entry["schedule"] = sched
-        rows_d, cols_d = sched[2], sched[3]
+        run = sched[2]
         # what the Adam chain revalidates on entry: the support lengthscales
         # and the data this structure was built for
         entry["chain_ctx"] = {"ls_ref": ls_now, "data_token": data_token}
 
         Z = _rademacher_probes(nb * B, probes, dtype, device, generator)
-        Z = Z * entry["ypad_mask"][:, None]
         hps = torch.as_tensor(np.asarray(hyperparameters, np.float64),
                               dtype=dtype).to(device)
         with phase_timer("sparse LML: device program"), \
                 torch.set_grad_enabled(want_grad):
             hps.requires_grad_(want_grad)
-            val, var = entry["lml"](hps, rows_d, cols_d, entry["xb"],
-                                    entry["mask"], entry["y_pad"],
-                                    entry["ypad_mask"], entry["noise_pad"], Z)
+            val, var = run["lml"](hps, *run["static"], run["probe"](Z),
+                                  *run["halo"])
             grad = torch.autograd.grad(val, hps)[0] if want_grad else None
         var = float(var.detach())
         self.kv.last_logdet_variance = var
@@ -295,6 +306,120 @@ class GPMarginalLikelihood:
         if want_grad:
             return float(val.detach()), config.to_numpy(grad)
         return float(val)
+
+    def _single_run(self, entry, rows_f, cols_f, nb, device):
+        """One device: the row-sorted, bucket-padded schedule (sentinels at
+        the tail) and the padded inputs."""
+        from ..parallel.sharded_cov import _bucket
+        order = np.argsort(rows_f, kind="stable")
+        T_pad = _bucket(max(len(rows_f), 1))
+        rows_p = np.full(T_pad, nb, np.int32)
+        cols_p = np.full(T_pad, nb, np.int32)
+        rows_p[:len(rows_f)] = rows_f[order]
+        cols_p[:len(cols_f)] = cols_f[order]
+        ypad_mask = entry["ypad_mask"]
+        return {"lml": entry["lml_for"](nb),
+                "static": (torch.as_tensor(rows_p).to(device),
+                           torch.as_tensor(cols_p).to(device), entry["xb"],
+                           entry["mask"], entry["y_pad"], ypad_mask,
+                           entry["noise_pad"]),
+                "halo": (), "probe": lambda Z: Z * ypad_mask[:, None]}
+
+    def _mesh_run(self, entry, rows_f, cols_f, st):
+        """A mesh rank's share of the sparse LML (the JAX package's mesh
+        branch, ``gp_marginal_likelihood.py:466-640``).  Every rank runs
+        this host pass on the same replicated structure, so every rank
+        derives the same plan.
+
+        Row-block ranges are balanced by tile count
+        (``partition.tile_balanced_layout``; the per-rank width is pinned
+        to a bucket at the first structure of these settings) and mapped
+        onto equal-width ranks by a permuted padded block layout; the
+        schedule is row-sorted and partitioned so that rank r's segment
+        holds exactly the tiles of its rows; ``choose_halo`` picks the
+        exchange (``args["gp2Scale_halo_exchange"]``,
+        ``args["gp2Scale_dcn_ici_ratio"]``).  The rank keeps its segment,
+        its rows of the permuted y / mask / noise and of the plan; points
+        and mask stay whole.  Probes are drawn per logical point and
+        gathered through the layout, so a mesh run and a meshless one see
+        the same ``Z``."""
+        from ..parallel.partition import (apply_block_layout, choose_halo,
+                                          partition_schedule, permute_blocked,
+                                          tile_balanced_layout)
+        from ..parallel.sharded_cov import _bucket
+        mesh, n_dev, nb, B = st["mesh"], st["n_dev"], st["nb"], st["B"]
+        dtype, device = st["dtype"], self.data.device
+        layout, W = tile_balanced_layout(rows_f, nb, n_dev,
+                                         width=entry.get("layout_width"))
+        if layout is not None and entry.get("layout_width") is None:
+            # pin the per-rank width to a bucket, so that later drift of
+            # the structure keeps the program's block count
+            W0 = nb // n_dev
+            step = max(1, -(-W0 // 8))
+            Wb = min(-(-W // step) * step, int(np.ceil(1.5 * W0)))
+            entry["layout_width"] = Wb
+            if Wb != W:
+                layout, W = tile_balanced_layout(rows_f, nb, n_dev, width=Wb)
+        vecs = {k: entry[k] for k in ("xb", "mask", "y_pad", "ypad_mask",
+                                      "noise_pad")}
+        rows_u, cols_u, nb_eff = rows_f, cols_f, nb
+        layout_idx = None
+        if layout is not None:
+            rows_u, cols_u, nb_eff = apply_block_layout(layout, rows_f,
+                                                        cols_f, nb)
+
+            def perm(name, pad=0.0):
+                a = config.to_numpy(vecs[name])
+                shape = a.shape
+                if a.ndim == 1:
+                    a = a.reshape(nb, B)
+                out = permute_blocked(layout, a, pad_value=pad)
+                if len(shape) == 1:
+                    out = out.ravel()
+                return torch.as_tensor(out, dtype=dtype).to(device)
+
+            vecs = {"xb": perm("xb"), "mask": perm("mask"),
+                    "y_pad": perm("y_pad"), "ypad_mask": perm("ypad_mask"),
+                    "noise_pad": perm("noise_pad", 1.0)}
+            layout_idx = torch.as_tensor(np.where(layout >= 0, layout, 0))
+        W_eff = nb_eff // n_dev
+        order = np.argsort(rows_u, kind="stable")    # K1 takes sorted rows
+        rows_u, cols_u = rows_u[order], cols_u[order]
+        cnt = np.bincount(np.minimum(rows_u // W_eff, n_dev - 1),
+                          minlength=n_dev) if len(rows_u) else np.ones(1)
+        rows_p, cols_p, _, per = partition_schedule(
+            rows_u, cols_u, nb_eff, n_dev, pad_to=_bucket(int(cnt.max())))
+        choice = choose_halo(
+            rows_p, cols_p, nb_eff, mesh,
+            halo_mode=self.args.get("gp2Scale_halo_exchange", "auto"),
+            dcn_ratio=float(self.args.get("gp2Scale_dcn_ici_ratio", 8.0)),
+            bucket=max(8, W_eff // 8))
+        r = mesh.rank
+        seg = slice(r * per, (r + 1) * per)
+        rsl = slice(r * W_eff * B, (r + 1) * W_eff * B)
+        halo_S, halo, exchange = None, (), "allgather"
+        if choice is not None and choice["engaged"] is not None:
+            halo_S, exchange = choice["halo_S"], choice["engaged"]
+            halo = tuple(torch.as_tensor(p[r]).to(device) if p.dtype.kind
+                         == "i" else torch.as_tensor(p[r], dtype=dtype)
+                         .to(device) for p in choice["plan"]) + (
+                torch.as_tensor(choice["cols_remap"][seg]).to(device),)
+        ypad_mask, ym_m = entry["ypad_mask"], vecs["ypad_mask"]
+
+        def probe(Z):
+            Z = Z * ypad_mask[:, None]
+            if layout_idx is not None:
+                Z = Z.reshape(nb, B, -1)[layout_idx.to(Z.device)]
+                Z = Z.reshape(nb_eff * B, -1) * ym_m[:, None]
+            return Z[rsl]
+
+        return {"lml": entry["lml_for"](nb_eff, halo_S),
+                "static": (torch.as_tensor(rows_p[seg]).to(device),
+                           torch.as_tensor(cols_p[seg]).to(device),
+                           vecs["xb"], vecs["mask"], vecs["y_pad"][rsl],
+                           vecs["ypad_mask"][rsl], vecs["noise_pad"][rsl]),
+                "halo": halo, "probe": probe, "exchange": exchange,
+                "schedule": (rows_p, cols_p, nb_eff, n_dev)}
 
     def _chain_entry(self, theta):
         """The cached sparse program for an Adam chunk at ``theta``: reused
@@ -346,10 +471,7 @@ class GPMarginalLikelihood:
         entry = self._chain_entry(theta)
         device = self.data.device
         dtype = config.linalg_dtype(self.args, device)
-        lml = entry["lml"]
-        rows_d, cols_d = entry["schedule"][2], entry["schedule"][3]
-        data = (entry["xb"], entry["mask"], entry["y_pad"],
-                entry["ypad_mask"], entry["noise_pad"])
+        run = entry["schedule"][2]
         n_pad = entry["xb"].shape[0] * entry["xb"].shape[1]
 
         def dev(a):
@@ -371,10 +493,10 @@ class GPMarginalLikelihood:
                     int(key.generate_state(1)[0]))
                 Z = _rademacher_probes(n_pad, entry["probes"], dtype,
                                        device, generator)
-            Z = Z * entry["ypad_mask"][:, None]
             h = th.detach().requires_grad_(True)
             with torch.enable_grad():
-                val, _ = lml(h, rows_d, cols_d, *data, Z)
+                val, _ = run["lml"](h, *run["static"], run["probe"](Z),
+                                    *run["halo"])
                 g = -torch.autograd.grad(val, h)[0]        # minimize -LML
             g = torch.where(torch.isfinite(g), g, torch.zeros_like(g))
             th, m, v = adam_step(th, g, m, v, step + 1, lr, beta1, beta2,

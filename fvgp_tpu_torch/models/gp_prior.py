@@ -390,11 +390,19 @@ class GPprior:
         return stack_augmented_covariance(K_old, B, D)
 
     def _gp2Scale_covariance(self, x1, x2, hyperparameters, symmetric=False):
-        """The block-sparse covariance k(x1, x2) on the model's device."""
+        """The block-sparse covariance k(x1, x2) on the model's device.  A
+        symmetric one is the stored K, which under a mesh of more than one
+        rank would be spread over the ranks (not ported yet:
+        ``distributed_covariance`` raises); a cross covariance is whole on
+        every rank."""
+        from ..parallel.mesh import current_mesh, tile_device_count
         from ..parallel.sharded_cov import distributed_covariance
+        mesh = current_mesh() if symmetric else None
+        if mesh is not None and tile_device_count(mesh) <= 1:
+            mesh = None
         return distributed_covariance(
             self, x1, x2, hyperparameters, batch_size=self.batch_size,
-            symmetric=symmetric, args=self.args)
+            symmetric=symmetric, args=self.args, mesh=mesh)
 
     def _cross_scan_inputs(self, x_pred, hyperparameters):
         """(xc, xp_padded, hps, n_pred) for the chunked cross scans —

@@ -11,6 +11,7 @@ Disable with ``FVGP_TPU_NATIVE=0``.
 import ctypes
 import os
 import subprocess
+import uuid
 import warnings
 from pathlib import Path
 
@@ -24,14 +25,24 @@ _SRC = Path(__file__).resolve().parent / "structure.cpp"
 _BUILD_DIR = _PKG / "_build"
 
 
-def _build():
-    _BUILD_DIR.mkdir(exist_ok=True)
-    so_path = _BUILD_DIR / "libfvgp_structure.so"
+def _build(build_dir=_BUILD_DIR):
+    """The library's path in ``build_dir``, compiled there unless a build
+    newer than the source exists.  The compiler writes a file of this
+    process's own, renamed into place in one step, so processes that start
+    together (the ranks of a mesh) never load a partly written library."""
+    build_dir = Path(build_dir)
+    build_dir.mkdir(parents=True, exist_ok=True)
+    so_path = build_dir / "libfvgp_structure.so"
     if so_path.exists() and so_path.stat().st_mtime >= _SRC.stat().st_mtime:
         return so_path
+    tmp = build_dir / f".{so_path.name}.{os.getpid()}.{uuid.uuid4().hex}"
     cmd = ["g++", "-O3", "-march=native", "-fopenmp", "-shared", "-fPIC",
-           str(_SRC), "-o", str(so_path)]
-    subprocess.run(cmd, check=True, capture_output=True)
+           str(_SRC), "-o", str(tmp)]
+    try:
+        subprocess.run(cmd, check=True, capture_output=True)
+        os.replace(tmp, so_path)
+    finally:
+        tmp.unlink(missing_ok=True)
     return so_path
 
 

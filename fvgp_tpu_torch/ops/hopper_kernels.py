@@ -60,9 +60,11 @@ Each wrapper counts its launches in a plain integer attribute
 """
 
 import ctypes
+import os
 import shutil
 import subprocess
 import time
+import uuid
 from pathlib import Path
 
 import numpy as np
@@ -100,19 +102,24 @@ def build_kernels(verbose=False):
                                "with the CUDA toolkit on the machine with "
                                "the card")
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = _SO.with_suffix(".so.tmp")
+        # a file of this process's own, renamed into place in one step: the
+        # ranks of a mesh build together and none may load a partial library
+        tmp = _BUILD_DIR / f".{_SO.name}.{os.getpid()}.{uuid.uuid4().hex}"
         cmd = [nvcc, *_NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
                "-o", str(tmp), str(_SRC)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stderr}")
-        tmp.replace(_SO)
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{proc.stderr}")
+            os.replace(tmp, _SO)
+        finally:
+            tmp.unlink(missing_ok=True)
         log = proc.stderr
     lib = ctypes.CDLL(str(_SO))
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.fvgp_chunked_spmm.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32,
-                                      i32, i32, vp]
+                                      i32, i32, i32, vp]
     lib.fvgp_chunked_spmm.restype = i32
     lib.fvgp_row_chunk_sums.argtypes = [vp, vp, vp, vp, i64, i32, i32, i32,
                                         i32, i32, i32, vp]
@@ -205,11 +212,14 @@ def _row_segments(name, rows, nb):
 # K1: chunked_spmm — the training-path SpMM
 # ---------------------------------------------------------------------------
 
-def chunked_spmm_reference(rows, cols, tiles, X, nb, B, mv_dtype=None):
+def chunked_spmm_reference(rows, cols, tiles, X, nb, B, mv_dtype=None,
+                           nb_out=None):
     """Plain PyTorch ``Y = A @ X`` for the tile list (the JAX ``_spmv``):
     per-tile products in the accumulation dtype, summed into row blocks.
-    Rows >= nb are dropped; columns must be < nb (clamped sentinel columns
-    carry zero tiles)."""
+    X has ``nb`` blocks and Y ``nb_out`` (default ``nb``; a mesh rank's own
+    row blocks against a gathered X).  Rows >= nb_out are dropped; columns
+    must be < nb (clamped sentinel columns carry zero tiles)."""
+    nb_out = nb if nb_out is None else nb_out
     acc = X.dtype if X.dtype == torch.float64 else torch.float32
     if mv_dtype is not None:
         tiles = tiles.to(mv_dtype)
@@ -219,29 +229,30 @@ def chunked_spmm_reference(rows, cols, tiles, X, nb, B, mv_dtype=None):
     k = X.shape[1]
     Xb = X_c.reshape(nb, B, k)
     prod = torch.bmm(tiles.to(acc), Xb[cols.long()].to(acc))
-    out = torch.zeros((nb + 1, B, k), dtype=acc, device=X.device)
-    out = out.index_add(0, rows.long().clamp(max=nb), prod)
-    return out[:nb].reshape(nb * B, k).to(X.dtype)
+    out = torch.zeros((nb_out + 1, B, k), dtype=acc, device=X.device)
+    out = out.index_add(0, rows.long().clamp(max=nb_out), prod)
+    return out[:nb_out].reshape(nb_out * B, k).to(X.dtype)
 
 
 def chunked_spmm_vjp(rows, cols, tiles, X, Ybar, nb, B, mv_dtype=None,
-                     need_x=True, chunk=32768):
-    """Cotangents of ``Y = chunked_spmm(rows, cols, tiles, X)`` (plain torch,
-    as in the JAX custom VJP):
+                     need_x=True, chunk=32768, nb_out=None):
+    """Cotangents of ``Y = chunked_spmm(rows, cols, tiles, X, nb, B,
+    nb_out=nb_out)`` (plain torch, as in the JAX custom VJP):
 
         tiles_bar[t] = Ybar[rows[t]] @ X[cols[t]]ᵀ      (in tiles.dtype)
         X_bar        = Aᵀ Ybar                          (index_add over cols)
 
     Evaluated in tile slices of ``chunk`` so the gathered (chunk, B, k)
     operands stay small; ``tiles_bar`` is the one (T, B, B) result."""
+    nb_out = nb if nb_out is None else nb_out
     k = X.shape[1]
     acc = X.dtype if X.dtype == torch.float64 else torch.float32
     work = mv_dtype if mv_dtype is not None else X.dtype
-    Yb = Ybar.reshape(nb, B, k).to(work)
+    Yb = Ybar.reshape(nb_out, B, k).to(work)
     Xb = X.reshape(nb, B, k).to(work)
-    r = rows.long().clamp(max=nb - 1)
+    r = rows.long().clamp(max=nb_out - 1)
     c = cols.long().clamp(max=nb - 1)
-    live = (rows.long() < nb).to(work)[:, None, None]
+    live = (rows.long() < nb_out).to(work)[:, None, None]
     tiles_bar = torch.empty_like(tiles)
     X_bar = torch.zeros((nb, B, k), dtype=acc, device=X.device) \
         if need_x else None
@@ -259,23 +270,26 @@ def chunked_spmm_vjp(rows, cols, tiles, X, Ybar, nb, B, mv_dtype=None,
     return tiles_bar, X_bar
 
 
-def _launch_chunked_spmm(rows, cols, tiles, X_c, nb, B):
-    """One K1 launch on the tensors' device; returns (nb*B, k) float32."""
+def _launch_chunked_spmm(rows, cols, tiles, X_c, nb, B, nb_out=None):
+    """One K1 launch on the tensors' device; returns (nb_out*B, k) float32
+    (``nb_out`` defaults to X's block count ``nb``)."""
+    nb_out = nb if nb_out is None else nb_out
     k = X_c.shape[1]
     _check_kernel_inputs("chunked_spmm", tiles, X_c, B)
     if X_c.shape[0] != nb * B:
         raise ValueError(f"chunked_spmm: X must have nb*B={nb * B} rows")
-    row_ptr, order = _row_segments("chunked_spmm", rows, nb)
+    row_ptr, order = _row_segments("chunked_spmm", rows, nb_out)
     cols = cols.to(torch.int32).contiguous()
     tiles = _aligned("chunked_spmm", tiles)
     Xp = _pad_cols("chunked_spmm", X_c)
-    out = torch.empty((nb * B, k), dtype=torch.float32, device=X_c.device)
+    out = torch.empty((nb_out * B, k), dtype=torch.float32,
+                      device=X_c.device)
     lib = _kernels()
     with torch.cuda.device(X_c.device):
         err = lib.fvgp_chunked_spmm(
             _ptr(tiles), _ptr(Xp), _ptr(row_ptr), _ptr(order), _ptr(cols),
-            _ptr(out), nb, B, k, Xp.shape[1], _KERNEL_DTYPES[tiles.dtype],
-            _stream(X_c))
+            _ptr(out), nb, nb_out, B, k, Xp.shape[1],
+            _KERNEL_DTYPES[tiles.dtype], _stream(X_c))
     if err != 0:
         raise RuntimeError(f"chunked_spmm: kernel launch failed with CUDA "
                            f"error {err}")
@@ -289,12 +303,12 @@ class _ChunkedSpmmKernel(torch.autograd.Function):
     not reduce its traffic)."""
 
     @staticmethod
-    def forward(ctx, rows, cols, tiles, X, nb, B, mv_dtype):
+    def forward(ctx, rows, cols, tiles, X, nb, B, mv_dtype, nb_out):
         work = mv_dtype if mv_dtype is not None else X.dtype
         out = _launch_chunked_spmm(rows, cols, tiles.to(work), X.to(work),
-                                   nb, B)
+                                   nb, B, nb_out)
         ctx.save_for_backward(rows, cols, tiles, X)
-        ctx.nb, ctx.B, ctx.mv_dtype = nb, B, mv_dtype
+        ctx.nb, ctx.B, ctx.mv_dtype, ctx.nb_out = nb, B, mv_dtype, nb_out
         return out.to(X.dtype)
 
     @staticmethod
@@ -302,21 +316,24 @@ class _ChunkedSpmmKernel(torch.autograd.Function):
         rows, cols, tiles, X = ctx.saved_tensors
         tiles_bar, X_bar = chunked_spmm_vjp(
             rows, cols, tiles, X, ybar, ctx.nb, ctx.B, ctx.mv_dtype,
-            need_x=ctx.needs_input_grad[3])
-        return None, None, tiles_bar, X_bar, None, None, None
+            need_x=ctx.needs_input_grad[3], nb_out=ctx.nb_out)
+        return None, None, tiles_bar, X_bar, None, None, None, None
 
 
-def chunked_spmm(rows, cols, tiles, X, nb, B, mv_dtype=None):
+def chunked_spmm(rows, cols, tiles, X, nb, B, mv_dtype=None, nb_out=None):
     """``Y = A @ X`` over a row-sorted tile list (same contract as the plain
-    version).  Sentinel rows (== nb) are skipped — they fall past the last
-    CSR offset — so bucket padding costs nothing when passed unclamped;
-    clamped sentinels must carry zero tiles and all land on the last row
-    block's thread block.  CPU tensors and float64 work take the plain
-    version; float32/bfloat16 CUDA tensors launch the K1 kernel."""
+    version): X has ``nb`` blocks, Y ``nb_out`` (default ``nb``).  Sentinel
+    rows (== nb_out) are skipped — they fall past the last CSR offset — so
+    bucket padding costs nothing when passed unclamped; clamped sentinels
+    must carry zero tiles and all land on the last row block's thread
+    block.  CPU tensors and float64 work take the plain version;
+    float32/bfloat16 CUDA tensors launch the K1 kernel."""
     work = mv_dtype if mv_dtype is not None else X.dtype
     if X.device.type == "cpu" or work == torch.float64:
-        return chunked_spmm_reference(rows, cols, tiles, X, nb, B, mv_dtype)
-    return _ChunkedSpmmKernel.apply(rows, cols, tiles, X, nb, B, mv_dtype)
+        return chunked_spmm_reference(rows, cols, tiles, X, nb, B, mv_dtype,
+                                      nb_out)
+    return _ChunkedSpmmKernel.apply(rows, cols, tiles, X, nb, B, mv_dtype,
+                                    nb_out)
 
 
 chunked_spmm.launches = 0

@@ -1,6 +1,6 @@
 """Differentiable block-sparse marginal likelihood and the committed-state
-wide solver — the gp2Scale engine, single device (counterpart of
-``fvgp_tpu/ops/sparse_lml.py``).
+wide solver — the gp2Scale engine, on one device or on a mesh of ranks
+(counterpart of ``fvgp_tpu/ops/sparse_lml.py``).
 
 * Covariance tiles are assembled chunk by chunk from the block structure;
   the gradient reaches the hyperparameters through a per-chunk recompute in
@@ -18,8 +18,17 @@ wide solver — the gp2Scale engine, single device (counterpart of
   block-Jacobi or by the two-level operator (block-Jacobi plus a Galerkin
   coarse-grid correction).
 
-Single device only: the mesh and halo SpMMs of the JAX module are not
-ported yet (ROADMAP item 1.8).
+On a mesh (``parallel/mesh.py``, ``mesh=`` with more than one rank) each
+rank owns a contiguous range of W row blocks and the tiles of those rows
+(``parallel/partition.py``): it assembles its own tiles, factors its own
+preconditioner blocks and holds its own W·B rows of every CG vector, so
+the SpMM needs no cross-rank reduction.  X reaches the tiles by an
+all-gather, a flat halo exchange of only the referenced foreign blocks, or
+a three-stage hierarchical halo on a 2-D mesh; the rank's product is K1
+with ``nb_out = W`` on the card.  Every inner product, norm and exit test
+of the Krylov loops reduces over the ranks, so every rank takes the same
+iteration count and branch, and the hyperparameter gradient is reduced once
+(``mesh.replicate``'s backward).
 """
 
 import math
@@ -27,6 +36,9 @@ import warnings
 
 import torch
 
+from ..parallel.mesh import (SLICE_AXIS, _all_reduce, exchange_blocks,
+                             flat_tile_index, gather_rows, global_sum,
+                             replicate, tile_device_count)
 from .hopper_kernels import chunked_spmm, chunked_spmm_vjp, row_chunk_sums
 
 __all__ = ["make_sparse_lml", "make_committed_solver", "make_padded_inputs"]
@@ -50,15 +62,170 @@ def _assembly_chunk(T_pad, target=2048):
     return best
 
 
-def _spmv_for(nb, B, mv_dtype=None):
+class _LocalSpmv:
     """The single-device SpMM: K1 on a float32/bfloat16 CUDA operand, the
     plain formulation (the JAX ``_spmv``, here
     ``hopper_kernels.chunked_spmm_reference``) on the CPU and for float64 —
-    decided inside ``chunked_spmm``."""
-    def spmv(rows, cols, tiles, X):
-        return chunked_spmm(rows, cols, tiles, X, nb, B, mv_dtype=mv_dtype)
+    decided inside ``chunked_spmm``.  ``tiles_vjp`` is the tiles' cotangent
+    of the product, ``reduce`` the sum of a partial over the ranks (none
+    here)."""
 
-    return spmv
+    def __init__(self, nb, B, mv_dtype):
+        self.nb, self.B, self.mv_dtype = nb, B, mv_dtype
+
+    def __call__(self, rows, cols, tiles, X):
+        return chunked_spmm(rows, cols, tiles, X, self.nb, self.B,
+                            mv_dtype=self.mv_dtype)
+
+    def tiles_vjp(self, rows, cols, tiles, X, Ybar):
+        return chunked_spmm_vjp(rows, cols, tiles, X, Ybar, self.nb, self.B,
+                                self.mv_dtype, need_x=False)[0]
+
+    @staticmethod
+    def reduce(t):
+        return t
+
+
+def _local_rows(rows, row0, W):
+    """A rank's output rows of its partitioned segment: ``rows - row0``,
+    with sentinels (and foreign rows, which a correct partition never
+    holds) at W, past the last row block, so the SpMM skips them.  The
+    segment is row-sorted with its sentinels at the tail, so the local rows
+    are too.  Kept on the rows tensor, for its current version, so a
+    structure maps them once."""
+    kept = getattr(rows, "_fvgp_local_rows", None)
+    if kept is not None and kept[:3] == (rows._version, row0, W):
+        return kept[3]
+    r = rows.long()
+    loc = torch.where((r >= row0) & (r < row0 + W), r - row0,
+                      torch.full_like(r, W)).to(torch.int32)
+    rows._fvgp_local_rows = (rows._version, row0, W, loc)
+    return loc
+
+
+def _local_spmm_tail(mesh, W, B, tiles, Xcat, nb_x, cols, rows, mv_dtype,
+                     out_dtype):
+    """Shared per-rank tail of the three mesh SpMMs (all-gather / flat halo
+    / hierarchical halo): this rank's W row blocks against the gathered
+    operand of ``nb_x`` blocks — K1 with ``nb_out = W`` on the card, its
+    plain twin on the CPU and in float64.  (The JAX tail is an einsum and a
+    segment sum; no Pallas kernel runs on its mesh path.)  ``Xcat`` arrives
+    in ``out_dtype``; under bf16 streaming its values are already bf16, so
+    the kernel's cast of it is exact."""
+    r_loc = _local_rows(rows, flat_tile_index(mesh) * W, W)
+    return chunked_spmm(r_loc, cols, tiles, Xcat, nb_x, B, mv_dtype=mv_dtype,
+                        nb_out=W).to(out_dtype)
+
+
+class _MeshSpmv:
+    """A mesh SpMM ``spmv(rows, cols, tiles, X, *halo)``: ``X`` and the
+    result are this rank's W·B rows, ``rows``/``cols`` its segment of the
+    partitioned schedule (global row blocks; columns global, or remapped
+    into the gathered layout under a halo), ``halo`` its rows of the
+    exchange plan.  ``gather(Xb, *halo)`` builds the operand blocks from the
+    rank's own (W, B, k) blocks; X is cast to the streaming dtype before it
+    is exchanged, so a bf16 run moves half the bytes and multiplies the same
+    values."""
+
+    def __init__(self, nb, B, mesh, mv_dtype, gather):
+        n_dev = tile_device_count(mesh)
+        if nb % n_dev:
+            raise ValueError(f"mesh SpMM needs nb ({nb}) divisible by the "
+                             f"mesh size ({n_dev}); pad the point blocking")
+        self.nb, self.B, self.mesh, self.mv_dtype = nb, B, mesh, mv_dtype
+        self.W = nb // n_dev
+        self._gather = gather
+
+    def operand(self, X, halo):
+        """(gathered X (nb_x·B, k) in X's dtype, nb_x)."""
+        Xc = X.to(self.mv_dtype) if self.mv_dtype is not None else X
+        Xcat = self._gather(Xc.reshape(self.W, self.B, -1), *halo)
+        return Xcat.reshape(-1, Xcat.shape[-1]).to(X.dtype), Xcat.shape[0]
+
+    def __call__(self, rows, cols, tiles, X, *halo):
+        Xcat, nb_x = self.operand(X, halo)
+        return _local_spmm_tail(self.mesh, self.W, self.B, tiles, Xcat, nb_x,
+                                cols, rows, self.mv_dtype, X.dtype)
+
+    def tiles_vjp(self, rows, cols, tiles, X, Ybar, *halo):
+        Xcat, nb_x = self.operand(X, halo)
+        r_loc = _local_rows(rows, flat_tile_index(self.mesh) * self.W,
+                            self.W)
+        return chunked_spmm_vjp(r_loc, cols, tiles, Xcat, Ybar, nb_x, self.B,
+                                self.mv_dtype, need_x=False,
+                                nb_out=self.W)[0]
+
+    def reduce(self, t):
+        return _all_reduce(t, self.mesh)
+
+
+def _masked_blocks(Xb, sel, mask):
+    """``Xb[sel] * mask`` flattened to (n_slots, B, k): the blocks a plan
+    sends, zero in its padding slots."""
+    out = Xb[sel.long()] * mask.to(Xb.dtype)[..., None, None]
+    return out.reshape(-1, Xb.shape[1], Xb.shape[2])
+
+
+def _rowpart_spmv_factory(nb, B, mesh, mv_dtype=None):
+    """Row-ownership SpMM with an all-gather of X: ``(n-1)/n · nb·B·k``
+    words per matvec, half the all-reduce a position-sharded tile list
+    needs, and the output lands on its rows' owner."""
+    return _MeshSpmv(nb, B, mesh, mv_dtype,
+                     lambda Xb: gather_rows(Xb, mesh))
+
+
+def _halo_spmv_factory(nb, B, mesh, halo_S, mv_dtype=None):
+    """Row-ownership SpMM with a flat HALO EXCHANGE: one all-to-all of
+    ``halo_S`` padded slots per (src, dst) pair ships only the distinct
+    foreign column blocks each rank's tiles reference
+    (``partition.halo_plan``); cols arrive remapped to positions in
+    ``[own W blocks | received blocks]``.  ``halo = (send_sel, send_mask)``,
+    this rank's (n_dev, S) rows of the plan."""
+    def gather(Xb, send_sel, send_mask):
+        recv = exchange_blocks(_masked_blocks(Xb, send_sel, send_mask),
+                               mesh.group, mesh)
+        return torch.cat([Xb, recv], dim=0)
+
+    return _MeshSpmv(nb, B, mesh, mv_dtype, gather)
+
+
+def _halo_hier_spmv_factory(nb, B, mesh, halo_spec, mv_dtype=None):
+    """Row-ownership SpMM with the HIERARCHICAL halo of a 2-D ``(slice,
+    tiles)`` mesh (``partition.halo_plan_hier``): same-slice blocks over an
+    all-to-all of the rank's slice (pad ``S_ici``); cross-slice blocks are
+    first forwarded within the slice to the rank whose tiles coordinate
+    matches their destination's (pad ``S_fwd``), then exchanged between
+    slices (pad ``S_dcn``), so the link between nodes carries only the
+    slice-boundary band.  ``halo`` is this rank's rows of the six plan
+    arrays."""
+    if SLICE_AXIS not in mesh.shape:
+        raise ValueError("hierarchical halo SpMM needs a 2-D (slice, "
+                         "tiles) mesh")
+
+    def gather(Xb, sel_ici, m_ici, sel_fwd, m_fwd, fwd_sel, m_dcn):
+        recv1 = exchange_blocks(_masked_blocks(Xb, sel_ici, m_ici),
+                                mesh.tiles_group, mesh)
+        recv2 = exchange_blocks(_masked_blocks(Xb, sel_fwd, m_fwd),
+                                mesh.tiles_group, mesh)
+        recv3 = exchange_blocks(_masked_blocks(recv2, fwd_sel, m_dcn),
+                                mesh.slice_group, mesh)
+        return torch.cat([Xb, recv1, recv3], dim=0)
+
+    return _MeshSpmv(nb, B, mesh, mv_dtype, gather)
+
+
+def _spmv_for(nb, B, mesh=None, mv_dtype=None, halo_S=None):
+    """The SpMM for this mesh: the row-ownership mesh SpMM when a mesh of
+    more than one rank is given (with the flat or hierarchical halo when a
+    ``halo_S`` plan key is given), else the single-device one."""
+    if mesh is not None and tile_device_count(mesh) > 1:
+        if halo_S is not None:
+            if isinstance(halo_S, tuple):   # ("hier", S_ici, S_fwd, S_dcn)
+                return _halo_hier_spmv_factory(nb, B, mesh, halo_S,
+                                               mv_dtype=mv_dtype)
+            return _halo_spmv_factory(nb, B, mesh, halo_S, mv_dtype=mv_dtype)
+        return _rowpart_spmv_factory(nb, B, mesh, mv_dtype=mv_dtype)
+    return _LocalSpmv(nb, B, mv_dtype)
 
 
 def _spmv_scan(rows, cols, tiles, X, nb, B, mv_dtype=None):
@@ -225,18 +392,23 @@ def _tight_floor_sq(res_dtype):
 
 
 def _cg_fixed(matvec, Bmat, iters, M=None, tol=None, mv_dtype=None,
-              with_iters=False):
+              with_iters=False, reduce=None):
     """(Preconditioned) multi-RHS CG, at most ``iters`` trips, exiting as
     soon as every column's preconditioned residual is below the exit
-    floor.  ``with_iters=True`` also returns the executed trip count."""
+    floor.  ``with_iters=True`` also returns the executed trip count.  On a
+    mesh ``Bmat`` is the rank's rows and ``reduce`` sums each column's
+    inner product over the ranks, so every rank sees the same coefficients
+    and exit test."""
     if M is None:
         M = lambda X: X                       # noqa: E731
+    if reduce is None:
+        reduce = lambda t: t                  # noqa: E731
     X = torch.zeros_like(Bmat)
     R = Bmat.clone()
     Zp = M(R)
     # R is updated in place below: without a preconditioner Zp IS R
     P = Zp.clone()
-    rz = torch.sum(R * Zp, dim=0)
+    rz = reduce(torch.sum(R * Zp, dim=0))
     # once the residual has collapsed, further updates must be EXACT no-ops
     rz0 = torch.clamp(rz, min=torch.finfo(Bmat.dtype).tiny)
     floor = rz0 * _tight_floor_sq(Bmat.dtype)
@@ -247,12 +419,12 @@ def _cg_fixed(matvec, Bmat, iters, M=None, tol=None, mv_dtype=None,
     while it < iters and bool((rz > exit_floor).any()):
         active = rz > floor
         Ap = matvec(P)
-        pAp = torch.sum(P * Ap, dim=0)
+        pAp = reduce(torch.sum(P * Ap, dim=0))
         alpha = torch.where(active, rz / torch.where(active, pAp, one), zero)
         X.add_(alpha * P)
         R.sub_(alpha * Ap)
         Zn = M(R)
-        rz_new = torch.sum(R * Zn, dim=0)
+        rz_new = reduce(torch.sum(R * Zn, dim=0))
         beta = torch.where(active, rz_new / torch.where(active, rz, one),
                            zero)
         P = torch.where(active[None, :], Zn + beta * P, P)
@@ -268,7 +440,7 @@ def _block_apply(mats, X):
     return torch.bmm(mats, Xb).reshape(mats.shape[0] * mats.shape[1], -1)
 
 
-def _pcg_coeffs(mv, Minv, RHS, iters, tol, mv_dtype):
+def _pcg_coeffs(mv, Minv, RHS, iters, tol, mv_dtype, reduce):
     """PCG over all RHS columns, recording the CG coefficients (the mBCG
     forward).  Two thresholds: the global EXIT floor (loose, matched to the
     matvec dtype) and the per-column FREEZE floor (numerical safety) —
@@ -280,7 +452,7 @@ def _pcg_coeffs(mv, Minv, RHS, iters, tol, mv_dtype):
     R = RHS
     Zp = _block_apply(Minv, R)
     D = Zp
-    rz = torch.sum(R * Zp, dim=0)
+    rz = reduce(torch.sum(R * Zp, dim=0))
     floor = rz * _tight_floor_sq(RHS.dtype)
     exit_floor = rz * _freeze_tol_sq(tol, mv_dtype, RHS.dtype)
     n_cols = RHS.shape[1]
@@ -292,12 +464,12 @@ def _pcg_coeffs(mv, Minv, RHS, iters, tol, mv_dtype):
     while i < iters and bool((rz > exit_floor).any()):
         active = rz > floor
         AD = mv(D)
-        dAd = torch.sum(D * AD, dim=0)
+        dAd = reduce(torch.sum(D * AD, dim=0))
         alpha = torch.where(active, rz / torch.where(active, dAd, one), zero)
         X = X + D * alpha
         R = R - AD * alpha
         Z2 = _block_apply(Minv, R)
-        rz2 = torch.sum(R * Z2, dim=0)
+        rz2 = reduce(torch.sum(R * Z2, dim=0))
         beta = torch.where(active, rz2 / torch.where(active, rz, one), zero)
         D = Z2 + D * beta
         alphas[i] = torch.where(active, alpha, one)
@@ -339,30 +511,38 @@ class _QuadLogdet(torch.autograd.Function):
       d logdet ≈ (1/P) Σ_j s_jᵀ d(K+V) (M⁻¹z_j)     (s_j = (K+V)⁻¹z_j)
     both as ONE matvec-VJP over the stacked primal/cotangent, giving the
     tile cotangent (a batched outer product) and the noise cotangent.
-    ``Minv``/``Lm`` get no cotangent (they only steer the iteration)."""
+    ``Minv``/``Lm`` get no cotangent (they only steer the iteration).
+
+    ``spmv`` is ``_spmv_for``'s SpMM (by default the single-device one of
+    ``nb``, ``B``) and ``halo`` its plan arguments.  On a mesh the vectors are the rank's rows: the quadratic term, the probes'
+    norms and log|M| are summed over the ranks in the forward, and the
+    backward gives the rank's own tile and noise cotangents, which the
+    hyperparameter gradient sums once (``mesh.replicate``)."""
 
     @staticmethod
     def forward(ctx, tiles, noise, Minv, Lm, ym, U, rows, cols_c, nb, B,
-                iters, mv_dtype, tol):
+                iters, mv_dtype, tol, spmv=None, halo=()):
+        spmv = spmv or _LocalSpmv(nb, B, mv_dtype)
         if Lm.shape != Minv.shape:
             raise ValueError("mBCG: the preconditioner factor and its "
                              "inverse must share a shape")
-        spmv = _spmv_for(nb, B, mv_dtype)
 
         def mv(X):
-            return spmv(rows, cols_c, tiles, X) + noise[:, None] * X
+            return spmv(rows, cols_c, tiles, X, *halo) + noise[:, None] * X
 
         Z = _block_apply(Lm, U)
         RHS = torch.cat([ym[:, None], Z], dim=1)
-        X, alphas, betas = _pcg_coeffs(mv, Minv, RHS, iters, tol, mv_dtype)
+        X, alphas, betas = _pcg_coeffs(mv, Minv, RHS, iters, tol, mv_dtype,
+                                       spmv.reduce)
         x = X[:, 0]
         S = X[:, 1:]
-        quad = torch.dot(ym, x)
-        u2 = torch.sum(U * U, dim=0)
+        quad = spmv.reduce(torch.dot(ym, x))
+        u2 = spmv.reduce(torch.sum(U * U, dim=0))
         ld_C, ld_var = _t_quadrature(alphas[:, 1:], betas[:, 1:], u2)
-        ld_M = 2.0 * torch.sum(torch.log(torch.diagonal(Lm, dim1=1, dim2=2)))
+        ld_M = spmv.reduce(2.0 * torch.sum(torch.log(
+            torch.diagonal(Lm, dim1=1, dim2=2))))
         ctx.save_for_backward(tiles, Minv, x, S, Z, rows, cols_c)
-        ctx.nb, ctx.B, ctx.mv_dtype = nb, B, mv_dtype
+        ctx.spmv, ctx.halo = spmv, halo
         return quad, ld_M + ld_C, ld_var
 
     @staticmethod
@@ -373,14 +553,13 @@ class _QuadLogdet(torch.autograd.Function):
         Cot = torch.cat([(-qb) * x[:, None], (lb / P) * S], dim=1)
         tiles_bar = None
         if ctx.needs_input_grad[0]:
-            tiles_bar, _ = chunked_spmm_vjp(rows, cols_c, tiles, Xp, Cot,
-                                            ctx.nb, ctx.B, ctx.mv_dtype,
-                                            need_x=False)
+            tiles_bar = ctx.spmv.tiles_vjp(rows, cols_c, tiles, Xp, Cot,
+                                           *ctx.halo)
         noise_bar = torch.sum(Cot * Xp, dim=1) \
             if ctx.needs_input_grad[1] else None
         ym_bar = (2.0 * qb) * x
         return (tiles_bar, noise_bar, None, None, ym_bar, None, None, None,
-                None, None, None, None, None)
+                None, None, None, None, None, None, None)
 
 
 class _SymmetricSpmm(torch.autograd.Function):
@@ -389,29 +568,31 @@ class _SymmetricSpmm(torch.autograd.Function):
     tile at (c, r) is the tile at (r, c) transposed), so ``Aᵀ Ȳ = A Ȳ`` is
     one more K1 launch instead of the general VJP's plain transposed
     scatter.  The tiles' cotangent is the general VJP's (``need_x=False``).
-    The forward saves X and nothing of the tiles' gathers."""
+    The forward saves X and nothing of the tiles' gathers.  On a mesh both
+    are rank-local: the rank's rows of ``A Ȳ`` are one more mesh SpMM, and
+    its tiles' cotangent reads the gathered X."""
 
     @staticmethod
-    def forward(ctx, tiles, X, rows, cols_c, nb, B, mv_dtype):
+    def forward(ctx, tiles, X, rows, cols_c, nb, B, mv_dtype, spmv=None,
+                halo=()):
+        spmv = spmv or _LocalSpmv(nb, B, mv_dtype)
         ctx.save_for_backward(tiles, X, rows, cols_c)
-        ctx.nb, ctx.B, ctx.mv_dtype = nb, B, mv_dtype
-        return chunked_spmm(rows, cols_c, tiles, X, nb, B, mv_dtype=mv_dtype)
+        ctx.spmv, ctx.halo = spmv, halo
+        return spmv(rows, cols_c, tiles, X, *halo)
 
     @staticmethod
     def backward(ctx, ybar):
         tiles, X, rows, cols_c = ctx.saved_tensors
         tiles_bar = X_bar = None
         if ctx.needs_input_grad[0]:
-            tiles_bar, _ = chunked_spmm_vjp(rows, cols_c, tiles, X, ybar,
-                                            ctx.nb, ctx.B, ctx.mv_dtype,
-                                            need_x=False)
+            tiles_bar = ctx.spmv.tiles_vjp(rows, cols_c, tiles, X, ybar,
+                                           *ctx.halo)
         if ctx.needs_input_grad[1]:
-            X_bar = chunked_spmm(rows, cols_c, tiles, ybar, ctx.nb, ctx.B,
-                                 mv_dtype=ctx.mv_dtype)
-        return tiles_bar, X_bar, None, None, None, None, None
+            X_bar = ctx.spmv(rows, cols_c, tiles, ybar, *ctx.halo)
+        return tiles_bar, X_bar, None, None, None, None, None, None, None
 
 
-def _slq_fixed(matvec, Z, degree):
+def _slq_fixed(matvec, Z, degree, gsum=None):
     """SLQ log-determinant with fixed probes ``Z`` (n_pad, P) and a fixed
     degree; Rademacher probes are zero on padded rows, so the estimate
     covers the logical matrix.  One Lanczos recursion batched over the P
@@ -421,18 +602,34 @@ def _slq_fixed(matvec, Z, degree):
 
     The JAX package checkpoints every step so that its backward does not
     keep the step's gathered (T, B, k) tile blocks.  Here the step's SpMM
-    is an autograd Function that saves X only, so no recompute is needed."""
+    is an autograd Function that saves X only, so no recompute is needed.
+
+    On a mesh ``Z`` is the rank's rows and ``gsum`` (``mesh.global_sum``)
+    sums each inner product over the ranks; its cotangent passes through
+    unchanged, so the replicated recursion is differentiated once."""
+    if gsum is None:
+        def norm(A):
+            return torch.linalg.norm(A, dim=0)
+
+        def dot(A, C):
+            return torch.sum(A * C, dim=0)
+    else:
+        def norm(A):
+            return torch.sqrt(gsum(torch.sum(A * A, dim=0)))
+
+        def dot(A, C):
+            return gsum(torch.sum(A * C, dim=0))
     P = Z.shape[1]
     tiny = torch.finfo(Z.dtype).tiny
-    v = Z / torch.linalg.norm(Z, dim=0)
+    v = Z / norm(Z)
     v_prev = torch.zeros_like(v)
     beta_prev = torch.zeros(P, dtype=Z.dtype, device=Z.device)
     alphas, betas = [], []
     for _ in range(int(degree)):
         w = matvec(v)
-        alpha = torch.sum(w * v, dim=0)
+        alpha = dot(w, v)
         w = w - alpha * v - beta_prev * v_prev
-        beta = torch.linalg.norm(w, dim=0)
+        beta = norm(w)
         # breakdown guard in the working dtype: a literal 1e-300 is 0 in
         # float32, and an exact breakdown (diagonal K+V) would give 0/0
         v_prev, v = v, w / torch.clamp(beta, min=tiny)
@@ -446,8 +643,7 @@ def _slq_fixed(matvec, Z, degree):
          + torch.diag_embed(b, offset=-1))
     theta, U = torch.linalg.eigh(T)
     theta = torch.clamp(theta, min=1e-30)
-    vals = torch.sum(Z * Z, dim=0) * torch.sum(U[:, 0, :] ** 2
-                                               * torch.log(theta), dim=1)
+    vals = dot(Z, Z) * torch.sum(U[:, 0, :] ** 2 * torch.log(theta), dim=1)
     return torch.mean(vals), torch.var(vals, correction=0) / P
 
 
@@ -457,52 +653,53 @@ class _ImplicitCG(torch.autograd.Function):
     matvec-VJP at the primal solution with every cotangent negated:
     tiles get -W[r] X[c]ᵀ, the noise -Σ_k W·X, Bv gets W.  ``Minv`` (the
     block-inverse preconditioner, or None) only steers the iteration and
-    gets no cotangent."""
+    gets no cotangent.  On a mesh every vector is the rank's rows and both
+    CGs reduce their inner products over the ranks (``spmv.reduce``)."""
 
     @staticmethod
     def forward(ctx, tiles, noise, Minv, Bv, rows, cols_c, nb, B, iters,
-                mv_dtype, tol):
-        spmv = _spmv_for(nb, B, mv_dtype)
+                mv_dtype, tol, spmv=None, halo=()):
+        spmv = spmv or _LocalSpmv(nb, B, mv_dtype)
 
         def mv(X):
-            return spmv(rows, cols_c, tiles, X) + noise[:, None] * X
+            return spmv(rows, cols_c, tiles, X, *halo) + noise[:, None] * X
 
         M = None if Minv is None else (lambda X: _block_apply(Minv, X))
-        X = _cg_fixed(mv, Bv, iters, M=M, tol=tol, mv_dtype=mv_dtype)
+        X = _cg_fixed(mv, Bv, iters, M=M, tol=tol, mv_dtype=mv_dtype,
+                      reduce=spmv.reduce)
         ctx.save_for_backward(tiles, noise, Minv, X, rows, cols_c)
-        ctx.nb, ctx.B, ctx.iters = nb, B, iters
+        ctx.spmv, ctx.halo, ctx.iters = spmv, halo, iters
         ctx.mv_dtype, ctx.tol = mv_dtype, tol
         return X
 
     @staticmethod
     def backward(ctx, Xbar):
         tiles, noise, Minv, X, rows, cols_c = ctx.saved_tensors
-        nb, B, mv_dtype = ctx.nb, ctx.B, ctx.mv_dtype
-        spmv = _spmv_for(nb, B, mv_dtype)
+        spmv, halo = ctx.spmv, ctx.halo
 
         def mv(V):
-            return spmv(rows, cols_c, tiles, V) + noise[:, None] * V
+            return spmv(rows, cols_c, tiles, V, *halo) + noise[:, None] * V
 
         M = None if Minv is None else (lambda V: _block_apply(Minv, V))
         W = _cg_fixed(mv, Xbar.contiguous(), ctx.iters, M=M, tol=ctx.tol,
-                      mv_dtype=mv_dtype)
+                      mv_dtype=ctx.mv_dtype, reduce=spmv.reduce)
         tiles_bar = noise_bar = None
         if ctx.needs_input_grad[0]:
-            tiles_bar, _ = chunked_spmm_vjp(rows, cols_c, tiles, X, -W, nb, B,
-                                            mv_dtype, need_x=False)
+            tiles_bar = spmv.tiles_vjp(rows, cols_c, tiles, X, -W, *halo)
         if ctx.needs_input_grad[1]:
             noise_bar = -torch.sum(W * X, dim=1)
         return (tiles_bar, noise_bar, None, W, None, None, None, None, None,
-                None, None)
+                None, None, None, None)
 
 
 def make_sparse_lml(kernel_fn, nb, B, *, cg_iters=64, slq_degree=20,
                     with_variance=False, mean_mode="data", prior_mean_fn=None,
                     precondition=True, solver_dtype=None, solver="mbcg",
-                    precond_width=1, cg_tol=None):
+                    precond_width=1, cg_tol=None, mesh=None, halo_S=None):
     """The sparse LML as a differentiable function
 
-        lml(hps, rows, cols, xb, mask, y_pad, ypad_mask, noise_diag_pad, Z)
+        lml(hps, rows, cols, xb, mask, y_pad, ypad_mask, noise_diag_pad, Z
+            [, *plan, cols_remap])
 
     ``hps`` is a tensor (``requires_grad`` for the gradient).  ``rows`` /
     ``cols`` are the tile schedule with sentinel entries (index == nb) for
@@ -525,44 +722,81 @@ def make_sparse_lml(kernel_fn, nb, B, *, cg_iters=64, slq_degree=20,
     ``cg_iters`` is a maximum: the solve exits once every column's relative
     preconditioned residual is below ``cg_tol`` (per-dtype defaults in
     ``_freeze_tol_sq``); the mBCG quadrature degree follows the exit
-    point."""
+    point.
+
+    ``mesh`` (more than one rank; ``nb`` a multiple of the rank count):
+    ``rows``/``cols`` are the rank's segment of the partitioned schedule
+    (``partition.partition_schedule``: global block indices, row-sorted,
+    sentinels == nb at the tail) and ``y_pad``, ``ypad_mask``,
+    ``noise_diag_pad`` and ``Z`` the rank's W·B rows; ``hps``, ``xb`` and
+    ``mask`` are replicated.  With ``halo_S`` (the plan key of
+    ``partition.choose_halo``) the rank's rows of the plan arrays and its
+    remapped columns follow ``Z``: tile assembly keeps the global columns,
+    only the SpMM reads the remapped ones.  Every rank returns the same
+    value and gradient."""
     if solver not in ("slq", "mbcg"):
         raise ValueError(f"unknown sparse-LML solver {solver!r}; "
                          "use 'mbcg' (fused, the default — also what the GP "
                          "facade and bench use) or 'slq'")
+    n_dev = 1
+    if mesh is not None:
+        n_dev = tile_device_count(mesh)
+        if n_dev > 1 and nb % n_dev:
+            raise ValueError(
+                f"make_sparse_lml(mesh=...): nb ({nb}) must be a multiple of "
+                f"the mesh size ({n_dev}); pad the point blocking "
+                "(make_padded_inputs(..., row_multiple=n_dev))")
+    if n_dev <= 1:
+        mesh = None
+    if mesh is None:
+        halo_S = None
+    spmv = _spmv_for(nb, B, mesh, mv_dtype=solver_dtype, halo_S=halo_S)
+    row0 = flat_tile_index(mesh) * (nb // n_dev) if mesh is not None else 0
 
-    def lml(hps, rows, cols, xb, mask, y_pad, ypad_mask, noise_diag_pad, Z):
+    def gsum(t):
+        return global_sum(t, mesh) if mesh is not None else t
+
+    def lml(hps, rows, cols, xb, mask, y_pad, ypad_mask, noise_diag_pad, Z,
+            *halo_args):
+        # the rank's tiles and the mean enter its own work: their
+        # hyperparameter cotangents are summed over the ranks once, here
+        hps_l = replicate(hps, mesh) if mesh is not None else hps
         rows_c = torch.clamp(rows, max=nb - 1)
         cols_c = torch.clamp(cols, max=nb - 1)
-        tiles = _assemble_chunked_tiles(kernel_fn, B, solver_dtype, hps,
+        tiles = _assemble_chunked_tiles(kernel_fn, B, solver_dtype, hps_l,
                                         rows_c, cols_c, rows < nb, xb, mask)
+        if halo_S is not None:
+            mv_cols, halo = halo_args[-1], tuple(halo_args[:-1])
+        else:
+            mv_cols, halo = cols_c, ()
         Minv = Lb = None
         if solver == "mbcg" or precondition:
             Minv, Lb = _diag_precond_blocks(kernel_fn, B, precond_width, hps,
-                                            xb, mask, noise_diag_pad)
-        n = torch.sum(ypad_mask)
+                                            xb, mask, noise_diag_pad, i0=row0)
+        n = spmv.reduce(torch.sum(ypad_mask))
         if mean_mode == "data":
-            m = torch.sum(y_pad) / n
+            m = spmv.reduce(torch.sum(y_pad)) / n
         else:
-            m = prior_mean_fn(hps)
+            m = prior_mean_fn(hps_l)
         ym = (y_pad - m) * ypad_mask
         if solver == "mbcg":
             quad, logdet, logdet_var = _QuadLogdet.apply(
-                tiles, noise_diag_pad, Minv, Lb, ym, Z, rows, cols_c, nb, B,
-                cg_iters, solver_dtype, cg_tol)
+                tiles, noise_diag_pad, Minv, Lb, ym, Z, rows, mv_cols, nb, B,
+                cg_iters, solver_dtype, cg_tol, spmv, halo)
         else:
             alpha = _ImplicitCG.apply(
                 tiles, noise_diag_pad, Minv if precondition else None,
-                ym[:, None], rows, cols_c, nb, B, cg_iters, solver_dtype,
-                cg_tol)[:, 0]
-            quad = torch.dot(ym, alpha)
+                ym[:, None], rows, mv_cols, nb, B, cg_iters, solver_dtype,
+                cg_tol, spmv, halo)[:, 0]
+            quad = gsum(torch.dot(ym, alpha))
 
             def matvec(X):
-                return (_SymmetricSpmm.apply(tiles, X, rows, cols_c, nb, B,
-                                             solver_dtype)
+                return (_SymmetricSpmm.apply(tiles, X, rows, mv_cols, nb, B,
+                                             solver_dtype, spmv, halo)
                         + noise_diag_pad[:, None] * X)
 
-            logdet, logdet_var = _slq_fixed(matvec, Z, slq_degree)
+            logdet, logdet_var = _slq_fixed(
+                matvec, Z, slq_degree, gsum if mesh is not None else None)
         value = -0.5 * (quad + logdet + n * math.log(2.0 * math.pi))
         if with_variance:
             return value, logdet_var
@@ -571,7 +805,8 @@ def make_sparse_lml(kernel_fn, nb, B, *, cg_iters=64, slq_degree=20,
     return lml
 
 
-def _coarse_inverse(tiles, rows, cols, noise_diag_pad, nb, B, cw):
+def _coarse_inverse(tiles, rows, cols, noise_diag_pad, nb, B, cw, row0=0,
+                    reduce=None):
     """Inverse of the Galerkin coarse matrix A_c = Pᵀ(K+V)P for the
     block-constant prolongation P over groups of ``cw`` point blocks
     (``ops/precond.build_two_level_op``'s correction, rebuilt from the
@@ -581,7 +816,9 @@ def _coarse_inverse(tiles, rows, cols, noise_diag_pad, nb, B, cw):
     iteration, never the solution.  Sentinel tiles are zero, so their
     clamped scatter targets get nothing.  The float32 scatter adds in
     another order from run to run on the card; only the iteration count
-    can notice."""
+    can notice.  On a mesh the rank's tiles and noise rows (from block
+    ``row0``) give its share of A_c, which ``reduce`` sums over the ranks:
+    every rank then holds the same coarse inverse."""
     nbg = -(-nb // cw)
     T = tiles.shape[0]
     ts = torch.empty(T, dtype=torch.float32, device=tiles.device)
@@ -593,10 +830,14 @@ def _coarse_inverse(tiles, rows, cols, noise_diag_pad, nb, B, cw):
     gc = torch.clamp(cols.long() // cw, max=nbg - 1)
     Ac = torch.zeros((nbg, nbg), dtype=torch.float32, device=tiles.device)
     Ac.index_put_((gr, gc), ts, accumulate=True)
-    ns = torch.sum(noise_diag_pad.to(torch.float32).reshape(nb, B), dim=1)
-    gb = torch.clamp(torch.arange(nb, device=tiles.device) // cw,
-                     max=nbg - 1)
+    nb_loc = noise_diag_pad.shape[0] // B
+    ns = torch.sum(noise_diag_pad.to(torch.float32).reshape(nb_loc, B),
+                   dim=1)
+    gb = torch.clamp((row0 + torch.arange(nb_loc, device=tiles.device))
+                     // cw, max=nbg - 1)
     Ac.index_put_((gb, gb), ns, accumulate=True)
+    if reduce is not None:
+        Ac = reduce(Ac)
     # mirrored tiles make A_c symmetric up to the scatter's rounding; the
     # small relative jitter covers the float32 sums (PᵀAP of an SPD A is SPD)
     Ac = 0.5 * (Ac + Ac.T)
@@ -607,16 +848,25 @@ def _coarse_inverse(tiles, rows, cols, noise_diag_pad, nb, B, cw):
     return Linv.T @ Linv
 
 
-def _two_level_apply(pdata, X, B, cw):
+def _two_level_apply(pdata, X, B, cw, row0=0, reduce=None):
     """M⁻¹X = block-Jacobi smoother + additive coarse correction
     P A_c⁻¹ Pᵀ X (block-constant P over ``cw``-block groups; the last group
     may be short).  The correction is added into the smoother's output in
-    place."""
+    place.  On a mesh X is the rank's rows, from block ``row0``: Pᵀ X is
+    summed over the ranks by ``reduce`` and each rank adds the correction
+    of its own rows."""
     Minv, Acinv = pdata
     z = _block_apply(Minv, X)
     nbg = Acinv.shape[0]
     gsz = cw * B
     n, k = X.shape
+    if reduce is not None:
+        g = torch.clamp((row0 * B + torch.arange(n, device=X.device)) // gsz,
+                        max=nbg - 1)
+        r_c = torch.zeros((nbg, k), dtype=X.dtype, device=X.device)
+        r_c = reduce(r_c.index_add_(0, g, X))
+        y = (Acinv @ r_c.to(Acinv.dtype)).to(z.dtype)
+        return z.add_(y[g])
     full = n // gsz
     r_c = torch.zeros((nbg, k), dtype=X.dtype, device=X.device)
     if full:
@@ -650,11 +900,13 @@ def _coarse_width(nb, coarse_width=None):
 
 def make_committed_solver(kernel_fn, nb, B, *, cg_iters=96, solver_dtype=None,
                           precond_width=1, cg_tol=None, row_chunk=None,
-                          precond_type="block_jacobi", coarse_width=None):
-    """Committed-state WIDE solve (K+V)⁻¹ RHS, one device:
+                          precond_type="block_jacobi", coarse_width=None,
+                          mesh=None, halo_S=None):
+    """Committed-state WIDE solve (K+V)⁻¹ RHS, on one device or a mesh:
 
         assemble(hps, rows, cols, xb, mask, noise_diag_pad) -> (tiles, pdata)
-        solve(tiles, pdata, rows, cols, noise_diag_pad, RHS) -> (X, iters)
+        solve(tiles, pdata, rows, cols, noise_diag_pad, RHS[, *plan])
+            -> (X, iters)
 
     ``assemble`` runs once per committed state; ``solve`` once per column
     chunk.  ``precond_type`` is ``"block_jacobi"`` (pdata = the batched
@@ -671,14 +923,39 @@ def make_committed_solver(kernel_fn, nb, B, *, cg_iters=96, solver_dtype=None,
     (float32/bfloat16 only); otherwise wide right-hand sides stream the
     tiles through ``_spmv_scan`` and narrow ones take the flat SpMM (K1 on
     the card).  Padded rows carry unit noise and zero RHS, so their
-    solution is exactly zero."""
-    flat_spmv = _spmv_for(nb, B, solver_dtype)
+    solution is exactly zero.
+
+    MESH PATH (``mesh`` with more than one rank): the training step's
+    design.  ``rows``/``cols`` are the rank's segment of a partitioned
+    schedule (row-sorted, sentinels at its tail); ``noise_diag_pad`` and
+    ``RHS`` (and X) the rank's W·B rows.  Each rank assembles its own tiles
+    and preconditioner blocks; the matvec is the mesh SpMM of
+    ``_spmv_for(nb, B, mesh, halo_S)`` (K1 on the rank's rows; K2 is off
+    this path, as in the JAX package), whose halo form takes ``solve``'s
+    ``cols`` remapped and the rank's plan rows after RHS; the CG's inner
+    products reduce over the ranks, and the two-level coarse matrix is the
+    sum of the ranks' shares.  ``row_chunk`` cannot combine with a mesh."""
+    n_dev = tile_device_count(mesh) if mesh is not None else 1
+    if n_dev <= 1:
+        mesh = halo_S = None
+    if mesh is not None:
+        if row_chunk is not None:
+            raise ValueError("make_committed_solver: row_chunk (the fused "
+                             "single-device SpMM) cannot combine with a mesh")
+        if nb % n_dev:
+            raise ValueError(
+                f"make_committed_solver(mesh=...): nb ({nb}) must be a "
+                f"multiple of the mesh size ({n_dev}); pad the point "
+                "blocking (make_padded_inputs(..., row_multiple=n_dev))")
+    flat_spmv = _spmv_for(nb, B, mesh, mv_dtype=solver_dtype, halo_S=halo_S)
+    row0 = flat_tile_index(mesh) * (nb // n_dev) if mesh is not None else 0
+    reduce = flat_spmv.reduce if mesh is not None else None
     ptype = _normalize_committed_precond(precond_type)
     cw = _coarse_width(nb, coarse_width) if ptype == "two_level" else None
 
     def m_for(pdata):
         if ptype == "two_level":
-            return lambda X: _two_level_apply(pdata, X, B, cw)
+            return lambda X: _two_level_apply(pdata, X, B, cw, row0, reduce)
         return lambda X: _block_apply(pdata, X)
 
     def assemble(hps, rows, cols, xb, mask, noise_diag_pad):
@@ -691,11 +968,30 @@ def make_committed_solver(kernel_fn, nb, B, *, cg_iters=96, solver_dtype=None,
             tiles = _assemble_chunked_tiles(kernel_fn, B, solver_dtype, hps,
                                             rows_c, cols_c, live, xb, mask)
             Minv, _ = _diag_precond_blocks(kernel_fn, B, precond_width, hps,
-                                           xb, mask, noise_diag_pad)
+                                           xb, mask, noise_diag_pad, i0=row0)
             if ptype == "two_level":
                 return tiles, (Minv, _coarse_inverse(
-                    tiles, rows, cols, noise_diag_pad, nb, B, cw))
+                    tiles, rows, cols, noise_diag_pad, nb, B, cw, row0,
+                    reduce))
         return tiles, Minv
+
+    if mesh is not None:
+        def mesh_solve(tiles, pdata, rows, cols, noise_diag_pad, RHS, *halo):
+            # all-gather: global columns, the sentinels clamped (their tiles
+            # are zero); halo: the remapped columns are in range
+            mv_cols = cols if halo_S is not None \
+                else torch.clamp(cols, max=nb - 1)
+
+            def matvec(X):
+                return (flat_spmv(rows, mv_cols, tiles, X, *halo)
+                        + noise_diag_pad[:, None] * X)
+
+            with torch.no_grad():
+                return _cg_fixed(matvec, RHS, cg_iters, M=m_for(pdata),
+                                 tol=cg_tol, mv_dtype=solver_dtype,
+                                 with_iters=True, reduce=reduce)
+
+        return assemble, mesh_solve
 
     def solve(tiles, pdata, rows, cols, noise_diag_pad, RHS):
         if row_chunk is not None and RHS.dtype == torch.float64:

@@ -178,11 +178,15 @@ def distributed_covariance(prior, x1, x2, hyperparameters, *,
     One device engine serves every ``gp2Scale_distribution`` that the
     facade accepts, so the schedule's name does not reach this function.
     ``mesh`` is where the multi-device layout will enter; anything but None
-    raises."""
+    raises, since a rank's copy of the whole matrix would stand in for a
+    matrix spread over the ranks."""
     if mesh is not None:
         raise NotImplementedError(
-            "fvgp_tpu_torch: the multi-device covariance layout is not "
-            "ported yet (ROADMAP item 1.8)")
+            "fvgp_tpu_torch: the stored block-sparse covariance over a mesh "
+            "(distributed_covariance(mesh=...), the stored-K solves and "
+            "LML) is not ported yet (ROADMAP item 1.8, second part); the "
+            "traced gp2Scale LML and the committed posterior solver run on "
+            "the mesh")
     args = args or {}
     non_euclidean = isinstance(x1, list) or isinstance(x2, list)
     if non_euclidean:

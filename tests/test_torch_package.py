@@ -42,6 +42,9 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "import fvgp_tpu_torch.ops.precond\n"
         "import fvgp_tpu_torch.parallel.block_sparse\n"
         "import fvgp_tpu_torch.parallel.sharded_cov\n"
+        "import fvgp_tpu_torch.parallel.mesh\n"
+        "import fvgp_tpu_torch.parallel.partition\n"
+        "import chip_smoke\n"
         "import fvgp_tpu_torch.models.deep_kernel_network\n"
         "import fvgp_tpu_torch.models.gpm, fvgp_tpu_torch.models.gplvm\n"
         "import fvgp_tpu_torch.models.ggmp\n"
@@ -266,6 +269,27 @@ def test_package_exports_the_mcmc_sampler():
     np.testing.assert_array_equal(traces["torch"][1], traces["jax"][1])
     assert traces["torch"][0].shape == (60, 2)
     assert len(np.unique(traces["torch"][0], axis=0)) > 5
+
+
+def test_concurrent_first_use_builds_both_load(tmp_path):
+    """Two processes (the ranks of a mesh starting together) build the
+    native library into one empty directory at once: each compiles into a
+    file of its own and renames it into place, so both load a whole
+    library and no temporary file is left."""
+    code = ("import ctypes, sys\n"
+            "from fvgp_tpu_torch import native\n"
+            "lib = ctypes.CDLL(str(native._build(sys.argv[1])))\n"
+            "print(bool(lib.tile_live))")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(tmp_path)],
+                              cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for _ in range(2)]
+    outs = [p.communicate(timeout=240) for p in procs]
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0 and out.strip() == "True", err
+    assert [f.name for f in tmp_path.iterdir()] == ["libfvgp_structure.so"]
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():
