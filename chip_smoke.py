@@ -137,8 +137,23 @@ time-sliced on one card); then side by side 4 gloo ranks as a 2 x 2 mesh
 with the hierarchical halo forced and a one-rank NCCL world, each at
 N=10,000 in float32 against the CPU.
 
-K4's entry point, phases 6-6e, 7-7c, 9-9c, 9e and 10's N=1M journey and
-the two counted pieces of 5d are the paths: every
+Since the mesh slice's second part (ROADMAP item 1.8: the stored K over
+the ranks) also: in phase 3, K1 with ``nb_out`` where the row-owned stored
+N=1M K puts it (rank 0 of 2, bfloat16 storage, X as two bfloat16 halves,
+k = 1 and 4) against its plain version, timed beside it and the rank's
+BSR ``torch.sparse.mm``; in phase 10's pair world, the stored K at
+N=10,240 in sparseCGpre, sparseMINRESpre, sparseCGpre_amg,
+sparseCGpre_schwarz and sparseLU (float32) and sparseCGpre with bfloat16
+storage — ``K @ X``, a trial LML, the full posterior covariance at 32
+points — held bitwise across the ranks, against rank 0 alone and against
+the CPU in float64 (computed by the parent while the ranks work), an
+aligned 1,024-point append timed on both; then, after the N=1M journey,
+the stored-K journey's configuration of phase 9 across both ranks
+(assembly, a trial LML, a 64-point full covariance; counted), with the
+recompute of a 1,024-point append.
+
+K4's entry point, phases 6-6e, 7-7c, 9-9c, 9e and 10's two N=1M journeys
+and the two counted pieces of 5d are the paths: every
 kernel's launch counter is reset just before each and read just after it,
 and the ``launches`` of a kernel is its sum over them.  The line before the
 last is
@@ -473,6 +488,68 @@ def k1_rank_case(x, nb, rows_p, cols_p, hps, B, k, gen, device):
     return rec
 
 
+def k1_stored_rank_cases(x, nb, rows_p, cols_p, hps, B, gen, device):
+    """K1 with ``nb_out`` where the row-owned stored K puts it: rank 0 of 2
+    of the stored N=1M K (bfloat16 storage, ``W = ceil(nb / 2)`` row blocks
+    of the unpadded grid, ``mesh.owned_rows``) against the whole X, which
+    ``BlockSparseMatrix`` splits into two bfloat16 halves — the operands
+    that ``_bsm_matmat`` hands the wrapper under a mesh, at k = 1 (CG) and
+    k = 4 (the SLQ batch at N=1M).  Held against the plain version on the
+    same operands, timed beside it and the rank's rectangular BSR
+    ``torch.sparse.mm`` of the 2k bfloat16 columns; the bound counts the
+    rank's live tiles, the indices, X and the rank's float32 output once
+    and 2k columns of products, as ``stored_matmat_case`` does."""
+    import torch
+
+    from fvgp_tpu_torch.ops import hopper_kernels as hk
+    W = -(-nb // 2)
+    mine = rows_p < W
+    tiles, r, c = assemble(x, nb, B, rows_p[mine], cols_p[mine], hps,
+                           torch.bfloat16, torch.float32, device)
+    r_loc = torch.where(r < W, r, torch.full_like(r, W))
+    cc = c.clamp(max=nb - 1)
+    n_live = int((r < W).sum())
+    mvd = torch.bfloat16
+    out = {}
+    for k in (1, 4):
+        X = torch.randn((nb * B, k), generator=gen).to(device)
+        hi = X.to(torch.bfloat16).float()
+        Xs = torch.cat([hi, X - hi], 1)
+
+        def launch():
+            y = hk.chunked_spmm(r_loc, cc, tiles, Xs, nb, B, mv_dtype=mvd,
+                                nb_out=W)
+            return y[:, :k] + y[:, k:]
+
+        got = launch()
+        y = hk.chunked_spmm_reference(r_loc, cc, tiles, Xs, nb, B,
+                                      mv_dtype=mvd, nb_out=W)
+        ref = y[:, :k] + y[:, k:]
+        err = float((got - ref).abs().max())
+        scale = float(ref.abs().max())
+        tol = KERNEL_RTOL * scale
+        del got, ref, y
+        ms = cuda_ms(launch)
+        plain_ms = cuda_ms(lambda: hk.chunked_spmm_reference(
+            r_loc, cc, tiles, Xs, nb, B, mv_dtype=mvd, nb_out=W), reps=3)
+        lib_ms = bsr_library_ms(r_loc, cc, tiles, Xs, nb, B, nb_out=W)
+        rec = spmm_record(err, ms, plain_ms,
+                          n_live * B * B * tiles.element_size()
+                          + nb * B * k * 4 + W * B * k * 4 + 8 * n_live,
+                          2 * n_live * B * B * 2 * k, "bfloat16", lib_ms)
+        log(f"K1 chunked_spmm [the stored N=1M K, rank 0 of 2: nb_out={W} "
+            f"of nb={nb}, B={B}, k={k} as two bfloat16 halves, T="
+            f"{len(r)}, live {n_live}]: max_abs_err {err:.3e} (tol "
+            f"{tol:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"library {lib_ms} ms (rectangular BSR, 2k columns); "
+            f"{share(rec)}")
+        if not (err <= tol):
+            raise AssertionError(f"K1 (stored, nb_out, k={k}) disagrees "
+                                 f"with its plain version: {err} > {tol}")
+        out[f"k{k}"] = rec
+    return out
+
+
 def k2_case(label, tiles, cc, Xb, B, C, n_chunks, nb):
     """K2 against its plain version, timed beside the plain version and
     the library yardstick: one ``torch.einsum('ncij,ncjk->nik')`` over the
@@ -591,6 +668,9 @@ def kernel_phase(device):
     torch.cuda.empty_cache()
     records["k1_rank"] = k1_rank_case(x, nb, rows_p, cols_p, hps1, B1, k,
                                       gen, device)
+    torch.cuda.empty_cache()
+    records["k1_stored_rank"] = k1_stored_rank_cases(x, nb, rows_p, cols_p,
+                                                     hps1, B1, gen, device)
     torch.cuda.empty_cache()
     # ---- K2 at committed-solver shapes: c=128 in both dtypes, and in
     # bfloat16 the N=1M journey's widths (posterior mean 8, variance 512)
@@ -1881,12 +1961,13 @@ def gp2scale_training_phase(gp):
     return total
 
 
-def stored_model(x, y, hps, device, extra):
-    """The stored-K gp2Scale model: the traced LML off, sparseCGpre."""
+def stored_model(x, y, hps, device, extra, mode="sparseCGpre"):
+    """The stored-K gp2Scale model: the traced LML off, sparseCGpre unless
+    another mode is named."""
     from fvgp_tpu_torch import GP
     return GP(x, y, init_hyperparameters=hps,
               noise_variances=np.full(len(x), 1e-2), gp2Scale=True,
-              compute_device=device, linalg_mode="sparseCGpre",
+              compute_device=device, linalg_mode=mode,
               args={"gp2Scale_block_size": 128, "gp2Scale_traced_lml": False,
                     "sparse_cg_tol": 1e-5, "sparse_cg_maxiter": 500,
                     "gp2Scale_structure_cache_dir": False, **extra})
@@ -3324,6 +3405,15 @@ def extensions_phases():
 # set after that reading)
 MESH_ONE_RANK_BOUNDS = {"loss": 1e-5, "grad": 1e-4, "mean": 1e-4,
                         "var": 1e-5}
+# the stored K on 2 gloo ranks against one rank on the card: the same tiles
+# (each rank's row blocks), the same probes, K1's rows of a launch with
+# nb_out equal to those of the square launch, and the committed posterior
+# solve pinned to K1 on one rank too (``gp2Scale_posterior_fused_spmm``
+# off: the mesh's route), so only reduction orders can differ: 1e-6 of each
+# output's scale; against the CPU in float64, STORED_BOUNDS
+MESH_STORED_ONE_RANK = 1e-6
+MESH_STORED_MODES = ("sparseCGpre", "sparseMINRESpre", "sparseCGpre_amg",
+                     "sparseCGpre_schwarz", "sparseLU")
 MESH_WORLD_TIMEOUT = 420.0       # seconds for one spawned world
 MESH_COLLECTIVE_TIMEOUT = 300.0  # seconds a rank waits in one collective
 
@@ -3423,9 +3513,71 @@ def _journey_values(x, y, xp, hps, args):
             "exchange": _exchange_of(out[4])}
 
 
+def _stored_mesh_inputs():
+    """The stored-K cross-check's N=10,240 data (80 tiles of 128, so an
+    append of 1,024 points is aligned), 32 prediction points and an X for
+    ``K @ X``."""
+    N, n_new = 10_240, 1_024
+    x, y, xp = journey_data(N + n_new, seed=4)
+    X = np.random.default_rng(5).standard_normal((N, 4))
+    return (x[:N], y[:N], x[N:], y[N:], xp[:32],
+            np.array([1.0, 2.0, 2.0, 2.0]), X)
+
+
+def _stored_mesh_values(mode, storage, device):
+    """One stored-K model of the pair task (under the active mesh, if any):
+    ``K @ X``, a trial LML with its CG iterations and SLQ samples, the full
+    posterior covariance at 32 points; and the model."""
+    import torch
+    x, y, _, _, xp, hps, X = _stored_mesh_inputs()
+    extra = {"gp2Scale_posterior_fused_spmm": False}
+    if storage == "bfloat16":
+        extra["gp2Scale_storage_dtype"] = "bfloat16"
+    gp = stored_model(x, y, hps, device, extra, mode=mode)
+    K = gp.K
+    out = {"KX": K.matmat(torch.as_tensor(X, dtype=gp.prior.dtype)
+                          .to(gp.device)).double().cpu().numpy(),
+           "lml": float(gp.log_likelihood(hps * 1.02)),
+           "iters": (gp.kv.last_solve_info or {}).get("iterations"),
+           "samples": gp.kv.last_logdet_info.get("num_samples"),
+           "S": np.asarray(gp.posterior_covariance(xp)["S"])}
+    return out, gp
+
+
+def _timed_append(gp):
+    """Seconds of the aligned 1,024-point append of the stored K (a stack
+    on one rank, a recompute on the mesh) and the new K's shape."""
+    import torch
+    _, _, x_new, y_new, _, _, _ = _stored_mesh_inputs()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    gp.update_gp_data(x_new, y_new, append=True,
+                      noise_variances_new=np.full(len(x_new), 1e-2))
+    K = gp.K
+    torch.cuda.synchronize()
+    return time.time() - t0, tuple(K.shape)
+
+
+def stored_mesh_reference():
+    """The CPU float64 reference of the pair task's stored-K models, at
+    the same probes (the mesh phase computes it while the ranks work)."""
+    import torch
+    threads = torch.get_num_threads()
+    torch.set_num_threads(4)
+    try:
+        return {mode: _stored_mesh_values(mode, None, "cpu")[0]
+                for mode in MESH_STORED_MODES}
+    finally:
+        torch.set_num_threads(threads)
+
+
 def _mesh_pair_task(rank, world):
     """Two gloo ranks on the card: the N=10,000 journey in float32 and with
-    bfloat16 streaming, rank 0 also alone, then the N=1M journey."""
+    bfloat16 streaming, the stored K at N=10,240 in five modes (float32)
+    and in sparseCGpre with bfloat16 storage, rank 0 also alone; then the
+    N=1M journey and the N=1M stored-K journey."""
+    import torch
+
     from fvgp_tpu_torch.ops import hopper_kernels as hk
     from fvgp_tpu_torch.parallel import mesh as pm
     hk.build_kernels()
@@ -3439,7 +3591,26 @@ def _mesh_pair_task(rank, world):
                                                       {**base, **extra})
         with pm.use_mesh(mesh):
             out[name] = _journey_values(x, y, xp, hps, {**base, **extra})
+    stored = {}
+    for mode in MESH_STORED_MODES + ("sparseCGpre bfloat16",):
+        m, storage = (mode.split() + ["float32"])[:2]
+        if rank == 0:
+            vals, gp = _stored_mesh_values(m, storage, "cuda")
+            if mode == "sparseCGpre":
+                vals["append"] = _timed_append(gp)
+            stored[f"{mode} one rank"] = vals
+        with pm.use_mesh(mesh):
+            vals, gp = _stored_mesh_values(m, storage, "cuda")
+            if mode == "sparseCGpre":
+                vals["append"] = _timed_append(gp)
+                vals["append_on_mesh"] = gp.K.mesh is mesh
+        stored[mode] = vals
+        del gp
+    out["stored"] = stored
+    torch.cuda.empty_cache()
     out["n1m"] = _mesh_full_journey(mesh, 1_000_000)
+    torch.cuda.empty_cache()
+    out["stored_n1m"] = _mesh_stored_journey(mesh, 1_000_000)
     out["ops"] = dict(mesh.ops)
     return out
 
@@ -3536,6 +3707,69 @@ def _mesh_full_journey(mesh, N):
             "committed_iters": gp.kv.last_solve_info["iterations"]}
 
 
+def _mesh_stored_journey(mesh, N):
+    """The stored-K journey's configuration (phase 9: N=1M,
+    ``gp2Scale_traced_lml=False``, sparseCGpre, bfloat16 tile storage, CG
+    to 1e-4, 64 prediction points) across the mesh's ranks, each holding
+    its own row blocks' tiles: assembly, one trial ``log_likelihood(hps)``,
+    ``posterior_covariance`` on 64 points — K1 launches counted (set to 0
+    just before, read just after), peak memory — then the recompute of a
+    1,024-point append."""
+    import torch
+
+    from fvgp_tpu_torch.ops import hopper_kernels as hk
+    from fvgp_tpu_torch.parallel import mesh as pm
+    times = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hk.reset_launch_counts()
+    with pm.use_mesh(mesh):
+        gp, x, y, xp, hps = stored_journey_model(N)
+        t0 = time.time()
+        K = gp.K
+        torch.cuda.synchronize()
+        times["assemble_K_s"] = time.time() - t0
+        t0 = time.time()
+        trial = gp.log_likelihood(hps)
+        torch.cuda.synchronize()
+        times["trial_lml_s"] = time.time() - t0
+        info = dict(gp.kv.last_solve_info)
+        samples = gp.kv.last_logdet_info["num_samples"]
+        t0 = time.time()
+        S = gp.posterior_covariance(xp)["S"]
+        torch.cuda.synchronize()
+        times["posterior_covariance_64_s"] = time.time() - t0
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        s = K._store
+        facts = {"tiles_rank": int(s.tiles.shape[0]), "live_rank": s.live,
+                 "live_all": K.live_tiles_global,
+                 "gib_rank": s.tiles.numel() * s.tiles.element_size()
+                 / 2**30, "W": s.W,
+                 # a k = 1 float32 product gathers every rank's W·B rows
+                 "gathered_bytes_per_matvec": mesh.size * s.W * K.block_size
+                 * 4}
+        on_mesh = K.mesh is mesh
+        del K
+        rng = np.random.default_rng(6)
+        x_new = rng.uniform(0, x.max(), (1024, 3))
+        torch.cuda.synchronize()
+        t0 = time.time()
+        gp.update_gp_data(x_new, np.sin(0.2 * x_new[:, 0]), append=True,
+                          noise_variances_new=np.full(1024, 1e-2))
+        K2 = gp.K
+        torch.cuda.synchronize()
+        times["append_1024_s"] = time.time() - t0
+    if not (on_mesh and K2.mesh is mesh and K2.shape == (N + 1024,) * 2
+            and np.isfinite(trial) and S.shape == (64, 64)
+            and np.all(np.isfinite(S))):
+        raise AssertionError("the N=1M stored-K mesh journey gave a wrong "
+                             "layout or non-finite results")
+    return {"lml": float(trial), "cg_iterations": info["iterations"],
+            "slq_samples": samples, "S": np.asarray(S), "times": times,
+            "launches": launches, "peak_gib": peak, **facts}
+
+
 def _dryrun_errs(got, one):
     """The dryrun's relative errors (__graft_entry__.py:193-196)."""
     def rel(a, b):
@@ -3566,14 +3800,23 @@ def mesh_phase(ref):
     (N=10,000 float32 and bfloat16 streaming against one rank and against
     the CPU's float64 ``ref`` at the same probes; then the N=1M journey),
     then, side by side on the card, 4 gloo ranks as 2 x 2 with the
-    hierarchical halo and a one-rank NCCL world.  Returns the K1 launches
-    of the N=1M mesh journey (both ranks)."""
+    hierarchical halo and a one-rank NCCL world.  The stored K (ROADMAP
+    item 1.8, second part) rides in the pair world: five modes at N=10,240
+    in float32 and sparseCGpre with bfloat16 storage against one rank and
+    against the CPU in float64 (computed here while the ranks work), and
+    the N=1M stored-K journey across both ranks.  Returns the launches of
+    the two N=1M mesh journeys, both ranks summed, by journey."""
     import torch
     torch.cuda.empty_cache()
     t0 = time.time()
-    pair = _join_world(_start_world("_mesh_pair_task", 2))
+    started = _start_world("_mesh_pair_task", 2)
+    stored_ref = stored_mesh_reference()
+    log(f"mesh: the stored-K CPU float64 reference (N=10,240, "
+        f"{len(stored_ref)} modes) took {time.time() - t0:.1f} s beside the "
+        f"ranks")
+    pair = _join_world(started)
     log(f"mesh: 2 gloo ranks on {pair[0]['device']} ({time.time() - t0:.1f} "
-        f"s with the N=1M journey); collectives of rank 0: "
+        f"s with both N=1M journeys); collectives of rank 0: "
         f"{json.dumps(pair[0]['ops'])} (gloo takes CUDA tensors for all of "
         f"them: none staged through host memory)")
     for name in ("float32", "bfloat16"):
@@ -3610,6 +3853,8 @@ def mesh_phase(ref):
     for r in n1m:
         if r["launches"]["chunked_spmm"] < 1:
             raise AssertionError("K1 never launched on the mesh journey")
+    _check_stored_mesh([r["stored"] for r in pair], stored_ref)
+    _report_stored_n1m([r["stored_n1m"] for r in pair])
     t0 = time.time()
     started = (_start_world("_mesh_hier_task", 4),
                _start_world("_mesh_nccl_task", 1, gloo=False))
@@ -3621,8 +3866,81 @@ def mesh_phase(ref):
     _held_against_cpu(f"4 ranks 2 x 2 ({hier[0]['exchange']}) float32",
                       hier[0], ref, "float32")
     _held_against_cpu("one-rank NCCL float32", nccl, ref, "float32")
-    total = {name: sum(r["launches"][name] for r in n1m) for name in REPLACES}
-    return total
+    return {journey: {name: sum(r[journey]["launches"][name] for r in pair)
+                      for name in REPLACES}
+            for journey in ("n1m", "stored_n1m")}
+
+
+def _check_stored_mesh(ranks, ref):
+    """The pair task's stored-K models: the same bits on both ranks,
+    MESH_STORED_ONE_RANK of each output's scale from rank 0 alone (with
+    equal CG iterations and SLQ samples), STORED_BOUNDS from the CPU in
+    float64 (bfloat16 storage against the float64 sparseCGpre)."""
+    got, other = ranks
+    for mode in MESH_STORED_MODES + ("sparseCGpre bfloat16",):
+        g, o, one = got[mode], other[mode], got[f"{mode} one rank"]
+        if not (g["lml"] == o["lml"] and np.array_equal(g["KX"], o["KX"])
+                and np.array_equal(g["S"], o["S"])):
+            raise AssertionError(f"mesh stored {mode}: the ranks disagree")
+        errs = {"matmat": scale_err(g["KX"], one["KX"]),
+                "lml": abs(g["lml"] - one["lml"]) / abs(one["lml"]),
+                "S": scale_err(g["S"], one["S"])}
+        counts = (g["iters"], g["samples"]) == (one["iters"], one["samples"])
+        storage = "bfloat16" if "bfloat16" in mode else "float32"
+        r = ref[mode.split()[0]]
+        cpu = {"matmat": scale_err(g["KX"], r["KX"]),
+               "lml": abs(g["lml"] - r["lml"]) / abs(r["lml"]),
+               "S": float(np.abs(g["S"] - r["S"]).max())}
+        bounds = STORED_BOUNDS[storage]
+        log(f"mesh stored {mode} (N=10,240, 2 ranks): vs one rank "
+            + ", ".join(f"{k} {errs[k]:.3e}" for k in errs)
+            + f" (bound {MESH_STORED_ONE_RANK:g} of the scale; CG "
+            f"{g['iters']} / {one['iters']}, SLQ samples {g['samples']} / "
+            f"{one['samples']}); vs CPU float64 "
+            + ", ".join(f"{k} {cpu[k]:.3e} (bound {bounds[k]:g})"
+                        for k in cpu))
+        bad = [k for k in errs if not errs[k] <= MESH_STORED_ONE_RANK]
+        bad += [f"cpu {k}" for k in cpu if not cpu[k] <= bounds[k]]
+        if bad or not counts:
+            raise AssertionError(f"mesh stored {mode}: {bad}, counts equal "
+                                 f"{counts}")
+    t_mesh, shape = got["sparseCGpre"]["append"]
+    t_one, _ = got["sparseCGpre one rank"]["append"]
+    log(f"mesh stored: an aligned 1,024-point append at N=10,240 -> {shape}: "
+        f"recomputed across 2 ranks in {t_mesh:.3f} s (row-owned: on the "
+        f"mesh {got['sparseCGpre']['append_on_mesh']}), stacked on one rank "
+        f"in {t_one:.3f} s")
+    if not got["sparseCGpre"]["append_on_mesh"]:
+        raise AssertionError("the appended K left the mesh")
+
+
+def _report_stored_n1m(ranks):
+    """The N=1M stored-K journey across 2 ranks: per-rank facts, and the
+    ranks' agreement."""
+    if not (ranks[0]["lml"] == ranks[1]["lml"]
+            and np.array_equal(ranks[0]["S"], ranks[1]["S"])):
+        raise AssertionError("mesh stored N=1M: the ranks disagree")
+    keys = ("tiles_rank", "live_rank", "gib_rank", "peak_gib", "W")
+    log("mesh stored-K N=1M journey (bf16 storage, sparseCGpre), 2 gloo "
+        "ranks time-sliced on one card, not a scaling figure: " + json.dumps({
+            **{f"{k}_per_rank": [r[k] for r in ranks] for k in keys},
+            "live_all": ranks[0]["live_all"],
+            "times_per_rank": [{k: round(v, 4) for k, v in r["times"].items()}
+                               for r in ranks],
+            "k1_launches_per_rank": [r["launches"]["chunked_spmm"]
+                                     for r in ranks],
+            "gathered_bytes_per_k1_matvec":
+                ranks[0]["gathered_bytes_per_matvec"],
+            "trial_lml": ranks[0]["lml"],
+            "cg_iterations": ranks[0]["cg_iterations"],
+            "slq_samples": ranks[0]["slq_samples"]}))
+    if sum(r["live_rank"] for r in ranks) != ranks[0]["live_all"]:
+        raise AssertionError("mesh stored N=1M: the ranks' tiles do not add "
+                             "up to the matrix's")
+    for r in ranks:
+        if r["launches"]["chunked_spmm"] < 1:
+            raise AssertionError("K1 never launched on the stored-K mesh "
+                                 "journey")
 
 
 def main():
@@ -3728,7 +4046,7 @@ def main():
              slice_launches["training"], stored_launches, merged_launches,
              diagonal_launches, multitask_launches, formula_launches,
              structured_launches, non_euclidean_launches,
-             *extension_launches.values(), mesh_launches]
+             *extension_launches.values(), *mesh_launches.values()]
     launches = {name: sum(p[name] for p in paths) for name in REPLACES}
     for kern, name in (("K1", "chunked_spmm"), ("K2", "row_chunk_sums")):
         log(f"{kern} launches by path: " + json.dumps(
@@ -3742,7 +4060,9 @@ def main():
              "diagonal noise callable posterior": diagonal_launches[name],
              "structured noise N=1M": structured_launches[name],
              "non-Euclidean gp2Scale": non_euclidean_launches[name],
-             "mesh N=1M (2 ranks)": mesh_launches[name]}))
+             "mesh N=1M (2 ranks)": mesh_launches["n1m"][name],
+             "mesh stored-K N=1M (2 ranks)":
+                 mesh_launches["stored_n1m"][name]}))
     log("K3 launches by path: " + json.dumps(
         {"dense journey": dense_launches["dense_covariance"],
          "dense posterior API": dense_api_launches["dense_covariance"],
@@ -3757,6 +4077,9 @@ def main():
         + json.dumps(records.pop("k1_slq_batch")))
     log("K1 with nb_out != nb (rank 0 of 2, N = 1M structure): "
         + json.dumps(records.pop("k1_rank")))
+    log("K1 with nb_out != nb on the stored N = 1M K (rank 0 of 2, bf16 "
+        "storage, X as two bf16 halves), k = 1 and 4: "
+        + json.dumps(records.pop("k1_stored_rank")))
     log("K1 from BlockSparseMatrix at the stored-K journey's shapes: "
         + json.dumps(stored_records))
 

@@ -208,7 +208,7 @@ def _as_operator(KV, args, device=None):
             return KV
         return BlockSparseMatrix(KV.n, KV.n_cols, KV.block_size,
                                  KV.rows, KV.cols, KV.tiles.to(dev),
-                                 diag=KV.diag, device=dev)
+                                 diag=KV.diag, device=dev, mesh=KV.mesh)
     return _t(KV, dev)
 
 

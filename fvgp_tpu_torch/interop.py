@@ -19,6 +19,7 @@ from .models.gp import GP
 from .models.gplvm import GPLVM
 from .models.gpm import GPm
 from .parallel.block_sparse import from_numpy_state
+from .parallel.mesh import current_mesh
 from .parallel.ordering import morton_order
 
 __all__ = ["gp_from_numpy_state", "gpm_from_numpy_state",
@@ -36,7 +37,8 @@ def gp_from_numpy_state(state, compute_device="cuda", kernel_function=None,
     ``BlockSparseMatrix.__getstate__`` gives (``n``, ``n_cols``,
     ``block_size``, ``rows``, ``cols``, ``tiles``, ``diag``), which becomes
     the model's stored covariance, so both packages solve against one
-    stored operator.
+    stored operator (under an active mesh of more than one rank each rank
+    keeps the tiles of its own row blocks).
 
     * A multi-task state carries ``output_num`` and the untransformed
       ``fvgp_x_data``, ``fvgp_y_data`` and ``fvgp_noise_variances``: the
@@ -96,7 +98,9 @@ def gp_from_numpy_state(state, compute_device="cuda", kernel_function=None,
         gp = GP(x, y, noise_variances=None if nv is None
                 else np.asarray(nv, dtype=np.float64), args=args, **common)
     if gp2Scale and state.get("K") is not None:
-        gp.prior.K = from_numpy_state(state["K"], device=gp.device)
+        # under an active mesh each rank keeps its row blocks' tiles
+        gp.prior.K = from_numpy_state(state["K"], device=gp.device,
+                                      mesh=current_mesh())
     return gp
 
 

@@ -25,6 +25,7 @@ import warnings
 import numpy as np
 from scipy.stats import norm
 
+from ..parallel.mesh import sync_host_random
 from .gp_data import GPdata
 from .gp_kv import GPkv, sequential_linalg_state
 from .gp_likelihood import GPlikelihood
@@ -333,6 +334,9 @@ class GP:
         ``dask_client`` are accepted and ignored."""
         if mcmc_args is None:
             mcmc_args = {}
+        # under a mesh every rank draws the random start below (and the
+        # chain after it) from rank 0's numpy random state
+        sync_host_random()
         ml = self.marginal_likelihood
         if self.gp2Scale and asynchronous:
             asynchronous = False

@@ -595,10 +595,11 @@ class GPkv:
         fn, data = self._matvec_op(KV)
         # the probe batch of a block-sparse operator follows the JAX
         # package's rule (there a bound on the (T, B, k) product of the plain
-        # SpMM), so both packages draw the same number of probes
+        # SpMM, T its global tile count, padding included, on a mesh too),
+        # so both packages draw the same number of probes
         batch = None
         if is_block_sparse(KV):
-            T = int(KV.tiles.shape[0])
+            T = KV.padded_tiles_global
             batch = max(4, min(32, (1 << 28) // max(T * KV.block_size * 4,
                                                     1)))
         args = self.args

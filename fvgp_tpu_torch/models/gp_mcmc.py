@@ -20,6 +20,8 @@ import warnings
 
 import numpy as np
 
+from ..parallel.mesh import sync_host_random
+
 
 # module-level (not closures) so a sampler configured with the defaults
 # stays picklable — the checkpoint/resume contract covers gpMCMC
@@ -299,6 +301,9 @@ class gpMCMC:
         gp_mcmc.py:96-181)."""
         if not (isinstance(x0, np.ndarray) and x0.ndim == 1):
             raise AssertionError("x0 must be a 1-d np.ndarray")
+        # the chain draws from numpy's global state: under a mesh every
+        # rank must draw the same proposals and accept tests
+        sync_host_random()
         stop = self._resolve_break(break_condition)
         hook = run_in_every_iteration or (lambda sampler: None)
 

@@ -375,13 +375,17 @@ class GPprior:
         """The stored K after an append, or None (stay lazy) when no K of
         the old data is stored: [[K, B], [Bᵀ, D]] stacked from the new tile
         sets when the old point count is a multiple of the tile size, a full
-        recompute otherwise."""
+        recompute otherwise.  A row-owned K (a mesh of more than one rank)
+        is recomputed too: the ranks' row ranges move when the block count
+        grows, so old tiles would have to cross ranks; the recompute gives
+        the matrix the stack gives."""
         K_old = self._K
         if K_old is None or K_old.n != len(x_old):
             return None
         from ..parallel.block_sparse import stack_augmented_covariance
-        if K_old.n % K_old.block_size != 0:
-            # append grid misaligned with the tile size: recompute fully
+        if K_old.n % K_old.block_size != 0 or K_old.mesh is not None:
+            # append grid misaligned with the tile size, or row-owned:
+            # recompute fully
             return self.compute_prior_covariance_matrix(self.x_data,
                                                         hyperparameters)
         B = self._gp2Scale_covariance(x_old, x_new, hyperparameters)
@@ -392,9 +396,8 @@ class GPprior:
     def _gp2Scale_covariance(self, x1, x2, hyperparameters, symmetric=False):
         """The block-sparse covariance k(x1, x2) on the model's device.  A
         symmetric one is the stored K, which under a mesh of more than one
-        rank would be spread over the ranks (not ported yet:
-        ``distributed_covariance`` raises); a cross covariance is whole on
-        every rank."""
+        rank is row-owned (each rank holds its row blocks' tiles); a cross
+        covariance is whole on every rank."""
         from ..parallel.mesh import current_mesh, tile_device_count
         from ..parallel.sharded_cov import distributed_covariance
         mesh = current_mesh() if symmetric else None

@@ -29,6 +29,7 @@ import torch
 from scipy.optimize import minimize
 
 from .. import config
+from ..parallel.mesh import current_mesh, sync_host_random
 from .gp_actor import (AsyncOptimizer, _AdamActor, _BOActor, _MCMCActor,
                        _MultistartActor)
 from .gp_bo import bayesian_optimize
@@ -83,9 +84,12 @@ class GPtraining:
               adam_chain_runner=None):
         """Synchronous training; returns the optimized hyperparameters.
         ``global_optimizer`` and ``dask_client`` are accepted and ignored,
-        as in the JAX package."""
+        as in the JAX package.  Under a mesh of more than one rank every
+        rank first takes rank 0's numpy random state, so the methods that
+        draw from it (``mcmc``) run the same chain on every rank."""
         if mcmc_args is None:
             mcmc_args = {}
+        sync_host_random()
         if not self._in_bounds(init_hyperparameters, hyperparameter_bounds):
             raise Exception("Starting positions outside of optimization "
                             "bounds.", init_hyperparameters,
@@ -466,7 +470,17 @@ class GPtraining:
         ``AsyncOptimizer`` proxy.  ``dask_client`` is accepted and ignored:
         the actors are threads.  ``run_context`` (a zero-argument
         context-manager factory) wraps the WHOLE background run, so the
-        sequential linear-algebra gate lives as long as the thread."""
+        sequential linear-algebra gate lives as long as the thread.  Under a
+        mesh of more than one rank it raises: each rank's thread would run
+        and be polled on its own schedule, and the ranks' hyperparameters
+        would part."""
+        mesh = current_mesh()
+        if mesh is not None and mesh.size > 1:
+            raise NotImplementedError(
+                "fvgp_tpu_torch: asynchronous training under a mesh of more "
+                "than one rank is not supported (ROADMAP item 1.8): the "
+                "ranks' threads would not run in lockstep; train "
+                "synchronously")
         if mcmc_args is None:
             mcmc_args = {}
         if method not in ("hgdl", "mcmc", "adam", "bo"):

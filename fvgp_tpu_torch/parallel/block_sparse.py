@@ -22,12 +22,28 @@ Under bfloat16 tile storage the kernel multiplies bfloat16 tiles by a
 float32 ``X`` split into two bfloat16 halves (``X = hi + lo``, one launch on
 ``[hi | lo]``, the two results added in float32): the product then carries
 the tiles' rounding only, as the JAX package's float32-product einsum does.
+
+**On a mesh** (``mesh=`` a ``parallel.mesh.Mesh`` of more than one rank) a
+symmetric matrix is row-owned: rank r holds only the tiles of its row
+blocks ``[r0, r0 + W)`` (``mesh.owned_rows``, the JAX package's ownership),
+with global block indices.  Every method still gives the whole answer on
+every rank, as the JAX package's globally sharded matrix does: the square
+product runs K1 with ``nb_out = W`` over the rank's tiles against the whole
+X and gathers the ranks' row blocks (one all-gather per product); the
+diagonal, the dense forms and the preconditioner's tile selections are the
+rank's rows, gathered; ``nnz``, the fingerprint's Frobenius norm and the
+padded tile count are global (reduced in rank order, the same bits on
+every rank).  So the solvers see whole, identical vectors on every rank
+and every decision they take from them agrees.  A mesh matrix's
+constructor is collective (one all-gather of the tile counts): every rank
+builds it together.
 """
 
 import numpy as np
 import torch
 
 from ..config import as_torch_dtype, resolve_device
+from .mesh import gather_rows, owned_rows, rank_values
 
 __all__ = ["BlockSparseMatrix", "is_block_sparse",
            "stack_augmented_covariance", "from_scipy", "merge"]
@@ -81,9 +97,11 @@ def _segment_sum_sorted(values, seg, num_segments):
 class _TileStore:
     """The (rows, cols, tiles) triple of a matrix and its host index copies,
     shared by every view of the matrix (``add_diagonal``), so that the
-    one-time row sort serves all of them."""
+    one-time row sort serves all of them.  Under a mesh it is this rank's
+    tiles, of row blocks ``[r0, r0 + W)``, and it carries the global counts
+    (``_agree_counts``); without one ``(r0, W) = (0, nb)``."""
 
-    def __init__(self, rows, cols, tiles, nb, live_tiles=None):
+    def __init__(self, rows, cols, tiles, nb, live_tiles=None, mesh=None):
         self.rows = rows
         self.cols = cols
         self.tiles = tiles
@@ -91,8 +109,22 @@ class _TileStore:
         self._rows_h = None
         self._cols_h = None
         self._cols_clamped = None
+        self._local_rows = None
         self._row_sorted = None
         self._live = None if live_tiles is None else int(live_tiles)
+        self.mesh = mesh
+        self.r0, self.W = owned_rows(nb, mesh)
+        self.live_global = self.padded_global = self.tiles_max = None
+
+    def _agree_counts(self):
+        """The global live and stored tile counts and the largest rank's
+        stored count, from one all-gather: what every rank must decide
+        alike (the auto mode, the fingerprint, the SLQ probe batch, the
+        product's column chunk) reads these, never a rank-local count."""
+        c = rank_values([self.live, self.tiles.shape[0]], self.mesh)
+        self.live_global = int(c[:, 0].sum())
+        self.padded_global = int(c[:, 1].sum())
+        self.tiles_max = int(c[:, 1].max())
 
     @property
     def rows_h(self):
@@ -108,14 +140,32 @@ class _TileStore:
 
     @property
     def live(self):
+        """This rank's live tiles (all of them without a mesh)."""
         if self._live is None:
             self._live = int(np.sum(self.rows_h < self.nb))
         return self._live
 
+    @property
+    def local_rows(self):
+        """Row blocks counted from this rank's first, sentinels at ``W``:
+        the rows tensor itself without a mesh."""
+        if self.mesh is None:
+            return self.rows
+        if self._local_rows is None:
+            self._local_rows = torch.where(
+                self.rows < self.nb, self.rows - self.r0,
+                torch.full_like(self.rows, self.W))
+        return self._local_rows
+
+    def gather(self, t):
+        """The ranks' row blocks of ``t`` stacked in rank order (``t``
+        itself without a mesh)."""
+        return t if self.mesh is None else gather_rows(t, self.mesh)
+
     def kernel_operands(self):
-        """(rows, clamped cols, tiles) row-sorted for K1: sorted here, once,
-        where the list is not (the tile gather is one transient copy of the
-        tile array).  The rows tensor then stays the same object, so the
+        """(local rows, clamped cols, tiles) row-sorted for K1: sorted here,
+        once, where the list is not (the tile gather is one transient copy of
+        the tile array).  The rows tensor then stays the same object, so the
         kernel wrapper's row offsets are computed once per matrix."""
         if self._row_sorted is None:
             r = self.rows_h
@@ -127,13 +177,13 @@ class _TileStore:
             self.tiles = self.tiles[perm]
             self.rows = self.rows[perm]
             self.cols = self.cols[perm]
-            self._cols_clamped = None
+            self._cols_clamped = self._local_rows = None
             self._row_sorted = True
         if not self.tiles.is_contiguous():          # a transposed view
             self.tiles = self.tiles.contiguous()
         if self._cols_clamped is None:
             self._cols_clamped = self.cols.clamp(max=self.nb - 1)
-        return self.rows, self._cols_clamped, self.tiles
+        return self.local_rows, self._cols_clamped, self.tiles
 
 
 def _pad_rows(X, rows):
@@ -182,22 +232,28 @@ def _takes_kernel(store, dtype):
 def _bsm_matmat(store, X, nb, block_size):
     """(n, k) = Σ over tiles of tile @ X[col block], added into its row
     block.  Float32 and bfloat16 tiles on the card launch the K1 kernel
-    over the row-sorted list; the CPU and float64 take the plain version."""
+    over the row-sorted list; the CPU and float64 take the plain version.
+    Under a mesh the rank computes its W row blocks against the whole X
+    (K1 with ``nb_out = W``) and the ranks' blocks are gathered."""
     if X.device.type == "cpu" or not _takes_kernel(store, X.dtype):
-        return _bsm_matmat_plain(store.rows, store.cols, store.tiles, X, nb,
-                                 block_size)
-    from ..ops.hopper_kernels import chunked_spmm
-    rows, cols_c, tiles = store.kernel_operands()
-    k = X.shape[1]
-    Xp = _pad_rows(X.float(), nb * block_size)
-    if tiles.dtype == torch.float32:
-        out = chunked_spmm(rows, cols_c, tiles, Xp, nb, block_size)
+        out = _plain_product(store.tiles, store.cols, store.local_rows, X, nb,
+                             store.W, block_size)
     else:
-        hi = Xp.to(torch.bfloat16).float()
-        out = chunked_spmm(rows, cols_c, tiles, torch.cat([hi, Xp - hi], 1),
-                           nb, block_size, mv_dtype=torch.bfloat16)
-        out = out[:, :k] + out[:, k:]
-    return out[:X.shape[0]].to(X.dtype)
+        from ..ops.hopper_kernels import chunked_spmm
+        rows, cols_c, tiles = store.kernel_operands()
+        k = X.shape[1]
+        Xp = _pad_rows(X.float(), nb * block_size)
+        nb_out = None if store.mesh is None else store.W
+        if tiles.dtype == torch.float32:
+            out = chunked_spmm(rows, cols_c, tiles, Xp, nb, block_size,
+                               nb_out=nb_out)
+        else:
+            hi = Xp.to(torch.bfloat16).float()
+            out = chunked_spmm(rows, cols_c, tiles,
+                               torch.cat([hi, Xp - hi], 1), nb, block_size,
+                               mv_dtype=torch.bfloat16, nb_out=nb_out)
+            out = out[:, :k] + out[:, k:]
+    return store.gather(out)[:X.shape[0]].to(X.dtype)
 
 
 def bsm_matvec_factory(nb, block_size, n, with_diag):
@@ -214,15 +270,16 @@ def bsm_matvec_factory(nb, block_size, n, with_diag):
 
 
 def _bsm_diagonal(store, nb, block_size, n):
-    """diag(A) for tile storage.  The diagonal-block tiles are selected by
-    host index before anything touches the tile array."""
+    """diag(A) for tile storage (a mesh rank's rows, gathered).  The
+    diagonal-block tiles are selected by host index before anything touches
+    the tile array."""
     r = store.rows_h
     sel = np.nonzero((r == store.cols_h) & (r < nb))[0]
     picked = store.tiles[torch.as_tensor(sel).to(store.tiles.device)]
     tile_diags = torch.diagonal(picked, dim1=1, dim2=2)
     tile_diags = tile_diags.to(_dense_dtype(tile_diags.dtype))
-    out = _segment_sum_sorted(tile_diags, r[sel], nb)
-    return out.reshape(nb * block_size)[:n]
+    out = _segment_sum_sorted(tile_diags, r[sel] - store.r0, store.W)
+    return store.gather(out.reshape(store.W * block_size))[:n]
 
 
 class BlockSparseMatrix:
@@ -233,10 +290,13 @@ class BlockSparseMatrix:
     (T, B, B) array or tensor.  ``device``: the tiles' device when they are
     a tensor, else the card (``"cuda"``), or ``"cpu"`` where asked for.
     ``diag`` is an optional extra diagonal stored beside the tiles, in its
-    own precision."""
+    own precision.  ``mesh``: a mesh of more than one rank makes the matrix
+    row-owned — the tiles given are this rank's, all in its row blocks
+    (module docstring); the matrix must be square and symmetric, and every
+    rank constructs it together."""
 
     def __init__(self, n, n_cols, block_size, rows, cols, tiles, diag=None,
-                 live_tiles=None, device=None):
+                 live_tiles=None, device=None, mesh=None):
         self.n = int(n)
         self.n_cols = int(n_cols)
         self.block_size = int(block_size)
@@ -248,12 +308,19 @@ class BlockSparseMatrix:
             dev = resolve_device("cuda" if device is None else device)
         if not torch.is_tensor(tiles):
             tiles = torch.as_tensor(np.asarray(tiles))
+        if mesh is not None and mesh.size == 1:
+            mesh = None
+        if mesh is not None and self.n != self.n_cols:
+            raise ValueError("a row-owned (mesh) BlockSparseMatrix must be "
+                             "square")
         store = _TileStore(_index_tensor(rows, dev), _index_tensor(cols, dev),
-                           tiles.to(dev), self.nb, live_tiles)
+                           tiles.to(dev), self.nb, live_tiles, mesh)
         if not torch.is_tensor(rows):
             store._rows_h = np.asarray(rows).astype(np.int32)
         if not torch.is_tensor(cols):
             store._cols_h = np.asarray(cols).astype(np.int32)
+        if mesh is not None:
+            store._agree_counts()
         self._store = store
         # the extra diagonal is stored SEPARATELY from the tiles: K+V shares
         # K's tile buffer instead of copying it, and the noise keeps full
@@ -291,14 +358,34 @@ class BlockSparseMatrix:
         return self._store.tiles.device
 
     @property
+    def mesh(self):
+        """The mesh whose ranks own this matrix's row blocks, or None."""
+        return self._store.mesh
+
+    @property
+    def live_tiles_global(self):
+        """Live tiles of the whole matrix (every rank's, under a mesh)."""
+        s = self._store
+        return s.live if s.mesh is None else s.live_global
+
+    @property
+    def padded_tiles_global(self):
+        """Stored tiles of the whole matrix, bucket padding included: the
+        JAX package's ``tiles.shape[0]``, which a global sharded tile list
+        has under a mesh too."""
+        s = self._store
+        return int(s.tiles.shape[0]) if s.mesh is None else s.padded_global
+
+    @property
     def shape(self):
         return (self.n, self.n_cols)
 
     @property
     def nnz(self):
         """Stored values over LIVE tiles (bucket-padding sentinels do not
-        count): the sparsity that the auto mode thresholds on."""
-        return self._store.live * self.block_size * self.block_size
+        count), over the whole matrix: the sparsity that the auto mode
+        thresholds on."""
+        return self.live_tiles_global * self.block_size * self.block_size
 
     @property
     def dtype(self):
@@ -331,13 +418,23 @@ class BlockSparseMatrix:
 
     __matmul__ = matmat
 
+    def _budget(self):
+        """``_MATMAT_BUDGET`` shared by the mesh ranks that sit on one
+        card."""
+        mesh = self.mesh
+        return _MATMAT_BUDGET // (1 if mesh is None
+                                  else max(1, mesh.ranks_per_device))
+
     def _col_chunk(self, k, itemsize=4):
         """Columns per pass so the two live (T, B, c) per-tile buffers of
         the plain product (the gathered X and the product) together stay
-        under ``_MATMAT_BUDGET``.  ``itemsize`` is the RHS element size."""
-        per_col = (2 * int(self.tiles.shape[0]) * int(self.block_size)
-                   * int(itemsize))
-        return max(1, min(int(k), _MATMAT_BUDGET // max(per_col, 1)))
+        under the budget.  ``itemsize`` is the RHS element size.  Under a
+        mesh T is the largest rank's, so every rank takes the same passes
+        (one all-gather each)."""
+        s = self._store
+        T = int(s.tiles.shape[0]) if s.mesh is None else s.tiles_max
+        per_col = 2 * T * int(self.block_size) * int(itemsize)
+        return max(1, min(int(k), self._budget() // max(per_col, 1)))
 
     def square_col_chunk(self, k, dtype):
         """Columns per pass of the square product with an X of ``dtype``.
@@ -350,7 +447,7 @@ class BlockSparseMatrix:
         itemsize = torch.finfo(dtype).bits // 8
         if _takes_kernel(self._store, dtype):
             per_col = 8 * max(self.n, 1) * itemsize
-            return max(1, min(int(k), _MATMAT_BUDGET // per_col))
+            return max(1, min(int(k), self._budget() // per_col))
         return self._col_chunk(k, itemsize)
 
     def _rect_matmat(self, X):
@@ -364,7 +461,10 @@ class BlockSparseMatrix:
                               self.nb, self.block_size)[:self.n]
 
     def rmatmat(self, X):
-        """Xᵀ-side product: (n_cols, k) = Aᵀ @ X for rectangular A."""
+        """Xᵀ-side product: (n_cols, k) = Aᵀ @ X for rectangular A (a mesh
+        matrix is symmetric: its ``matmat``)."""
+        if self.mesh is not None:
+            return self.matmat(X)
         X, squeeze = self._operand(X)
         k = X.shape[1]
         kc = self._col_chunk(k, X.element_size())
@@ -383,7 +483,9 @@ class BlockSparseMatrix:
     @property
     def T(self):
         """Transposed view (swaps the block grid; the tiles are a transposed
-        view of this matrix's)."""
+        view of this matrix's).  A mesh matrix is symmetric: itself."""
+        if self.mesh is not None:
+            return self
         s = self._store
         t = BlockSparseMatrix(self.n_cols, self.n, self.block_size, s.cols,
                               s.rows, s.tiles.transpose(1, 2), diag=self.diag,
@@ -423,7 +525,10 @@ class BlockSparseMatrix:
         ||Σ_g t_g||² = Σ||t||² + 2 Σ_{i<j in g} <t_i, t_j>; the cross terms
         come from the (few) duplicate groups only.  Duplicates are looked
         for among the LIVE tiles: the sentinels all share one key and would
-        form one giant fake group (they are zero and add nothing)."""
+        form one giant fake group (they are zero and add nothing).  Under a
+        mesh a duplicate group lies on one rank (one row block); the ranks'
+        sums of squares are added in rank order, the same bits on every
+        rank."""
         s = self._store
         acc = _dense_dtype(s.tiles.dtype)
         base = _bsm_diagonal(s, self.nb, self.block_size, self.n)
@@ -455,6 +560,8 @@ class BlockSparseMatrix:
                 sg = _segment_sum_sorted(tg, grp[a:b] - g0,
                                          int(grp[b - 1]) - g0 + 1)
                 fro2 += float(torch.sum(sg * sg) - torch.sum(tg * tg))
+        if s.mesh is not None:
+            fro2 = float(rank_values(fro2, s.mesh).sum())
         if self.diag is not None:
             fro2 += 2.0 * float(torch.sum(base * self.diag)) \
                 + float(torch.sum(self.diag * self.diag))
@@ -463,26 +570,27 @@ class BlockSparseMatrix:
     # -- conversions ---------------------------------------------------
     def _scatter_dense(self, sel, col0, n_col_blocks):
         """Dense (nb·B, n_col_blocks·B) sum of the tiles ``sel`` (None: all)
-        placed at (row block, col block - col0); sentinels are dropped."""
+        placed at (row block, col block - col0); sentinels are dropped.
+        Under a mesh the rank's (W·B, ...) rows, gathered (n² on every rank:
+        the dense forms are for sizes that a dense factorization takes)."""
         s = self._store
-        B = self.block_size
-        rows, cols, tiles = s.rows, s.cols, s.tiles
+        B, W = self.block_size, s.W
+        rows, cols, tiles = s.local_rows, s.cols, s.tiles
         if sel is not None:
             pick = torch.as_tensor(sel).to(self.device)
             rows, cols, tiles = rows[pick], cols[pick], tiles[pick]
         cb = cols.long() - col0
         flat = rows.long() * n_col_blocks + cb
-        dead = (rows >= self.nb) | (cb < 0) | (cb >= n_col_blocks)
-        flat = torch.where(dead, torch.full_like(flat,
-                                                 self.nb * n_col_blocks),
+        dead = (rows >= W) | (cb < 0) | (cb >= n_col_blocks)
+        flat = torch.where(dead, torch.full_like(flat, W * n_col_blocks),
                            flat)
-        dense = torch.zeros((self.nb * n_col_blocks + 1, B, B),
+        dense = torch.zeros((W * n_col_blocks + 1, B, B),
                             dtype=_dense_dtype(tiles.dtype),
                             device=self.device)
         dense.index_add_(0, flat, tiles.to(dense.dtype))
-        dense = dense[:-1].reshape(self.nb, n_col_blocks, B, B)
-        return dense.permute(0, 2, 1, 3).reshape(self.nb * B,
-                                                 n_col_blocks * B)
+        dense = dense[:-1].reshape(W, n_col_blocks, B, B)
+        return s.gather(dense.permute(0, 2, 1, 3).reshape(W * B,
+                                                          n_col_blocks * B))
 
     def to_dense(self):
         dense = self._scatter_dense(None, 0, self.nb_cols)
@@ -517,14 +625,17 @@ class BlockSparseMatrix:
     def _selected_tiles(self, offset):
         """(nb, B, B) sums of the tiles on the ``offset``-th block diagonal
         (zero blocks where none is stored), selected by host index — never
-        by a mask over the whole tile array."""
+        by a mask over the whole tile array.  Under a mesh the rank's row
+        blocks, gathered: every rank factors the same blocks, so the
+        preconditioners' shift ladders take the same branches."""
         s = self._store
         r, c = s.rows_h, s.cols_h
         sel = np.nonzero((r + offset == c) & (r < self.nb)
                          & (c < self.nb_cols))[0]
         picked = s.tiles[torch.as_tensor(sel).to(self.device)]
-        return _segment_sum_sorted(picked.to(_dense_dtype(picked.dtype)),
-                                   r[sel], self.nb)
+        out = _segment_sum_sorted(picked.to(_dense_dtype(picked.dtype)),
+                                  r[sel] - s.r0, s.W)
+        return s.gather(out)[:self.nb]
 
     def diagonal_tiles(self):
         """(nb, B, B) stack of the diagonal tiles (the block-Jacobi input),
@@ -556,10 +667,11 @@ class BlockSparseMatrix:
                           for t0 in range(0, s.tiles.shape[0], _TILE_SLICE)])
         live = (s.rows_h < self.nb) & (s.cols_h < self.nb_cols)
         idx = np.nonzero(live)[0]
-        flat = s.rows_h[idx].astype(np.int64) * self.nb_cols + s.cols_h[idx]
+        flat = (s.rows_h[idx].astype(np.int64) - s.r0) * self.nb_cols \
+            + s.cols_h[idx]
         Ac = _segment_sum_sorted(sums[torch.as_tensor(idx).to(self.device)],
-                                 flat, self.nb * self.nb_cols)
-        Ac = Ac.reshape(self.nb, self.nb_cols)
+                                 flat, s.W * self.nb_cols)
+        Ac = s.gather(Ac.reshape(s.W, self.nb_cols))[:self.nb]
         if self.diag is not None:
             Ac = Ac.to(torch.promote_types(Ac.dtype, self.diag.dtype))
             dp = torch.zeros(self.nb * self.block_size, dtype=Ac.dtype,
@@ -570,14 +682,34 @@ class BlockSparseMatrix:
         return Ac
 
     # -- pickling (numpy; the JAX package's keys) ------------------------
-    def __getstate__(self):
+    def _whole_tiles(self):
+        """(rows, cols, tiles) of the whole matrix on the host: under a mesh
+        every rank's list, padded with sentinels to the largest rank's
+        count and gathered (collective), as the JAX package's ``np.asarray``
+        of a sharded tile list is the whole list."""
         s = self._store
-        tiles = s.tiles
+        tiles = s.tiles.to(_dense_dtype(s.tiles.dtype))
+        if s.mesh is None:
+            return np.array(s.rows_h), np.array(s.cols_h), tiles.cpu()
+        pad = s.tiles_max - int(tiles.shape[0])
+        idx = np.stack([np.pad(s.rows_h, (0, pad), constant_values=self.nb),
+                        np.pad(s.cols_h, (0, pad),
+                               constant_values=self.nb_cols)], axis=1)
+        idx = s.gather(torch.as_tensor(idx, dtype=torch.int64)
+                       .to(self.device)).cpu().numpy()
+        tiles = s.gather(torch.nn.functional.pad(tiles, (0, 0, 0, 0, 0, pad)))
+        return (idx[:, 0].astype(np.int32), idx[:, 1].astype(np.int32),
+                tiles.cpu())
+
+    def __getstate__(self):
+        """The numpy state; under a mesh the whole matrix (every rank calls
+        this together), so a pickle made on a mesh loads as the one-device
+        matrix."""
+        rows, cols, tiles = self._whole_tiles()
         state = dict(n=self.n, n_cols=self.n_cols,
-                     block_size=self.block_size,
-                     rows=np.array(s.rows_h), cols=np.array(s.cols_h),
-                     tiles=tiles.to(_dense_dtype(tiles.dtype)).cpu().numpy(),
-                     tiles_dtype=str(tiles.dtype).replace("torch.", ""),
+                     block_size=self.block_size, rows=rows, cols=cols,
+                     tiles=tiles.numpy(),
+                     tiles_dtype=str(self.tiles.dtype).replace("torch.", ""),
                      diag=None if self.diag is None
                      else self.diag.cpu().numpy(),
                      device=str(self.device))
@@ -588,22 +720,34 @@ class BlockSparseMatrix:
         self.__dict__.update(other.__dict__)
 
 
-def from_numpy_state(state, device=None):
+def _owned(rows, nb, mesh):
+    """Host mask of the tiles whose row block this rank owns."""
+    r0, W = owned_rows(nb, mesh)
+    rows = np.asarray(rows)
+    return (rows >= r0) & (rows < min(r0 + W, nb))
+
+
+def from_numpy_state(state, device=None, mesh=None):
     """A matrix from the numpy dict that ``BlockSparseMatrix.__getstate__``
     gives — this package's or the JAX package's (keys ``n``, ``n_cols``,
     ``block_size``, ``rows``, ``cols``, ``tiles``, ``diag``), so both
     packages can be handed one stored operator.  ``device``: the card by
-    default, ``"cpu"`` where asked for."""
+    default, ``"cpu"`` where asked for.  ``mesh`` (of more than one rank,
+    a square matrix): the rank keeps the tiles of its own row blocks."""
     tiles = np.asarray(state["tiles"])
     tdt = state.get("tiles_dtype") or tiles.dtype.name
     if tiles.dtype.name == "bfloat16":       # a numpy extension dtype
         tiles = tiles.astype(np.float32)
+    rows, cols = np.asarray(state["rows"]), np.asarray(state["cols"])
+    n, B = int(state["n"]), int(state["block_size"])
+    if mesh is not None and mesh.size > 1:
+        keep = _owned(rows, -(-n // B), mesh)
+        rows, cols, tiles = rows[keep], cols[keep], tiles[keep]
     dev = resolve_device("cuda" if device is None else device)
     return BlockSparseMatrix(
-        state["n"], state["n_cols"], state["block_size"],
-        np.asarray(state["rows"]), np.asarray(state["cols"]),
+        n, state["n_cols"], B, rows, cols,
         torch.tensor(tiles).to(as_torch_dtype(tdt)), diag=state.get("diag"),
-        device=dev)
+        device=dev, mesh=mesh)
 
 
 def from_scipy(sp_mat, block_size, device=None, dtype=None):
@@ -636,7 +780,10 @@ def merge(A, B_mat):
 
     Tiles promote to the wider of the two dtypes, capped at float32 when
     either side is a sub-float32 STORAGE format: casting the second operand
-    down to bfloat16 would quantize structured noise to 8 mantissa bits."""
+    down to bfloat16 would quantize structured noise to 8 mantissa bits.
+
+    A mesh ``A`` keeps of a meshless ``B_mat`` (scipy noise tiled on every
+    rank) the tiles whose rows the rank owns."""
     if (A.shape != B_mat.shape) or (A.block_size != B_mat.block_size):
         raise ValueError("merge requires matching shapes and block grids")
     if A.device != B_mat.device:
@@ -651,11 +798,20 @@ def merge(A, B_mat):
             and torch.finfo(out_dt).bits > 32:
         out_dt = torch.float32
     sa, sb = A._store, B_mat._store
+    if B_mat.mesh is not A.mesh:
+        if A.mesh is None or B_mat.mesh is not None:
+            raise ValueError("merge requires both matrices on one mesh, or "
+                             "a meshless second operand")
+        keep = _owned(sb.rows_h, B_mat.nb, A.mesh)
+        pick = torch.as_tensor(np.nonzero(keep)[0]).to(B_mat.device)
+        b_rows, b_cols = sb.rows_h[keep], sb.cols_h[keep]
+        sb = _TileStore(sb.rows[pick], sb.cols[pick], sb.tiles[pick], sb.nb)
+        sb._rows_h, sb._cols_h = b_rows, b_cols
     out = BlockSparseMatrix(
         A.n, A.n_cols, A.block_size, torch.cat([sa.rows, sb.rows]),
         torch.cat([sa.cols, sb.cols]),
         torch.cat([sa.tiles.to(out_dt), sb.tiles.to(out_dt)]), diag=d,
-        live_tiles=sa.live + sb.live)
+        live_tiles=sa.live + sb.live, mesh=A.mesh)
     out._store._rows_h = np.concatenate([sa.rows_h, sb.rows_h])
     out._store._cols_h = np.concatenate([sa.cols_h, sb.cols_h])
     return out
@@ -667,7 +823,11 @@ def stack_augmented_covariance(K, B, D):
     K's point count must be a multiple of the block size, so that the
     appended blocks land on the same grid; callers recompute the full
     covariance otherwise.  Sentinel tiles of the parts become sentinels of
-    the result (row index past its grid)."""
+    the result (row index past its grid).  A mesh K is refused: its row
+    ownership moves with the grid, so the caller recomputes."""
+    if K.mesh is not None:
+        raise ValueError("a row-owned K cannot be stacked; recompute the "
+                         "full covariance")
     if K.n % K.block_size != 0:
         raise ValueError("append grid misaligned; recompute the full "
                          "covariance")

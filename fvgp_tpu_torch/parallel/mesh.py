@@ -24,6 +24,14 @@ cotangent of a replicated loss, so a rule that sums twice would give
 * :func:`exchange_blocks` — ``all_to_all_single`` with equal splits; its
   transpose is the same exchange of the cotangent.
 
+Host-side agreement, without autograd: :func:`rank_values` (one host
+number from every rank, the same array on each), :func:`all_agree` and
+:func:`sync_host_random` (rank 0's numpy global random state on every
+rank, so host draws — MCMC proposals and accept tests, random starts —
+are the same everywhere).  :func:`owned_rows` is a rank's contiguous range
+of row blocks, the ownership of the stored ``BlockSparseMatrix`` and of the
+partitioned schedules.
+
 On the card's torch (2.11) gloo takes all four on CUDA tensors (measured:
 all-reduce, all-gather, all-to-all, broadcast and reduce-scatter), so no
 operation is staged through host memory.  NCCL refuses two ranks on one
@@ -35,13 +43,15 @@ import contextlib
 import datetime
 import os
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 __all__ = ["Mesh", "make_mesh", "make_mesh_2d", "tile_axes",
            "tile_device_count", "flat_tile_index", "set_mesh",
            "current_mesh", "use_mesh", "shard_tiles", "replicate",
-           "global_sum", "gather_rows", "exchange_blocks", "all_agree"]
+           "global_sum", "gather_rows", "exchange_blocks", "all_agree",
+           "owned_rows", "rank_values", "sync_host_random"]
 
 _ACTIVE_MESH = None
 
@@ -250,6 +260,18 @@ def use_mesh(mesh):
         _ACTIVE_MESH = prev
 
 
+def owned_rows(nb, mesh):
+    """``(r0, W)``: this rank owns row blocks ``[r0, min(r0 + W, nb))`` of
+    an ``nb``-block grid, ``W = partition.local_row_blocks(nb, n)`` — the
+    JAX package's contiguous ownership (the last ranks may own fewer
+    blocks, or none).  One rank, or no mesh: ``(0, nb)``."""
+    if mesh is None or mesh.size == 1:
+        return 0, int(nb)
+    from .partition import local_row_blocks
+    W = local_row_blocks(int(nb), tile_device_count(mesh))
+    return flat_tile_index(mesh) * W, W
+
+
 def shard_tiles(bsm, mesh=None):
     """This rank's segment of a BlockSparseMatrix's tile list, whose length
     is a multiple of the rank count (the JAX package shards the same list
@@ -374,6 +396,39 @@ def exchange_blocks(t, group=None, mesh=None):
     group rank j, and chunk i of the result came from group rank i."""
     mesh = mesh or current_mesh()
     return _ExchangeBlocks.apply(t, mesh, group or mesh.group)
+
+
+def rank_values(value, mesh=None):
+    """A host number (or a short 1-d sequence) from every rank, as a numpy
+    array with one row per rank in rank order, the same on every rank (one
+    all-gather).  A sum or a maximum taken from it is the same bits on
+    every rank."""
+    mesh = mesh or current_mesh()
+    v = torch.as_tensor(np.atleast_1d(np.asarray(value)),
+                        dtype=torch.float64)
+    if mesh is None or mesh.size == 1:
+        return v.numpy()[None]
+    out = _all_gather(v[None].to(mesh.device), mesh)
+    return out.cpu().numpy()
+
+
+def sync_host_random(mesh=None):
+    """Every rank takes rank 0's numpy global random state (one broadcast),
+    so what the ranks draw from it next is the same on each: an MCMC
+    proposal and its accept test, a random start inside the bounds.
+    Without it each rank, a process of its own, draws from its own state,
+    the ranks propose different hyperparameters and enter the LML's
+    collectives with different structures.  Nothing happens with one rank
+    or no mesh."""
+    mesh = mesh or current_mesh()
+    if mesh is None or mesh.size == 1:
+        return
+    state = [np.random.get_state() if mesh.rank == 0 else None]
+    dist.broadcast_object_list(
+        state, src=dist.get_global_rank(mesh.group, 0), group=mesh.group,
+        device=mesh.device if mesh.backend == "nccl" else None)
+    mesh.ops["broadcast"] += 1
+    np.random.set_state(state[0])
 
 
 def all_agree(ok, mesh=None):

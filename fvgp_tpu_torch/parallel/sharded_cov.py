@@ -1,5 +1,5 @@
-"""Block-sparse covariance assembly on one device — the gp2Scale engine
-(counterpart of ``fvgp_tpu/parallel/sharded_cov.py``).
+"""Block-sparse covariance assembly — the gp2Scale engine (counterpart of
+``fvgp_tpu/parallel/sharded_cov.py``).
 
 1. *Structure* (host, numpy): points are tiled into blocks of ``block_size``
    consecutive indices; candidate tile pairs are pruned by bounding-box
@@ -19,7 +19,18 @@ loop on the host.  Non-Euclidean inputs (lists of arbitrary objects) have a
 host kernel by construction and no geometry: every tile pair is scheduled
 (the upper triangle when symmetric), the host tile loop hands the kernel
 slices of the lists, and the exact zero-tile filter drops the dead tiles.
-The multi-device layout waits for ROADMAP item 1.8.
+
+On a mesh of more than one rank the stored (symmetric) K is row-owned, as
+the JAX package lays it out: every rank runs the same deterministic host
+structure pass on the replicated points, so all derive one schedule, and
+rank r then computes only the tiles of its row blocks ``[r0, r0 + W)``
+(``mesh.owned_rows``) — a scheduled upper tile ``(i, j)`` whose row it
+owns, and the mirror ``(j, i)`` of one whose column it owns, computed as
+``(i, j)`` and transposed on the device.  Only pairs that straddle a
+range boundary are computed twice (once on each side); no tile crosses
+ranks, and a rank's peak is its tile set plus one chunk.  Each rank's list
+is row-sorted and bucket-padded to ``_bucket`` of the largest rank's count,
+so the global padded count is the JAX package's ``tiles.shape[0]``.
 """
 
 import warnings
@@ -30,6 +41,7 @@ import torch
 from .. import config
 from ..kernels import wendland_anisotropic
 from .block_sparse import BlockSparseMatrix
+from .mesh import owned_rows, rank_values
 
 warnings.filterwarnings("once", category=UserWarning,
                         module=r"fvgp_tpu_torch(\..*)?")
@@ -147,27 +159,50 @@ def _blocks_device(x, block_size, dtype, device):
     return xb.to(device), mb.to(device)
 
 
-def _row_sorted_layout(rows, cols, symmetric, nb1, nb2):
-    """The final tile list of a scheduled (upper-triangle) structure:
-    ``(rows_final, cols_final, dest, off_idx, total)``.  The scheduled tiles
-    and, for a symmetric matrix, the mirrors of its off-diagonal ones are
-    sorted by (row block, column block) and bucket-padded with sentinels;
-    ``dest[i]`` is the final position of scheduled tile ``i`` (``i <
-    len(rows)``) or of the mirror of ``off_idx[i - len(rows)]``."""
+def _row_sorted_layout(rows, cols, symmetric, nb1, nb2, mesh=None,
+                       counts=None):
+    """This rank's final tile list of a scheduled (upper-triangle)
+    structure: ``(rows_final, cols_final, dest, off_idx, total)``.  The
+    scheduled tiles and, for a symmetric matrix, the mirrors of its
+    off-diagonal ones are sorted by (row block, column block) and
+    bucket-padded with sentinels; ``dest[i]`` is the final position of
+    scheduled tile ``i`` (``i < len(rows)``) or of the mirror of
+    ``off_idx[i - len(rows)]``, -1 where another rank owns that row block;
+    ``total`` is this rank's live count.  Without a mesh the rank owns every
+    row.  Under one each rank's list is padded to ``_bucket`` of the
+    largest count: ``counts`` (one per rank) where the ranks know only
+    their own tiles, else counted from this schedule, which every rank
+    holds whole."""
     off_idx = np.nonzero(rows < cols)[0] if symmetric \
         else np.empty(0, dtype=np.int64)
     rows_all = np.concatenate([rows, cols[off_idx]]).astype(np.int32)
     cols_all = np.concatenate([cols, rows[off_idx]]).astype(np.int32)
-    total = len(rows_all)
-    order = np.lexsort((cols_all, rows_all))
-    dest = np.empty(total, np.int64)
+    r0, W = owned_rows(nb1, mesh)
+    mine = np.nonzero((rows_all >= r0) & (rows_all < r0 + W))[0]
+    if counts is None:
+        counts = np.bincount(rows_all // W, minlength=1)
+    total = len(mine)
+    order = mine[np.lexsort((cols_all[mine], rows_all[mine]))]
+    dest = np.full(len(rows_all), -1, np.int64)
     dest[order] = np.arange(total)
-    padded = _bucket(max(total, 1))
+    padded = _bucket(max(int(np.max(counts)), 1))
     rows_final = np.full(padded, nb1, np.int32)
     cols_final = np.full(padded, nb2, np.int32)
     rows_final[:total] = rows_all[order]
     cols_final[:total] = cols_all[order]
     return rows_final, cols_final, dest, off_idx, total
+
+
+def _needed_tiles(dest, off_idx, n_sched):
+    """(scheduled tiles this rank computes, their destinations, their
+    mirrors' destinations): a tile is computed where the rank owns its row
+    or, for an off-diagonal one, its mirror's row (-1 marks a write the
+    rank does not make)."""
+    d_main = dest[:n_sched]
+    d_mirror = np.full(n_sched, -1, np.int64)
+    d_mirror[off_idx] = dest[n_sched:]
+    need = np.nonzero((d_main >= 0) | (d_mirror >= 0))[0]
+    return need, d_main[need], d_mirror[need]
 
 
 def distributed_covariance(prior, x1, x2, hyperparameters, *,
@@ -177,16 +212,15 @@ def distributed_covariance(prior, x1, x2, hyperparameters, *,
 
     One device engine serves every ``gp2Scale_distribution`` that the
     facade accepts, so the schedule's name does not reach this function.
-    ``mesh`` is where the multi-device layout will enter; anything but None
-    raises, since a rank's copy of the whole matrix would stand in for a
-    matrix spread over the ranks."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "fvgp_tpu_torch: the stored block-sparse covariance over a mesh "
-            "(distributed_covariance(mesh=...), the stored-K solves and "
-            "LML) is not ported yet (ROADMAP item 1.8, second part); the "
-            "traced gp2Scale LML and the committed posterior solver run on "
-            "the mesh")
+    ``mesh`` (a ``parallel.mesh.Mesh`` of more than one rank, for the
+    symmetric K only): the row-owned layout of the module docstring, every
+    rank calling together; one rank is the meshless matrix."""
+    if mesh is not None and mesh.size == 1:
+        mesh = None
+    if mesh is not None and not symmetric:
+        raise ValueError("distributed_covariance: only the symmetric K is "
+                         "row-owned on a mesh; a cross covariance is whole "
+                         "on every rank (mesh=None)")
     args = args or {}
     non_euclidean = isinstance(x1, list) or isinstance(x2, list)
     if non_euclidean:
@@ -229,7 +263,7 @@ def distributed_covariance(prior, x1, x2, hyperparameters, *,
     if non_euclidean or not prior.kernel_traceable:
         return _host_kernel_covariance(prior, x1, x2, hyperparameters, rows,
                                        cols, symmetric, block_size,
-                                       storage_dtype, device, args)
+                                       storage_dtype, device, args, mesh)
 
     x1b, m1 = _blocks_device(x1, block_size, dtype, device)
     x2b, m2 = (x1b, m1) if symmetric \
@@ -256,44 +290,55 @@ def distributed_covariance(prior, x1, x2, hyperparameters, *,
                     for s in range(0, len(rows), chunk)]).cpu().numpy()
             rows, cols = rows[keep], cols[keep]
 
-        # pass 2 (or the only pass): chunks written STRAIGHT to their final
-        # positions in the bucket-padded buffer, whose padding stays exactly
-        # zero (the fingerprint reads it)
-        n_sched = len(rows)
+        # pass 2 (or the only pass): the rank's tiles in chunks, each tile
+        # and its mirror written STRAIGHT to their final positions in the
+        # bucket-padded buffer, whose padding stays exactly zero (the
+        # fingerprint reads it)
         rows_final, cols_final, dest, off_idx, total = _row_sorted_layout(
-            rows, cols, symmetric, nb1, nb2)
+            rows, cols, symmetric, nb1, nb2, mesh)
+        need, d_main, d_mirror = _needed_tiles(dest, off_idx, len(rows))
         buf = torch.zeros((len(rows_final), block_size, block_size),
                           dtype=storage_dtype, device=device)
-        r_d = torch.as_tensor(rows).to(device).long()
-        c_d = torch.as_tensor(cols).to(device).long()
-        dest_d = torch.as_tensor(dest).to(device)
-        for s in range(0, n_sched, chunk):
-            e = min(s + chunk, n_sched)
+        r_d = torch.as_tensor(rows[need]).to(device).long()
+        c_d = torch.as_tensor(cols[need]).to(device).long()
+        for s in range(0, len(need), chunk):
+            e = min(s + chunk, len(need))
             part = _compute_tiles(kern_fn, x1b, x2b, m1, m2, r_d[s:e],
-                                  c_d[s:e], hps)
-            buf[dest_d[s:e]] = part.to(storage_dtype)
-        # mirror the off-diagonal tiles by a chunked device transpose
-        src_d = dest_d[torch.as_tensor(off_idx).to(device)]
-        for s in range(0, len(off_idx), chunk):
-            buf[dest_d[n_sched + s:n_sched + s + chunk]] = \
-                buf[src_d[s:s + chunk]].transpose(1, 2)
+                                  c_d[s:e], hps).to(storage_dtype)
+            for d, tiles in ((d_main[s:e], part),
+                             (d_mirror[s:e], part.transpose(1, 2))):
+                w = np.nonzero(d >= 0)[0]
+                if len(w) == e - s:
+                    buf[torch.as_tensor(d).to(device)] = tiles
+                elif len(w):
+                    buf[torch.as_tensor(d[w]).to(device)] = \
+                        tiles[torch.as_tensor(w).to(device)]
     result = BlockSparseMatrix(len(x1), len(x2), block_size, rows_final,
-                               cols_final, buf, live_tiles=total)
+                               cols_final, buf, live_tiles=total, mesh=mesh)
     _log_assembly(result, total, nb1, nb2)
     return result
 
 
 def _host_kernel_covariance(prior, x1, x2, hyperparameters, rows, cols,
                             symmetric, block_size, storage_dtype, device,
-                            args):
+                            args, mesh=None):
     """The tile loop on the host, for a kernel that does not run on tensors
     (any numpy callable, and every kernel of a non-Euclidean input space,
     which takes slices of the point lists): tiles one by one, the exact
     zero-tile filter as one host reduction, mirror and padding in numpy, one
-    transfer."""
+    transfer.  Under a mesh a rank evaluates only the tiles it stores (its
+    rows, and the mirrors of its columns); liveness is then known for those
+    alone, so the ranks' live counts, which set the common padding, take
+    one all-gather."""
     from scipy.sparse import issparse
     nb1 = -(-len(x1) // block_size)
     nb2 = -(-len(x2) // block_size)
+    if mesh is not None:
+        # the tiles this rank needs, on the unfiltered schedule
+        _, _, dest, off_idx, _ = _row_sorted_layout(rows, cols, symmetric,
+                                                    nb1, nb2, mesh)
+        need = _needed_tiles(dest, off_idx, len(rows))[0]
+        rows, cols = rows[need], cols[need]
     tiles = np.zeros((len(rows), block_size, block_size))
     hps = np.asarray(hyperparameters)
     for t in range(len(rows)):
@@ -306,21 +351,33 @@ def _host_kernel_covariance(prior, x1, x2, hyperparameters, rows, cols,
     if bool(args.get("gp2Scale_tile_filter", True)) and len(rows):
         keep = np.abs(tiles).max(axis=(1, 2)) > 0
         rows, cols, tiles = rows[keep], cols[keep], tiles[keep]
+    counts = None
+    if mesh is not None:
+        r0, W = owned_rows(nb1, mesh)
+        off = rows < cols
+        mine = np.sum((rows >= r0) & (rows < r0 + W)) \
+            + np.sum(off & (cols >= r0) & (cols < r0 + W))
+        counts = rank_values(mine, mesh)[:, 0]
     rows_final, cols_final, dest, off_idx, total = _row_sorted_layout(
-        rows, cols, symmetric, nb1, nb2)
+        rows, cols, symmetric, nb1, nb2, mesh, counts)
+    need, d_main, d_mirror = _needed_tiles(dest, off_idx, len(rows))
     buf = np.zeros((len(rows_final), block_size, block_size))
-    buf[dest[:len(rows)]] = tiles
-    buf[dest[len(rows):]] = np.swapaxes(tiles[off_idx], 1, 2)
+    w = d_main >= 0
+    buf[d_main[w]] = tiles[need[w]]
+    w = d_mirror >= 0
+    buf[d_mirror[w]] = np.swapaxes(tiles[need[w]], 1, 2)
     result = BlockSparseMatrix(
         len(x1), len(x2), block_size, rows_final, cols_final,
         torch.as_tensor(buf).to(device=device, dtype=storage_dtype),
-        live_tiles=total)
+        live_tiles=total, mesh=mesh)
     _log_assembly(result, total, nb1, nb2)
     return result
 
 
 def _log_assembly(result, total, nb1, nb2):
     from ..utils.logging import logger
+    mesh = result.mesh
     logger.debug("covariance assembled: %d/%d tiles scheduled, block %d, "
-                 "fill %.4f, single-device", total, nb1 * nb2,
-                 result.block_size, result.sparsity())
+                 "fill %.4f, %s", total, nb1 * nb2, result.block_size,
+                 result.sparsity(), "single-device" if mesh is None else
+                 f"rank {mesh.rank} of {mesh.size}, row-owned")

@@ -1,1 +1,1 @@
-
+from .timing import log_time  # noqa: F401

@@ -7,6 +7,7 @@ the sums differs; the bfloat16 storage case is held to 1e-2 (bfloat16 keeps
 8 mantissa bits of entries <= 1)."""
 
 import pickle
+import types
 import warnings
 
 import jax.numpy as jnp
@@ -566,9 +567,14 @@ def test_unserved_inputs_raise_with_their_roadmap_item(stored):
     with pytest.raises(AssertionError, match="gp2Scale_distribution"):
         _gp(GP, stored["x"], stored["y"], {"gp2Scale_block_size": 64},
             gp2Scale_distribution="ringwise")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 1.8"):
-        distributed_covariance(gp.prior, x, x, HPS, symmetric=True,
-                               args=gp.args, mesh=object())
+    # served since ROADMAP item 1.8: a one-rank mesh is the meshless matrix
+    one_rank = distributed_covariance(gp.prior, x, x, HPS, symmetric=True,
+                                      args=gp.args,
+                                      mesh=types.SimpleNamespace(size=1))
+    assert one_rank.mesh is None
+    meshless = distributed_covariance(gp.prior, x, x, HPS,
+                                      symmetric=True, args=gp.args)
+    np.testing.assert_array_equal(one_rank.toarray(), meshless.toarray())
     # list inputs are served since ROADMAP item 1.6: a host kernel takes
     # slices of the lists in the host tile loop, every tile pair scheduled
 

@@ -13,8 +13,8 @@ would block the others; ``WORLD_TIMEOUT`` kills the world instead):
 * (b) 8 ranks: the dryrun's facade stage (``__graft_entry__._facade_stage``)
   against the meshless run, at the dryrun's bounds;
 * (c) 4 ranks: an append against a fresh model, ``fvGP`` multi-task, two
-  steps of the Adam chain against one rank, the stored-K path's
-  ``NotImplementedError``, the agreed out-of-memory retreat, and the
+  steps of the Adam chain against one rank, the stored-K path's three
+  calls against one rank, the agreed out-of-memory retreat, and the
   auto 2-D layout under ``FVGP_TPU_ASSUME_SLICES``.
 
 The workers are functions of this module, looked up by name in each
@@ -326,22 +326,23 @@ def _models_world(rank, world):
                 DRY_HPS, np.zeros(3), np.zeros(3), 0, 2, bounds=bounds,
                 probe_source=probes_of(gpc))
     out["adam"] = chains
-    # the stored K is not ported to a mesh: every path to it raises
-    raised = []
-    with pm.use_mesh(mesh):
-        gps = GP(x, y, init_hyperparameters=hps, gp2Scale=True,
-                 compute_device="cpu",
-                 args={**a, "gp2Scale_traced_lml": False})
-        for call in (lambda: gps.log_likelihood(), lambda: gps.K,
-                     lambda: distributed_covariance(
-                         gps.prior, x, x, hps, symmetric=True, args=a,
-                         mesh=mesh)):
-            try:
-                call()
-                raised.append("nothing")
-            except NotImplementedError as exc:
-                raised.append(str(exc))
-    out["stored_k"] = raised
+    # the stored K on the mesh (ROADMAP item 1.8, second part): the three
+    # calls, each rank holding the tiles of its own row blocks, against the
+    # same calls on one rank
+    stored = {}
+    sa = {**a, "gp2Scale_traced_lml": False}
+    for name, m in (("one", None), ("mesh", mesh)):
+        with pm.use_mesh(m):
+            gps = GP(x, y, init_hyperparameters=hps, gp2Scale=True,
+                     compute_device="cpu", args=dict(sa))
+            xs = np.asarray(gps.x_data)
+            K = gps.K
+            Kd = distributed_covariance(gps.prior, xs, xs, hps,
+                                        symmetric=True, args=a, mesh=m)
+            stored[name] = (gps.log_likelihood(), K.toarray(), Kd.toarray(),
+                            K.mesh is m, K._store.rows_h.tolist(),
+                            pm.owned_rows(K.nb, m))
+    out["stored_k"] = stored
     # a tile list split over the ranks: each keeps its own segment
     from fvgp_tpu_torch.parallel.block_sparse import BlockSparseMatrix
     rows_s, cols_s = _banded_schedule(6, half=1)
@@ -535,10 +536,23 @@ def test_adam_chain_on_the_mesh_matches_one_rank(models):
 
 
 def test_stored_k_path_raises_under_the_mesh(models):
+    """The three stored-K calls that raised before ROADMAP item 1.8's
+    second part are served on the 4-rank mesh: the LML off the traced path,
+    ``gp.K`` and ``distributed_covariance(mesh=...)``, each rank holding
+    only its own row blocks' tiles, the whole matrix and the LML equal to
+    one rank's."""
+    lml0 = models[0]["stored_k"]["mesh"][0]
     for out in models:
-        assert len(out["stored_k"]) == 3
-        for msg in out["stored_k"]:
-            assert "1.8" in msg, msg
+        one, got = out["stored_k"]["one"], out["stored_k"]["mesh"]
+        lml, K, Kd, owned, rows, (r0, W) = got
+        assert owned and one[3]
+        nb = -(-len(K) // 64)
+        assert all(r0 <= r < min(r0 + W, nb) or r == nb
+                   for r in rows), (r0, W, sorted(set(rows)))
+        np.testing.assert_allclose(lml, one[0], rtol=1e-10)
+        assert lml == lml0
+        np.testing.assert_array_equal(K, one[1])
+        np.testing.assert_array_equal(Kd, one[1])
 
 
 def test_shard_tiles_keeps_each_rank_its_segment(models):

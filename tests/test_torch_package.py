@@ -48,12 +48,35 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "import fvgp_tpu_torch.models.deep_kernel_network\n"
         "import fvgp_tpu_torch.models.gpm, fvgp_tpu_torch.models.gplvm\n"
         "import fvgp_tpu_torch.models.ggmp\n"
+        "import fvgp_tpu_torch.utils.timing\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'fvgp_tpu' or m.startswith('fvgp_tpu.')"
         " or m == 'optax' or m.startswith('optax.')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)")
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_log_time_keeps_cumulative_totals(capsys):
+    """``utils.log_time`` (the JAX package's ``utils/timing.py``): per-label
+    totals and counts in ``timing_report``, printed only when enabled."""
+    from fvgp_tpu_torch.utils import log_time, timing
+    label = "test_torch_package block"
+    before = timing.timing_report().get(label, {"total_s": 0.0, "count": 0})
+    for _ in range(2):
+        with log_time(label):
+            sum(range(1000))
+    assert capsys.readouterr().out == ""
+    timing.enable()
+    try:
+        with log_time(label):
+            pass
+    finally:
+        timing.disable()
+    assert f"[fvgp_tpu_torch timing] {label}:" in capsys.readouterr().out
+    report = timing.timing_report()[label]
+    assert report["count"] == before["count"] + 3
+    assert report["total_s"] >= before["total_s"]
 
 
 def _tiny_data():
@@ -165,14 +188,20 @@ def test_dense_path_and_unported_methods_raise():
     assert 0.0 <= probability["probability"] < np.inf
     with pytest.raises(AttributeError):
         gp.no_such_attribute
-    # the stored-K slice's raising site that stays: the multi-device layout
-    # (ROADMAP item 1.8)
+    # served since ROADMAP item 1.8: the multi-device layout; a one-rank
+    # mesh gives the meshless matrix
+    import types
+
     from scipy import sparse
 
     from fvgp_tpu_torch.parallel.sharded_cov import distributed_covariance
-    with pytest.raises(NotImplementedError, match="ROADMAP item 1.8"):
-        distributed_covariance(gp.prior, x, x, gp.hyperparameters,
-                               symmetric=True, args=gp.args, mesh=object())
+    one_rank = distributed_covariance(gp.prior, x, x, gp.hyperparameters,
+                                      symmetric=True, args=gp.args,
+                                      mesh=types.SimpleNamespace(size=1))
+    assert one_rank.mesh is None
+    meshless = distributed_covariance(gp.prior, x, x, gp.hyperparameters,
+                                      symmetric=True, args=gp.args)
+    np.testing.assert_array_equal(one_rank.toarray(), meshless.toarray())
     # served since item 1.6: list inputs (a host kernel takes the lists),
     # structured noise on a block-sparse K, a noise callable under
     # gp2Scale, the gradient callables and host callables' gradients
