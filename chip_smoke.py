@@ -152,10 +152,26 @@ the stored-K journey's configuration of phase 9 across both ranks
 (assembly, a trial LML, a 64-point full covariance; counted), with the
 recompute of a 1,024-point append.
 
-K4's entry point, phases 6-6e, 7-7c, 9-9c, 9e and 10's two N=1M journeys
-and the two counted pieces of 5d are the paths: every
-kernel's launch counter is reset just before each and read just after it,
-and the ``launches`` of a kernel is its sum over them.  The line before the
+Since the examples slice (ROADMAP item 1.9 and the last of item 1.8)
+also: 11. the examples phase (``examples_phase``): the nine examples of
+``fvgp_tpu_torch/examples`` on the card at the JAX examples' accelerator
+sizes (``gp2scale_sparse`` at N = 20,000), each ``main()`` counted —
+seconds, peak device memory, K1-K4 launches — ``multichip_mesh`` as 4
+gloo ranks sharing the card (bitwise across the ranks); each example's
+numbers at its first hyperparameters held against the same example in
+float64 on the CPU (computed by a process of its own meanwhile) at the
+PERF.md §2 bounds of its path, and the dense-family examples' in float64
+on the card at 1e-8; 12. the kernel catalog's new functions on the card
+(float64 and float32) against the CPU in float64, the ``_sparse``
+Wendland kernel, ``covariance_csr`` evaluating on the card, the op-level
+``assemble_tiles`` / ``tile_maxabs``; 13. ``train_async`` (``"adam"``,
+``"mcmc"``, a stop) on 2 gloo ranks sharing the card, every poll bitwise
+equal across the ranks.
+
+K4's entry point, phases 6-6e, 7-7c, 9-9c, 9e, 10's two N=1M journeys,
+the nine examples of 11 and the two counted pieces of 5d are the paths:
+every kernel's launch counter is reset just before each and read just
+after it, and the ``launches`` of a kernel is its sum over them.  The line before the
 last is
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
 Exits non-zero without a CUDA device.
@@ -3943,6 +3959,362 @@ def _report_stored_n1m(ranks):
                                  "journey")
 
 
+# ---------------------------------------------------------------------------
+# the rest of the JAX package's surface: the nine examples, the rest of the
+# kernel catalog, asynchronous training under a mesh
+# ---------------------------------------------------------------------------
+
+EXAMPLES = ("single_task", "deep_kernel", "multi_task", "non_euclidean",
+            "gp2scale_sparse", "gplvm_latent", "manifold_gpm",
+            "ggmp_multitask", "multichip_mesh")
+# examples/gp2scale_sparse.py sizes itself at 20,000 points on an
+# accelerator
+GP2SCALE_EXAMPLE_N = 20_000
+# an example's numbers at its first hyperparameters, the card's float32 run
+# against the CPU's float64 one, at the PERF.md §2 bounds of the path it
+# takes: gp2Scale's float32 bounds for the two gp2Scale examples (the mesh
+# example's against the CPU too).  The dense-family examples keep their
+# default noise, (0.01 mean|y|)^2, and their K+V condition numbers reach
+# 1e3-1e6 (single_task 1.9e6, the deep kernel 2.4e6, multi_task 2.1e3),
+# where float32 sits up to 1e-2 from float64 (the first chip run of the
+# phase read single_task's LML at 3.8e-3): as §2 does for the deep kernel,
+# GPm and GPLVM, their float32 errors are printed beside cond(K+V), and
+# held at the dense bounds only where cond(K+V) <= EXAMPLE_COND_HELD
+# (non_euclidean 15, ggmp_multitask 8); every dense-family example is
+# held in float64 on the card at EXAMPLE_F64_BOUND
+EXAMPLE_BOUNDS = {"gp2scale_sparse": BOUNDS["float32"],
+                  "multichip_mesh": BOUNDS["float32"]}
+EXAMPLE_DENSE_BOUNDS = {**DENSE_BOUNDS, "S": 1e-3, "pdf": 1e-3}
+EXAMPLE_COND_HELD = 1e3
+EXAMPLE_F64 = ("single_task", "deep_kernel", "multi_task", "non_euclidean",
+               "gplvm_latent", "manifold_gpm", "ggmp_multitask")
+EXAMPLE_F64_BOUND = 1e-8
+EXAMPLE_MESH_RANKS = 4
+# the catalog functions on the card against the CPU in float64, of each
+# output's scale: float64 (the card's exp / sin / sort differ from the
+# CPU's in the last bits), float32
+CATALOG_BOUNDS = {"float64": 1e-12, "float32": 1e-4}
+ASYNC_RANKS = 2
+ASYNC_ITERS = {"adam": 60, "mcmc": 60}
+
+
+def _example(name):
+    import importlib
+    return importlib.import_module(f"fvgp_tpu_torch.examples.{name}")
+
+
+def _example_first(name, device, args=None):
+    """An example's numbers at its first hyperparameters, at the
+    accelerator's size."""
+    kw = {"n": GP2SCALE_EXAMPLE_N} if name == "gp2scale_sparse" else {}
+    return _example(name).first(device, args=args, **kw)
+
+
+def _examples_reference_task(rank, world):
+    """The nine examples' first numbers on the CPU in float64 — a process
+    of its own, beside the card's runs (half the cores)."""
+    import torch
+    torch.set_num_threads(4)
+    return {name: _example_first(name, "cpu") for name in EXAMPLES}
+
+
+def _example_run(name, card):
+    """(returned numbers, seconds, launches, peak GiB) of an example's
+    ``main`` on ``card``, the counts set to 0 just before it."""
+    import torch
+    kw = {"n": GP2SCALE_EXAMPLE_N} if name == "gp2scale_sparse" else {}
+    if card == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out, secs, launches = counted(
+            lambda: _example(name).main(device=card, **kw))
+        return out, secs, launches, \
+            torch.cuda.max_memory_allocated() / 2**30
+    t0 = time.time()
+    return _example(name).main(device=card, **kw), time.time() - t0, \
+        launch_counts(), float("nan")
+
+
+def _examples_mesh_task(rank, world, card="cuda"):
+    """``multichip_mesh`` as ``world`` gloo ranks sharing the card."""
+    from fvgp_tpu_torch.ops import hopper_kernels as hk
+    if card == "cuda":
+        hk.build_kernels()
+    hk.reset_launch_counts()
+    out, secs, launches, peak = _example_run("multichip_mesh", card)
+    return {"out": out, "seconds": secs, "launches": launches,
+            "peak_gib": peak}
+
+
+def _examples_mesh_task_cpu(rank, world):
+    return _examples_mesh_task(rank, world, card="cpu")
+
+
+def _bitwise_equal(a, b):
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_bitwise_equal(a[k], b[k])
+                                            for k in a)
+    return np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def _example_condition(name):
+    """cond(K+V) at the first hyperparameters of an example whose model is
+    a ``GP`` (a GGMP's worst component), from the CPU float64 model; None
+    for the others."""
+    import torch
+    if name in ("gp2scale_sparse", "multichip_mesh", "gplvm_latent",
+                "manifold_gpm"):
+        return None
+    model = _example(name).model("cpu")
+    gps = model.gps if name == "ggmp_multitask" else [model]
+    return max(_condition(gp.prior.K + torch.diag(gp.likelihood.V), "cpu")
+               for gp in gps)
+
+
+def _example_errors(got, ref):
+    return _ext_errors({k: got[k] for k in ref}, ref)
+
+
+def examples_phase(card="cuda"):
+    """(a) The nine examples (``fvgp_tpu_torch/examples``) on the card at
+    the JAX examples' accelerator sizes, each ``main()`` counted: seconds,
+    peak device memory and K1-K4 launches; ``multichip_mesh`` as 4 gloo
+    ranks sharing the card.  Each example's numbers at its first
+    hyperparameters are held against the same example in float64 on the
+    CPU (a process of its own, started first) at EXAMPLE_BOUNDS (the
+    dense-family examples' float32 errors are printed beside cond(K+V)),
+    and the dense-family examples' in float64 on the card at
+    EXAMPLE_F64_BOUND.  Every check is made before a failure is raised.
+    Returns each example's launches."""
+    t0 = time.time()
+    ref_started = _start_world("_examples_reference_task", 1, gloo=False)
+    runs, paths = {}, {}
+    for name in EXAMPLES[:-1]:
+        out, secs, launches, peak = _example_run(name, card)
+        runs[name] = (out, secs, peak, launches)
+    mesh_task = "_examples_mesh_task" if card == "cuda" \
+        else "_examples_mesh_task_cpu"
+    ranks = _join_world(_start_world(mesh_task, EXAMPLE_MESH_RANKS))
+    if not all(_bitwise_equal(r["out"], ranks[0]["out"]) for r in ranks):
+        raise AssertionError("multichip_mesh: the ranks disagree")
+    runs["multichip_mesh"] = (
+        ranks[0]["out"], max(r["seconds"] for r in ranks),
+        max(r["peak_gib"] for r in ranks),
+        {k: sum(r["launches"][k] for r in ranks) for k in REPLACES})
+    t_ref = time.time()
+    ref = _join_world(ref_started)[0]
+    log(f"examples: the CPU float64 references were ready "
+        f"{time.time() - t_ref:.1f} s after the card's runs "
+        f"({time.time() - t0:.1f} s in all)")
+    kern = dict(zip(REPLACES, ("K1", "K2", "K3", "K4")))
+    failed = []
+
+    def hold(tag, errs, bounds):
+        try:
+            held(tag, errs, bounds)
+        except AssertionError as exc:
+            failed.append(str(exc))
+
+    for name in EXAMPLES:
+        out, secs, peak, launches = runs[name]
+        paths[name] = launches
+        extra = f" on {EXAMPLE_MESH_RANKS} gloo ranks" \
+            if name == "multichip_mesh" else ""
+        log(f"example {name}{extra}: {secs:.2f} s, peak {peak:.2f} GiB, "
+            "launches " + ", ".join(f"{kern[k]} {launches[k]}"
+                                    for k in REPLACES)
+            + f"; LML {float(out['first']['lml']):.6g} -> "
+            f"{float(out['lml']):.6g}")
+        cond = _example_condition(name)
+        bounds = EXAMPLE_DENSE_BOUNDS if cond and cond <= EXAMPLE_COND_HELD \
+            else EXAMPLE_BOUNDS.get(name, {})
+        hold(f"example {name}, first hyperparameters, {card} float32 vs "
+             f"CPU float64" + (f", cond(K+V) {cond:.3e}" if cond else ""),
+             _example_errors(out["first"], ref[name]), bounds)
+        if not float(out["lml"]) >= float(out["first"]["lml"]) \
+                - 1e-6 * abs(float(out["first"]["lml"])):
+            failed.append(f"example {name}: training lowered the LML")
+    for name in EXAMPLE_F64:
+        got = _example_first(name, card, args={"dtype": "float64"})
+        hold(f"example {name}, first hyperparameters, {card} float64 vs "
+             "CPU float64", _example_errors(got, ref[name]),
+             {k: EXAMPLE_F64_BOUND for k in ("lml", "mean", "var", "S",
+                                              "pdf")})
+    if failed:
+        raise AssertionError("examples phase: " + "; ".join(failed))
+    if card == "cuda" and not any(paths[n]["dense_covariance"]
+                                  for n in EXAMPLES):
+        raise AssertionError("no example launched K3")
+    return paths
+
+
+def _catalog_cases():
+    rng = np.random.default_rng(0)
+    x1, x2 = rng.uniform(0, 3, (700, 2)), rng.uniform(0, 3, (500, 2))
+    x0, w = rng.uniform(0, 3, (40, 2)), rng.uniform(0.5, 1.5, 40)
+    a, b = rng.uniform(0.1, 1.0, (600, 64)), rng.uniform(0.1, 1.0, (300, 64))
+    h4 = [1.0, 1.5, 1.0, 0.7]
+    return {"linear_kernel": (x1, x2[:1], 1.0, 2.0, 0.5),
+            "dot_product_kernel": (x1.T, x2.T, 0.3, np.diag([1.0, 2.0])),
+            "polynomial_kernel": (x1.T, x2.T, 3.0),
+            "non_stat_kernel": (x1, x2, x0, w, 1.2),
+            "non_stat_kernel_gradient": (x1, x2, x0, w, 1.2),
+            "wasserstein_1d": (a[0], a[1]),
+            "wasserstein_1d_outer_vec": (a, b),
+            "bump": (np.linspace(0.0, 2.0, 4001), 1.3, 0.7, 2.0),
+            "sle_kernel": (x1, x2, h4, {"x_data": x0})}
+
+
+def catalog_phase(card="cuda"):
+    """(b) The kernel catalog's new functions on the card (float64 and
+    float32 tensors) against their CPU float64 values, at CATALOG_BOUNDS
+    of each output's scale; the ``_sparse`` Wendland kernel on card
+    tensors, ``covariance_csr`` of a port kernel evaluated on the card,
+    and the op-level ``assemble_tiles`` / ``tile_maxabs``."""
+    import torch
+
+    from fvgp_tpu_torch import kernels as K
+    from fvgp_tpu_torch.ops import sparse_lml as sl
+    from fvgp_tpu_torch.parallel import sharded_cov as sc
+
+    def on(args, device, dtype):
+        return tuple(a if isinstance(a, (float, dict)) else
+                     torch.as_tensor(np.asarray(a), dtype=dtype).to(device)
+                     for a in args)
+
+    for name, args in _catalog_cases().items():
+        ref = getattr(K, name)(*on(args, "cpu", torch.float64)).numpy()
+        errs = {}
+        for dname, dtype in (("float64", torch.float64),
+                             ("float32", torch.float32)):
+            got = getattr(K, name)(*on(args, card, dtype))
+            errs[dname] = scale_err(got.double().cpu().numpy(), ref)
+        held(f"catalog {name} {tuple(np.shape(ref))}, {card} vs CPU "
+             "float64", errs, CATALOG_BOUNDS)
+    rng = np.random.default_rng(5)
+    x = rng.uniform(0, 30, (2000, 2))
+    hps = np.array([1.2, 1.0, 1.5])
+    ref = K.wendland_anisotropic_gp2Scale_cpu_sparse(x, x[:700], hps)
+    got = K.wendland_anisotropic_gp2Scale_cpu_sparse(
+        *on((x, x[:700], hps), card, torch.float32))
+    held(f"catalog wendland_anisotropic_gp2Scale_cpu_sparse (2000, 700), "
+         f"{card} float32 tensors in", {
+             "float32": scale_err(got.toarray(), ref.toarray()),
+             "nnz_diff": float(abs(got.nnz - ref.nnz))},
+         {"float32": CATALOG_BOUNDS["float32"]})
+    ref = sc.covariance_csr(K.wendland_anisotropic, x, x, hps,
+                            batch_size=500, compute_device="cpu")
+    t0 = time.time()
+    got = sc.covariance_csr(K.wendland_anisotropic, x, x, hps,
+                            batch_size=500, compute_device=card)
+    held(f"covariance_csr N=2000, blocks of 500 evaluated on {card} "
+         f"(float32) in {time.time() - t0:.3f} s",
+         {"float32": scale_err(got.toarray(), ref.toarray())},
+         {"float32": CATALOG_BOUNDS["float32"]})
+    B = 64
+    xb_h, mask_h, *_ = sl.make_padded_inputs(x, np.zeros(len(x)),
+                                             np.full(len(x), 1e-2), B,
+                                             torch.float64, "cpu")
+    nb = xb_h.shape[0]
+    rows = np.concatenate([np.repeat(np.arange(nb), nb), [nb]])
+    cols = np.concatenate([np.tile(np.arange(nb), nb), [0]])
+    ref_t = sl.assemble_tiles(K.wendland_anisotropic, xb_h, mask_h, rows,
+                              cols, hps).numpy()
+    ref_m = sl.tile_maxabs(K.wendland_anisotropic, xb_h, mask_h, rows, cols,
+                           hps).numpy()
+    errs = {}
+    for dname, dtype in (("float64", torch.float64),
+                         ("float32", torch.float32)):
+        xb, mask = xb_h.to(card, dtype), mask_h.to(card, dtype)
+        errs[dname] = scale_err(sl.assemble_tiles(
+            K.wendland_anisotropic, xb, mask, rows, cols,
+            hps).double().cpu().numpy(), ref_t)
+        live = sl.tile_maxabs(K.wendland_anisotropic, xb, mask, rows, cols,
+                              hps).cpu().numpy() > 0
+        errs[f"live_tiles_diff_{dname}"] = float(np.sum(live != (ref_m > 0)))
+    held(f"assemble_tiles / tile_maxabs, {len(rows)} tiles of {B}, {card} "
+         "vs CPU float64", errs, CATALOG_BOUNDS)
+
+
+def _async_data(n=2000):
+    rng = np.random.default_rng(21)
+    x = rng.uniform(0, 20, (n, 2))
+    y = np.sin(x[:, 0]) + 0.1 * np.cos(3 * x[:, 1]) \
+        + 0.05 * rng.standard_normal(n)
+    return x, y
+
+
+def _async_mesh_task(rank, world, card="cuda"):
+    """Asynchronous ``"adam"`` and ``"mcmc"`` on a dense N=2,000 GP (float32),
+    the ranks seeded apart, each polling three times at its own pace and
+    drawing from numpy meanwhile; then an MCMC stopped by rank 0 first."""
+    from fvgp_tpu_torch import GP
+    from fvgp_tpu_torch.ops import hopper_kernels as hk
+    from fvgp_tpu_torch.parallel import mesh as pm
+    if card == "cuda":
+        hk.build_kernels()
+    bounds = np.array([[0.1, 5.0], [0.2, 10.0], [0.2, 10.0]])
+    x, y = _async_data()
+    out = {}
+    with pm.use_mesh(pm.make_mesh(layout="1d")):
+        gp = GP(x, y, init_hyperparameters=np.array([1.0, 1.5, 1.5]),
+                noise_variances=np.full(len(x), 1e-2), compute_device=card)
+        for method, iters in ASYNC_ITERS.items():
+            np.random.seed(100 + rank)
+            t0 = time.time()
+            opt = gp.train(hyperparameter_bounds=bounds, method=method,
+                           max_iter=iters, asynchronous=True)
+            polls, steps = [], []
+            for k in range(3):
+                time.sleep(0.05 * (k + 1) * (1 + 3 * rank))
+                np.random.uniform(size=1 + 7 * rank)
+                polls.append(gp.update_hyperparameters(opt).copy())
+                steps.append(opt.agreed_step)
+            opt.actor.join(300)
+            polls.append(gp.update_hyperparameters(opt).copy())
+            out[method] = {"polls": polls, "steps": steps,
+                           "published": opt.actor.published_steps(),
+                           "seconds": time.time() - t0}
+        np.random.seed(7 + rank)
+        opt = gp.train(hyperparameter_bounds=bounds, method="mcmc",
+                       max_iter=100_000, asynchronous=True)
+        time.sleep(1.0 + 1.0 * rank)
+        gp.stop_training(opt)
+        opt.actor.join(300)
+        out["stop"] = {"published": opt.actor.published_steps(),
+                       "poll": gp.update_hyperparameters(opt).copy()}
+    return out
+
+
+def _async_mesh_task_cpu(rank, world):
+    return _async_mesh_task(rank, world, card="cpu")
+
+
+def async_phase(card="cuda"):
+    """(c) ``train_async`` on 2 gloo ranks sharing the card: every poll,
+    taken at different times on the two ranks, gives both the same bits;
+    a stop asked for at different times ends both at the same step."""
+    t0 = time.time()
+    task = "_async_mesh_task" if card == "cuda" else "_async_mesh_task_cpu"
+    a, b = _join_world(_start_world(task, ASYNC_RANKS))
+    for method in ASYNC_ITERS:
+        ra, rb = a[method], b[method]
+        if not (ra["steps"] == rb["steps"]
+                and all(np.array_equal(p, q)
+                        for p, q in zip(ra["polls"], rb["polls"]))):
+            raise AssertionError(f"train_async {method}: the ranks' polls "
+                                 "differ")
+        log(f"train_async {method} on {ASYNC_RANKS} gloo ranks ({card}, "
+            f"float32, dense N=2,000): polls at steps {ra['steps']} of "
+            f"{ra['published']}, bitwise equal on both ranks; "
+            f"{ra['seconds']:.2f} s / {rb['seconds']:.2f} s")
+    if not (a["stop"]["published"] == b["stop"]["published"]
+            and np.array_equal(a["stop"]["poll"], b["stop"]["poll"])):
+        raise AssertionError("train_async: the ranks stopped apart")
+    log(f"train_async mcmc stopped by rank 0 at 1 s, by rank 1 at 2 s: both "
+        f"at step {a['stop']['published']}; {time.time() - t0:.1f} s")
+
+
 def main():
     import torch
     smi = smi_line()
@@ -4037,6 +4409,16 @@ def main():
     t0 = time.time()
     mesh_launches = mesh_phase(cpu_ref)
     log(f"mesh phase: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    example_launches = examples_phase()
+    log(f"examples phase (nine examples, the CPU float64 references "
+        f"beside them): {time.time() - t0:.1f} s")
+    t0 = time.time()
+    catalog_phase()
+    log(f"kernel catalog phase: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    async_phase()
+    log(f"asynchronous training on the mesh phase: {time.time() - t0:.1f} s")
     # each kernel's launches on the four paths, each read just after its
     # run: K4's ops entry, the dense journey, the gp2Scale journey, the
     # stored-K journey
@@ -4046,7 +4428,8 @@ def main():
              slice_launches["training"], stored_launches, merged_launches,
              diagonal_launches, multitask_launches, formula_launches,
              structured_launches, non_euclidean_launches,
-             *extension_launches.values(), *mesh_launches.values()]
+             *extension_launches.values(), *mesh_launches.values(),
+             *example_launches.values()]
     launches = {name: sum(p[name] for p in paths) for name in REPLACES}
     for kern, name in (("K1", "chunked_spmm"), ("K2", "row_chunk_sums")):
         log(f"{kern} launches by path: " + json.dumps(
@@ -4070,7 +4453,9 @@ def main():
          "fvGP multi-task": multitask_launches["dense_covariance"],
          "formula gradient": formula_launches["dense_covariance"],
          **{path: total["dense_covariance"]
-            for path, total in extension_launches.items()}}))
+            for path, total in extension_launches.items()},
+         **{f"example {name}": total["dense_covariance"]
+            for name, total in example_launches.items()}}))
     log("K1 on the merged float32 K+V (bfloat16 K + scipy noise, N = 1M), "
         "k = 1: " + json.dumps(merged_record))
     log("K1 at the SLQ batch width (k = 16, N = 1M structure): "

@@ -41,7 +41,9 @@ states across (``gp_from_numpy_state``, ``gpm_from_numpy_state``,
 ``gplvm_from_numpy_state``, ``ggmp_from_numpy_state``).
 
 Every TPU kernel of the JAX package has a hand-written Hopper counterpart in
-``ops/hopper_kernels.py`` (K1-K4).
+``ops/hopper_kernels.py`` (K1-K4).  ``examples/`` holds the JAX package's
+nine worked examples on the port (``python -m
+fvgp_tpu_torch.examples.<name>``; ``--device cpu`` off the card).
 """
 
 from .interop import gp_from_numpy_state
@@ -56,3 +58,4 @@ from .models.gpm import GPm
 __all__ = ["GGMP", "GP", "GPLVM", "GPm", "NotPortedError",
            "ProposalDistribution", "fvGP", "ggmp", "gpMCMC",
            "gp_from_numpy_state"]
+__version__ = "0.1.0"

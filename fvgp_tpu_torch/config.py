@@ -6,8 +6,10 @@
   for a card — explicitly or by default — on a machine without one raises,
   and nothing falls back to the CPU quietly.
 * Linear algebra runs in :func:`linalg_dtype`: ``args["dtype"]`` when set,
-  else float64 on the CPU (the parity regime) and float32 on CUDA; dense
-  kernel sweeps run in :func:`kernel_compute_dtype` (``args["kernel_dtype"]``).
+  else the global override of :func:`set_linalg_dtype` when set, else
+  float64 on the CPU (the parity regime) and float32 on CUDA; dense kernel
+  sweeps run in :func:`kernel_compute_dtype` (``args["kernel_dtype"]``).
+  :func:`default_backend` reports the device a default entry point takes.
 * A pickled model holds host numpy arrays and device names only
   (:func:`host_state` / :func:`device_state`).
 * Float32 matrix products run in full float32: the port never turns TF32 on.
@@ -16,8 +18,9 @@
   tensors" probe of a user callable, and its forward-mode derivative in the
   hyperparameters.
 
-There is no global switch and no compile cache: every tensor is created with
-an explicit dtype and device.
+The dtype override is the one global switch (the JAX package's); there is
+no compile cache, and every tensor is created with an explicit dtype and
+device.
 """
 
 import numpy as np
@@ -58,16 +61,36 @@ def as_torch_dtype(dtype):
                    else dtype]
 
 
-def linalg_dtype(args, device):
-    """The dtype of the solve path: ``args['dtype']`` > device default
-    (float64 on the CPU, float32 on CUDA)."""
+_FORCED_DTYPE = None
+
+
+def default_backend():
+    """``"cuda"`` on a machine with a card, else ``"cpu"``: the device a
+    default entry point runs on (where there is no card, it raises)."""
+    return "cuda" if torch.cuda.is_available() else "cpu"
+
+
+def set_linalg_dtype(dtype):
+    """Force the linear-algebra dtype of every model without
+    ``args['dtype']`` (None restores the device default)."""
+    global _FORCED_DTYPE
+    _FORCED_DTYPE = as_torch_dtype(dtype)
+
+
+def linalg_dtype(args=None, device=None):
+    """The dtype of the solve path: ``args['dtype']`` > the global override
+    of :func:`set_linalg_dtype` > the device default (float64 on the CPU,
+    float32 on CUDA; ``device=None``: :func:`default_backend`)."""
     if isinstance(args, dict) and args.get("dtype") is not None:
         return as_torch_dtype(args["dtype"])
+    if _FORCED_DTYPE is not None:
+        return _FORCED_DTYPE
+    device = default_backend() if device is None else device
     return torch.float64 if torch.device(device).type == "cpu" \
         else torch.float32
 
 
-def kernel_compute_dtype(args, device):
+def kernel_compute_dtype(args=None, device=None):
     """The dtype in which dense kernel matrices are evaluated:
     ``args['kernel_dtype']`` where given (then cast back to the linalg
     dtype), else the linalg dtype."""

@@ -18,10 +18,18 @@ as the posterior gradients' ``d_kernel_dx`` uses) and every input wrapped by
 a ``torch.func`` transform — takes the plain formula.
 K3 is a launch with no derivative rule: a dual input would lose its
 tangent there.
+
+The rest of the JAX package's catalog is here with its signatures: the
+dot-product family, fvGP's cpu / gpu / sparse names of the Wendland kernel
+(``wendland_anisotropic_gp2Scale_cpu_sparse`` is a host callable returning a
+``scipy.sparse.coo_matrix``), the non-stationary ``g(x1) g(x2)`` kernel and
+its explicit gradient, the 1-d Wasserstein distances, ``bump`` and the
+4-argument landmark kernel ``sle_kernel``.
 """
 
 import math
 
+import numpy as np
 import torch
 from torch.autograd import forward_ad
 
@@ -31,8 +39,14 @@ __all__ = [
     "matern_kernel_diff1", "matern_kernel_diff1_grad",
     "matern_kernel_diff1_robust", "matern_kernel_diff2",
     "matern_kernel_diff2_robust", "sparse_kernel", "periodic_kernel",
+    "linear_kernel", "dot_product_kernel", "polynomial_kernel",
     "get_distance_matrix", "get_anisotropic_distance_matrix",
-    "wendland_kernel", "wendland_anisotropic", "default_matern_ard"]
+    "wendland_kernel", "wendland_anisotropic", "default_matern_ard",
+    "wendland_anisotropic_gp2Scale_cpu", "wendland_anisotropic_gp2Scale_gpu",
+    "wendland_anisotropic_tpu", "wendland_anisotropic_gp2Scale_cpu_sparse",
+    "wendland_anisotropic_gp2Scale_gpu_sparse", "non_stat_kernel",
+    "non_stat_kernel_gradient", "wasserstein_1d", "wasserstein_1d_outer_vec",
+    "bump", "sle_kernel"]
 
 _EXACT_MAX_DIM = 32
 
@@ -154,6 +168,30 @@ def periodic_kernel(distance, length, p):
 
 
 # ---------------------------------------------------------------------------
+# dot-product family
+# ---------------------------------------------------------------------------
+
+def _reversed_axes(x):
+    """numpy's ``x.T`` (every axis reversed) on a tensor."""
+    return x.permute(*reversed(range(x.dim())))
+
+
+def linear_kernel(x1, x2, hp1, hp2, hp3):
+    """k = hp1 + hp2 (x1-hp3)(x2-hp3)."""
+    return hp1 + (hp2 * (x1 - hp3) * (x2 - hp3))
+
+
+def dot_product_kernel(x1, x2, hp, matrix):
+    """k = hp + x1ᵀ M x2."""
+    return hp + _reversed_axes(x1) @ matrix @ x2
+
+
+def polynomial_kernel(x1, x2, p):
+    """k = (1 + x1ᵀx2)^p."""
+    return (1.0 + _reversed_axes(x1) @ x2) ** p
+
+
+# ---------------------------------------------------------------------------
 # Wendland (compact support — the gp2Scale default)
 # ---------------------------------------------------------------------------
 
@@ -172,6 +210,65 @@ def wendland_anisotropic(x1, x2, hyperparameters):
     """Anisotropic Wendland: hps = [signal variance, l_1..l_D]."""
     d = get_anisotropic_distance_matrix(x1, x2, hyperparameters[1:])
     return hyperparameters[0] * _wendland_poly(d)
+
+
+# fvGP's cpu / gpu variants and the JAX package's TPU name of the same
+# function (``parallel.sharded_cov.support_geometry`` knows the names)
+wendland_anisotropic_tpu = wendland_anisotropic
+wendland_anisotropic_gp2Scale_cpu = wendland_anisotropic
+wendland_anisotropic_gp2Scale_gpu = wendland_anisotropic
+
+
+def wendland_anisotropic_gp2Scale_cpu_sparse(x1, x2, hyperparameters):
+    """The anisotropic Wendland kernel as a ``scipy.sparse.coo_matrix``
+    holding only its nonzero entries: fvGP's sparse-kernel name and return
+    type, for code that passes it as ``kernel_function``.  A host callable
+    (float64 on the CPU, numpy or tensors in): the models densify its
+    blocks, and the stored covariance exploits the sparsity by tiles."""
+    from scipy.sparse import coo_matrix
+    x1, x2, hps = (t.detach().cpu().double() if torch.is_tensor(t)
+                   else torch.as_tensor(np.asarray(t, dtype=np.float64))
+                   for t in (x1, x2, hyperparameters))
+    k = wendland_anisotropic(x1, x2, hps).numpy()
+    rows, cols = np.nonzero(k)
+    return coo_matrix((k[rows, cols], (rows, cols)), shape=k.shape)
+
+
+wendland_anisotropic_gp2Scale_gpu_sparse = \
+    wendland_anisotropic_gp2Scale_cpu_sparse
+
+
+# ---------------------------------------------------------------------------
+# non-stationary g(x1) g(x2) kernel
+# ---------------------------------------------------------------------------
+
+def _g(x, x0, w, l):
+    """g(x) = Σ_j w_j exp(-|x - x0_j|² / l)."""
+    d = get_distance_matrix(x, x0)
+    return torch.sum(w * torch.exp(-(d ** 2) / l), dim=1)
+
+
+def non_stat_kernel(x1, x2, x0, w, l):
+    """k = g(x1) g(x2) with the RBF basis g over the centres ``x0``."""
+    return torch.outer(_g(x1, x0, w, l), _g(x2, x0, w, l))
+
+
+def non_stat_kernel_gradient(x1, x2, x0, w, l):
+    """∂k/∂(w, l) of :func:`non_stat_kernel`, (len(w) + 1, n1, n2): the
+    ``w_j`` derivatives first, the ``l`` derivative last (a catalog helper;
+    the port's own paths differentiate by autograd)."""
+    d1 = get_distance_matrix(x1, x0)
+    d2 = get_distance_matrix(x2, x0)
+    e1 = torch.exp(-(d1 ** 2) / l)
+    e2 = torch.exp(-(d2 ** 2) / l)
+    g1 = torch.sum(w * e1, dim=1)
+    g2 = torch.sum(w * e2, dim=1)
+    dgdl1 = torch.sum(w * e1 * (d1 ** 2) / l ** 2, dim=1)
+    dgdl2 = torch.sum(w * e2 * (d2 ** 2) / l ** 2, dim=1)
+    dkdw = (torch.einsum("ij,k->ijk", e1.T, g2)
+            + torch.einsum("ij,k->ikj", e2.T, g1))
+    dkdl = torch.outer(dgdl1, g2) + torch.outer(dgdl2, g1).T
+    return torch.cat([dkdw, dkdl[None]], dim=0)
 
 
 # ---------------------------------------------------------------------------
@@ -235,3 +332,57 @@ def default_matern_ard(x1, x2, hyperparameters):
             return dense_covariance(x1, x2, k3_hps, kind="matern32")
     d = get_anisotropic_distance_matrix(x1, x2, hps[1:])
     return hps[0] * matern_kernel_diff1(d, 1.0)
+
+
+# ---------------------------------------------------------------------------
+# distributions as inputs; landmark embeddings
+# ---------------------------------------------------------------------------
+
+def wasserstein_1d(a, b):
+    """W₁ between two unnormalized 1-d measures of equal length: each is
+    normalized by its sum, then the mean |sorted difference|."""
+    a = a.reshape(-1)
+    b = b.reshape(-1)
+    a = torch.sort(a / torch.sum(a)).values
+    b = torch.sort(b / torch.sum(b)).values
+    return torch.mean(torch.abs(a - b))
+
+
+def wasserstein_1d_outer_vec(a, b):
+    """Pairwise W₁ distances between two batches of unnormalized 1-d
+    measures, rows normalized by their sums: a (N1, S), b (N2, S) →
+    (N1, N2)."""
+    a = torch.atleast_2d(a)
+    b = torch.atleast_2d(b)
+    a = torch.sort(a / torch.sum(a, dim=1, keepdim=True), dim=1).values
+    b = torch.sort(b / torch.sum(b, dim=1, keepdim=True), dim=1).values
+    return torch.mean(torch.abs(a[:, None, :] - b[None, :, :]), dim=-1)
+
+
+def bump(d, r, beta=1., ampl=1.):
+    """Smooth compactly supported bump: ampl·exp(β)·exp(-β/(1-(d/r)²))
+    inside the support, 0 outside.  Both ``where``s matter: the inner one
+    keeps the formula finite outside the support, so its gradient there is
+    0 and not NaN."""
+    u2 = (d / r) ** 2
+    inside = u2 < 1.0
+    one = torch.ones((), dtype=u2.dtype, device=u2.device)
+    safe = torch.where(inside, 1.0 - u2, one)
+    beta = torch.as_tensor(beta, dtype=u2.dtype, device=u2.device)
+    vals = ampl * torch.exp(beta) * torch.exp(-beta / safe)
+    return torch.where(inside, vals, torch.zeros_like(vals))
+
+
+def sle_kernel(x1, x2, hps, args):
+    """Sparse-landmark-embedding kernel: points embedded by bump similarity
+    to the landmarks ``args['x_data']`` (else ``args['landmarks']``), then
+    a squared exponential on the embedding.  hps = [amplitude, bump radius,
+    bump sharpness β, length scale]; a 4-argument kernel."""
+    landmarks = args["x_data"] if "x_data" in args else args["landmarks"]
+    landmarks = torch.as_tensor(
+        landmarks if torch.is_tensor(landmarks) else np.asarray(landmarks),
+        dtype=x1.dtype, device=x1.device)
+    e1 = bump(get_distance_matrix(x1, landmarks), hps[1], beta=hps[2])
+    e2 = bump(get_distance_matrix(x2, landmarks), hps[1], beta=hps[2])
+    D = get_distance_matrix(e1, e2)
+    return hps[0] * torch.exp(-D ** 2 / hps[3])

@@ -1,6 +1,6 @@
-"""Asynchronous training actors (a copy of ``fvgp_tpu/models/gp_actor.py``,
-which imports numpy and ``threading`` only; the BO actor also carries the
-device of its surrogate).
+"""Asynchronous training actors (from ``fvgp_tpu/models/gp_actor.py``; the
+BO actor also carries the device of its surrogate, and the actors run in
+lockstep across the ranks of a mesh).
 
 fvGP runs MCMC/Adam/BO inside Dask actors on remote workers with a
 lock-protected ``get_latest()`` snapshot and cooperative ``stop()``.  Here
@@ -9,11 +9,32 @@ same polling contract (get_latest / stop / cancel_tasks / kill_client), no
 process boundary, no pickled closures.  Grad mode is thread-local in
 PyTorch, so every no-grad region of the evaluations is entered inside the
 thread by the code that needs it.
+
+Under a mesh of more than one rank each rank runs its own actor, and the
+actors compute one chain:
+
+* the actor's thread has a mesh of its own (``mesh.fork_mesh``, made its
+  ``current_mesh`` by ``mesh.thread_mesh``), so its collectives never
+  interleave with those of the main thread;
+* an MCMC actor draws from a private ``RandomState`` taken from the synced
+  global state, so main-thread draws cannot part the ranks' chains;
+* every step asks the actor's group whether any rank has asked to stop
+  (one ``all_agree``), so a stop takes effect at the same step on every
+  rank, and no actor runs more than a step ahead of another;
+* every snapshot is numbered and the last ``HISTORY`` are kept:
+  ``AsyncOptimizer.get_agreed`` returns on every rank the snapshot of the
+  newest step that every rank has published, whenever each rank polls.
 """
 
+import collections
+import contextlib
 import threading
 
 import numpy as np
+
+# snapshots an actor keeps for agreed polls (the ranks' actors are at most
+# a step apart, and the polls read their counts together)
+HISTORY = 64
 
 
 class _ActorBase:
@@ -27,6 +48,12 @@ class _ActorBase:
         # (e.g. the linalg sequential-state gate, whose lifetime must match
         # the background thread, not the submitting call)
         self._run_context = None
+        # under a mesh: the thread's own mesh; for MCMC the private random
+        # state the chain draws from
+        self._mesh = None
+        self._random_state = None
+        self._steps = 0
+        self._history = collections.deque(maxlen=HISTORY)
 
     def start(self):
         self._thread = threading.Thread(target=self._run_guarded, daemon=True)
@@ -39,10 +66,16 @@ class _ActorBase:
         first optimum completes makes multistart raise).  The error is
         published in the snapshot and the actor terminates."""
         try:
-            if self._run_context is not None:
-                with self._run_context():
-                    self._run()
-            else:
+            with contextlib.ExitStack() as stack:
+                if self._mesh is not None:
+                    from ..parallel.mesh import thread_mesh
+                    stack.enter_context(thread_mesh(self._mesh))
+                if self._random_state is not None:
+                    from .gp_mcmc import private_random_state
+                    stack.enter_context(
+                        private_random_state(self._random_state))
+                if self._run_context is not None:
+                    stack.enter_context(self._run_context())
                 self._run()
         except Exception as exc:
             self._publish(error=f"{type(exc).__name__}: {exc}")
@@ -51,6 +84,15 @@ class _ActorBase:
 
     def stop(self):
         self._stop.set()
+
+    def _stop_requested(self):
+        """Whether to stop before the next step: this actor's flag, or
+        under a mesh any rank's (one ``all_agree`` on the actor's mesh, so
+        every rank stops at the same step)."""
+        if self._mesh is None:
+            return self._stop.is_set()
+        from ..parallel.mesh import all_agree
+        return not all_agree(not self._stop.is_set(), self._mesh)
 
     def is_done(self):
         return self._done
@@ -63,9 +105,27 @@ class _ActorBase:
         if self._thread is not None:
             self._thread.join(timeout)
 
+    def published_steps(self):
+        """How many snapshots this actor has published."""
+        with self._lock:
+            return self._steps
+
+    def snapshot(self, step):
+        """The snapshot as of publication ``step`` (0: none yet)."""
+        with self._lock:
+            if step == 0:
+                return {}
+            for s, latest in self._history:
+                if s == step:
+                    return dict(latest)
+        raise RuntimeError(f"snapshot {step} is no longer kept (the last "
+                           f"{HISTORY} are)")
+
     def _publish(self, **kwargs):
         with self._lock:
             self._latest.update(kwargs)
+            self._steps += 1
+            self._history.append((self._steps, dict(self._latest)))
 
     def _run(self):
         raise NotImplementedError
@@ -94,7 +154,7 @@ class _MCMCActor(_ActorBase):
             return False
 
         def break_cond(sampler):
-            return self._stop.is_set()
+            return self._stop_requested()
 
         info = self._sampler.run_mcmc(
             x0=self._x0, n_updates=self._max_iter, info=self._info,
@@ -125,7 +185,7 @@ class _AdamActor(_ActorBase):
             beta1=self._b1, beta2=self._b2, eps=self._eps,
             max_iter=self._max_iter, tol=self._tol,
             callback=lambda th, f, g, i: self._publish(x=np.asarray(th), **{"f(x)": float(f)}),
-            early_stop=self._stop.is_set)
+            early_stop=self._stop_requested)
         self._publish(x=np.asarray(theta))
         self._done = True
 
@@ -151,7 +211,7 @@ class _BOActor(_ActorBase):
         bo_args = dict(self._bo_args or {})
         bo_args["progress_callback"] = lambda x, f: self._publish(
             x=np.asarray(x), **{"f(x)": float(f)})
-        bo_args["stop_requested"] = self._stop.is_set
+        bo_args["stop_requested"] = self._stop_requested
         x, info = bayesian_optimize(self._objective, self._bounds, self._x0,
                                     max_iter=self._max_iter, bo_args=bo_args,
                                     info=self._info, device=self._device)
@@ -170,7 +230,7 @@ class _MultistartActor(_ActorBase):
 
     def _run(self):
         optima = self._run_fn(publish=self._publish,
-                              stop_requested=self._stop.is_set)
+                              stop_requested=self._stop_requested)
         self._publish(optima=optima)
         self._done = True
 
@@ -181,9 +241,25 @@ class AsyncOptimizer:
 
     def __init__(self, actor):
         self.actor = actor
+        self.agreed_step = None
 
     def get_latest(self):
-        latest = self.actor.get_latest()
+        return self._view(self.actor.get_latest())
+
+    def get_agreed(self, mesh):
+        """``get_latest()`` as of the newest step that every rank's actor
+        has published — the same snapshot on every rank, whenever each rank
+        polls.  A collective on ``mesh`` (the main thread's): a barrier, so
+        that the ranks read their step counts together, then the minimum
+        over the ranks (kept as ``agreed_step``)."""
+        from ..parallel.mesh import rank_values
+        rank_values(0, mesh)
+        step = int(rank_values(self.actor.published_steps(), mesh).min())
+        self.agreed_step = step
+        return self._view(self.actor.snapshot(step))
+
+    @staticmethod
+    def _view(latest):
         if "optima" in latest and latest["optima"]:
             return latest["optima"]
         if "median(x)" in latest:

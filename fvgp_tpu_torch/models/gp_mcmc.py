@@ -13,14 +13,43 @@ over index subsets, the ``prop_args`` keys ``prop_Sigma``/``sigma_m``, the
   Shaby & Wells' log-adaptive scheme targeting acceptance 0.234).
 * The adapted step scale ``sigma_m`` multiplies the proposal covariance, as
   the scheme prescribes.
+* The default proposal and the accept test draw from numpy's global random
+  state, or, inside :func:`private_random_state`, from a thread's own
+  ``RandomState`` (the asynchronous actor's, so that draws of the main
+  thread cannot change its chain; a deviation from the JAX package).
 """
 
+import contextlib
+import threading
 import time
 import warnings
 
 import numpy as np
 
 from ..parallel.mesh import sync_host_random
+
+
+_RANDOM = threading.local()
+
+
+def _random():
+    """The random source of this thread's chains: its private
+    ``RandomState`` (:func:`private_random_state`), else numpy's global
+    state."""
+    state = getattr(_RANDOM, "state", None)
+    return np.random if state is None else state
+
+
+@contextlib.contextmanager
+def private_random_state(state):
+    """Draw this thread's proposals and accept tests from ``state`` (a
+    ``np.random.RandomState``) instead of numpy's global state."""
+    prev = getattr(_RANDOM, "state", None)
+    _RANDOM.state = state
+    try:
+        yield state
+    finally:
+        _RANDOM.state = prev
 
 
 # module-level (not closures) so a sampler configured with the defaults
@@ -106,10 +135,11 @@ class ProposalDistribution:
                                       sigma_m=scale0)
 
     def _gaussian_step(self, x, hps, obj):
-        """Draw from N(x, sigma_m · Σ).  Global numpy randomness on purpose:
-        callers seed ``np.random.seed`` for reproducible chains."""
+        """Draw from N(x, sigma_m · Σ).  Global numpy randomness on purpose
+        (callers seed ``np.random.seed`` for reproducible chains), or the
+        thread's private state."""
         cov = obj.prop_args["sigma_m"] * np.asarray(obj.prop_args["prop_Sigma"])
-        return np.random.multivariate_normal(x, cov)
+        return _random().multivariate_normal(x, cov)
 
     def normal_proposal_dist(self, x, hps, obj):
         """Public default Gaussian proposal (API parity with ref
@@ -301,9 +331,10 @@ class gpMCMC:
         gp_mcmc.py:96-181)."""
         if not (isinstance(x0, np.ndarray) and x0.ndim == 1):
             raise AssertionError("x0 must be a 1-d np.ndarray")
-        # the chain draws from numpy's global state: under a mesh every
-        # rank must draw the same proposals and accept tests
-        sync_host_random()
+        # the chain draws from numpy's global state (or the thread's
+        # private one): under a mesh every rank must draw the same
+        # proposals and accept tests
+        sync_host_random(random_state=getattr(_RANDOM, "state", None))
         stop = self._resolve_break(break_condition)
         hook = run_in_every_iteration or (lambda sampler: None)
 
@@ -386,7 +417,7 @@ class gpMCMC:
                 ratio = np.exp(log_ratio)
             else:
                 ratio = 1.1
-            accepted = block.auto_accept or ratio > np.random.uniform()
+            accepted = block.auto_accept or ratio > _random().uniform()
             if accepted:
                 x, lp, ll = proposal, lp_new, ll_new
         block.jump_trace.append(1.0 if accepted else 0.0)

@@ -29,7 +29,7 @@ import torch
 from scipy.optimize import minimize
 
 from .. import config
-from ..parallel.mesh import current_mesh, sync_host_random
+from ..parallel.mesh import current_mesh, fork_mesh, sync_host_random
 from .gp_actor import (AsyncOptimizer, _AdamActor, _BOActor, _MCMCActor,
                        _MultistartActor)
 from .gp_bo import bayesian_optimize
@@ -470,17 +470,18 @@ class GPtraining:
         ``AsyncOptimizer`` proxy.  ``dask_client`` is accepted and ignored:
         the actors are threads.  ``run_context`` (a zero-argument
         context-manager factory) wraps the WHOLE background run, so the
-        sequential linear-algebra gate lives as long as the thread.  Under a
-        mesh of more than one rank it raises: each rank's thread would run
-        and be polled on its own schedule, and the ranks' hyperparameters
-        would part."""
+        sequential linear-algebra gate lives as long as the thread.
+
+        The MCMC actor draws from a private ``RandomState`` taken from
+        numpy's global state here.  Under a mesh of more than one rank the
+        actors run in lockstep (``models/gp_actor.py``): the global state
+        is synced first, so every rank's actor computes the same chain, on
+        a mesh of its own (``mesh.fork_mesh``, made here by every rank
+        together); polls and stops agree across the ranks.  Let every
+        rank's run end (``kill_client``, or poll until it is done) before
+        the process group goes."""
         mesh = current_mesh()
-        if mesh is not None and mesh.size > 1:
-            raise NotImplementedError(
-                "fvgp_tpu_torch: asynchronous training under a mesh of more "
-                "than one rank is not supported (ROADMAP item 1.8): the "
-                "ranks' threads would not run in lockstep; train "
-                "synchronously")
+        sync_host_random(mesh)
         if mcmc_args is None:
             mcmc_args = {}
         if method not in ("hgdl", "mcmc", "adam", "bo"):
@@ -518,6 +519,11 @@ class GPtraining:
                     publish=publish, stop_requested=stop_requested,
                     constraints=constraints)
             actor = _MultistartActor(run_fn)
+        if method == "mcmc":
+            actor._random_state = np.random.RandomState()
+            actor._random_state.set_state(np.random.get_state())
+        if mesh is not None and mesh.size > 1:
+            actor._mesh = fork_mesh(mesh)
         actor._run_context = run_context
         actor.start()
         return AsyncOptimizer(actor)
@@ -545,11 +551,18 @@ class GPtraining:
     def update_hyperparameters(self, opt_obj):
         """The latest hyperparameters of a running asynchronous optimizer:
         the best of an optima list, else ``median(x)``, else ``x``; the
-        current ones when the poll raises or finds nothing."""
-        try:
-            opt_list = opt_obj.get_latest()
-        except Exception:
-            return self.hyperparameters
+        current ones when the poll raises or finds nothing.  Under a mesh
+        of more than one rank the poll is a collective that returns the
+        same step's snapshot on every rank (``AsyncOptimizer.get_agreed``):
+        call it on every rank."""
+        mesh = current_mesh()
+        if mesh is not None and mesh.size > 1:
+            opt_list = opt_obj.get_agreed(mesh)
+        else:
+            try:
+                opt_list = opt_obj.get_latest()
+            except Exception:
+                return self.hyperparameters
         if not opt_list:
             warnings.warn("Hyperparameter update not successful: empty "
                           "optima list.", UserWarning, stacklevel=2)

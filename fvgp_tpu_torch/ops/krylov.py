@@ -17,7 +17,12 @@ package's exit rule, so iteration counts agree with it in float64.
 
 import torch
 
-__all__ = ["cg", "minres", "dense_matvec"]
+__all__ = ["cg", "minres", "make_dense_matvec", "dense_matvec"]
+
+
+def make_dense_matvec(A):
+    """The closure convention's matvec of a dense operator."""
+    return lambda X: A @ X
 
 
 def dense_matvec(A, X):

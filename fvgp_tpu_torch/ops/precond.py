@@ -24,7 +24,8 @@ from ..parallel.block_sparse import is_block_sparse
 
 __all__ = ["build_block_jacobi", "build_block_jacobi_op",
            "block_jacobi_apply_factory", "build_preconditioner_op",
-           "build_schwarz_op", "build_two_level_op", "normalize_type"]
+           "build_schwarz_op", "build_two_level_op", "normalize_type",
+           "schwarz_apply_factory", "two_level_apply_factory"]
 
 
 def _pad_rows(X, rows):
@@ -151,13 +152,21 @@ def _window_blocks(KV, args=None):
     return W, nb, p, n
 
 
+def schwarz_apply_factory(nb, p, n):
+    """``apply(Winv, X)`` for the window inverses of an (nb, 2p) overlapping
+    grid over n rows."""
+    def apply(Winv, X):
+        return _apply_schwarz(Winv, X, nb, p, n)
+
+    return apply
+
+
 def build_schwarz_op(KV, args=None):
     """Operator-convention overlapping additive Schwarz."""
     args = args or {}
     W, nb, p, n = _window_blocks(KV, args)
     L = _shifted_cholesky(W, args)
-    return (lambda Winv, X: _apply_schwarz(Winv, X, nb, p, n)), \
-        _invert_from_chol(L)
+    return schwarz_apply_factory(nb, p, n), _invert_from_chol(L)
 
 
 # ---------------------------------------------------------------------------
@@ -174,6 +183,16 @@ def _apply_two_level(data, X, nb, p, n):
     return z + corr[:n]
 
 
+def two_level_apply_factory(nb, p, n):
+    """``apply((Minv, Lc), X)``: the block-Jacobi smoother of an (nb, p)
+    grid over n rows plus the coarse correction of the Cholesky factor
+    ``Lc``."""
+    def apply(data, X):
+        return _apply_two_level(data, X, nb, p, n)
+
+    return apply
+
+
 def build_two_level_op(KV, args=None):
     """Operator-convention two-level preconditioner."""
     args = args or {}
@@ -182,7 +201,7 @@ def build_two_level_op(KV, args=None):
     # a padded trailing block may leave a deficient coarse row; the shift
     # ladder covers it along with any near-singular aggregate
     Lc = _shifted_cholesky(Ac[None], args)[0]
-    return (lambda data, X: _apply_two_level(data, X, nb, p, n)), (Minv, Lc)
+    return two_level_apply_factory(nb, p, n), (Minv, Lc)
 
 
 _SCHWARZ_ALIASES = frozenset((

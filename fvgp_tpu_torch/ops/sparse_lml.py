@@ -36,12 +36,14 @@ import warnings
 
 import torch
 
+from .. import config
 from ..parallel.mesh import (SLICE_AXIS, _all_reduce, exchange_blocks,
                              flat_tile_index, gather_rows, global_sum,
                              replicate, tile_device_count)
 from .hopper_kernels import chunked_spmm, chunked_spmm_vjp, row_chunk_sums
 
-__all__ = ["make_sparse_lml", "make_committed_solver", "make_padded_inputs"]
+__all__ = ["make_sparse_lml", "make_committed_solver", "make_padded_inputs",
+           "assemble_tiles", "tile_maxabs"]
 
 # flat-SpMM budget for the committed solver's per-tile product (bytes)
 _SPMV_FLAT_BUDGET = 2 << 30
@@ -337,6 +339,46 @@ def _assemble_chunked_tiles(kernel_fn, B, solver_dtype, hps, rows_c, cols_c,
     out_dtype = solver_dtype if solver_dtype is not None else xb.dtype
     return _AssembleTiles.apply(hps, kernel_fn, B, out_dtype, rows_c, cols_c,
                                 live, xb, mask)
+
+
+def _index(ix, device):
+    return torch.as_tensor(ix).to(device=device, dtype=torch.long)
+
+
+def assemble_tiles(kernel_fn, xb, mask, rows, cols, hps, out_dtype=None):
+    """tiles[t] = k(x block rows[t], x block cols[t]) with padding masked:
+    the gp2Scale LML's op-level assembler (chunked, differentiable in
+    ``hps``), tiles in ``out_dtype`` (default: the points' dtype).
+
+    xb: (nb, B, D) padded point blocks; mask: (nb, B) validity; rows/cols:
+    (T,) indices.  The JAX package's sentinel contract: pass UNCLAMPED
+    indices (sentinel == nb).  The gather clamps them to the last block,
+    which gives a tile of that block; the consumer drops it because the
+    unclamped row lies outside ``[0, nb)`` (K1 skips such rows)."""
+    last = xb.shape[0] - 1
+    rows_c = torch.clamp(_index(rows, xb.device), max=last)
+    cols_c = torch.clamp(_index(cols, xb.device), max=last)
+    live = torch.ones(rows_c.shape, dtype=torch.bool, device=xb.device)
+    hps = torch.as_tensor(hps, dtype=xb.dtype, device=xb.device)
+    return _assemble_chunked_tiles(kernel_fn, xb.shape[1],
+                                   config.as_torch_dtype(out_dtype), hps,
+                                   rows_c, cols_c, live, xb, mask)
+
+
+def tile_maxabs(kernel_fn, xb, mask, rows, cols, hps):
+    """Per-tile max|k| for the exact zero-tile filter, one assembly chunk
+    (``_assembly_chunk``) at a time, so the (T, B, B) tile set is never
+    held whole."""
+    rows, cols = _index(rows, xb.device), _index(cols, xb.device)
+    T = int(rows.shape[0])
+    chunk = _assembly_chunk(T)
+    out = torch.zeros(T, dtype=xb.dtype, device=xb.device)
+    with torch.no_grad():
+        for s in range(0, T, chunk):
+            out[s:s + chunk] = torch.amax(torch.abs(assemble_tiles(
+                kernel_fn, xb, mask, rows[s:s + chunk], cols[s:s + chunk],
+                hps)), dim=(1, 2))
+    return out
 
 
 def _diag_precond_blocks(kernel_fn, B, precond_width, hps, xb, mask,

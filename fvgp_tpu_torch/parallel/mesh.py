@@ -26,11 +26,19 @@ cotangent of a replicated loss, so a rule that sums twice would give
 
 Host-side agreement, without autograd: :func:`rank_values` (one host
 number from every rank, the same array on each), :func:`all_agree` and
-:func:`sync_host_random` (rank 0's numpy global random state on every
-rank, so host draws — MCMC proposals and accept tests, random starts —
-are the same everywhere).  :func:`owned_rows` is a rank's contiguous range
-of row blocks, the ownership of the stored ``BlockSparseMatrix`` and of the
-partitioned schedules.
+:func:`sync_host_random` (rank 0's numpy global random state, or that of a
+private ``RandomState``, on every rank, so host draws — MCMC proposals and
+accept tests, random starts — are the same everywhere).
+
+:func:`owned_rows` is a rank's contiguous range of row blocks, the
+ownership of the stored ``BlockSparseMatrix`` and of the partitioned
+schedules.
+
+A second thread of a rank (the asynchronous training actor) gets a mesh of
+its own: :func:`fork_mesh` builds one over the same ranks on new process
+groups, so its collectives never interleave with the main thread's, and
+:func:`thread_mesh` makes it the thread's :func:`current_mesh` without the
+main thread's :func:`use_mesh` seeing or changing it.
 
 On the card's torch (2.11) gloo takes all four on CUDA tensors (measured:
 all-reduce, all-gather, all-to-all, broadcast and reduce-scatter), so no
@@ -42,6 +50,7 @@ import collections
 import contextlib
 import datetime
 import os
+import threading
 
 import numpy as np
 import torch
@@ -51,9 +60,12 @@ __all__ = ["Mesh", "make_mesh", "make_mesh_2d", "tile_axes",
            "tile_device_count", "flat_tile_index", "set_mesh",
            "current_mesh", "use_mesh", "shard_tiles", "replicate",
            "global_sum", "gather_rows", "exchange_blocks", "all_agree",
-           "owned_rows", "rank_values", "sync_host_random"]
+           "owned_rows", "rank_values", "sync_host_random", "fork_mesh",
+           "thread_mesh"]
 
 _ACTIVE_MESH = None
+# a thread's own mesh (thread_mesh), which current_mesh prefers
+_THREAD = threading.local()
 
 TILE_AXIS = "tiles"
 SLICE_AXIS = "slice"
@@ -246,7 +258,35 @@ def set_mesh(mesh):
 
 
 def current_mesh():
-    return _ACTIVE_MESH
+    """This thread's mesh (:func:`thread_mesh`) where it has one, else the
+    process's (:func:`use_mesh` / :func:`set_mesh`), else None."""
+    own = getattr(_THREAD, "mesh", None)
+    return own if own is not None else _ACTIVE_MESH
+
+
+@contextlib.contextmanager
+def thread_mesh(mesh):
+    """Make ``mesh`` this thread's current mesh; other threads keep
+    theirs, and :func:`use_mesh` elsewhere does not change it."""
+    prev = getattr(_THREAD, "mesh", None)
+    _THREAD.mesh = mesh
+    try:
+        yield mesh
+    finally:
+        _THREAD.mesh = prev
+
+
+def fork_mesh(mesh):
+    """A mesh over the ranks of ``mesh``, in the same layout, on process
+    groups of its own, for a second thread whose collectives must not
+    interleave with this thread's.  Collective: every process of the world
+    calls it, in the same order (``dist.new_group``)."""
+    group = dist.new_group(dist.get_process_group_ranks(mesh.group),
+                           backend=mesh.backend)
+    if SLICE_AXIS in mesh.shape:
+        return make_mesh_2d(mesh.shape[SLICE_AXIS], mesh.shape[TILE_AXIS],
+                            group=group)
+    return Mesh(group, mesh.shape, mesh.device)
 
 
 @contextlib.contextmanager
@@ -412,23 +452,25 @@ def rank_values(value, mesh=None):
     return out.cpu().numpy()
 
 
-def sync_host_random(mesh=None):
+def sync_host_random(mesh=None, random_state=None):
     """Every rank takes rank 0's numpy global random state (one broadcast),
     so what the ranks draw from it next is the same on each: an MCMC
     proposal and its accept test, a random start inside the bounds.
     Without it each rank, a process of its own, draws from its own state,
     the ranks propose different hyperparameters and enter the LML's
-    collectives with different structures.  Nothing happens with one rank
-    or no mesh."""
+    collectives with different structures.  ``random_state`` (a
+    ``np.random.RandomState``) syncs that generator instead of the global
+    one.  Nothing happens with one rank or no mesh."""
     mesh = mesh or current_mesh()
     if mesh is None or mesh.size == 1:
         return
-    state = [np.random.get_state() if mesh.rank == 0 else None]
+    source = np.random if random_state is None else random_state
+    state = [source.get_state() if mesh.rank == 0 else None]
     dist.broadcast_object_list(
         state, src=dist.get_global_rank(mesh.group, 0), group=mesh.group,
         device=mesh.device if mesh.backend == "nccl" else None)
     mesh.ops["broadcast"] += 1
-    np.random.set_state(state[0])
+    source.set_state(state[0])
 
 
 def all_agree(ok, mesh=None):

@@ -84,13 +84,22 @@ def _bucket(n, multiple=64):
     return -(-n // step) * step
 
 
+# the names of the anisotropic Wendland kernel in fvGP and the JAX package
+_WENDLAND_NAMES = ("wendland_anisotropic", "wendland_anisotropic_gp2Scale_cpu",
+                   "wendland_anisotropic_gp2Scale_gpu",
+                   "wendland_anisotropic_tpu")
+
+
 def support_geometry(prior, hyperparameters, args):
     """(lengthscales, radius) for the bounding-box prune, or (None, inf).
 
     The Wendland kernel implies radius 1 in coordinates whitened by
-    hps[1:].  User kernels declare their support via
-    ``args['gp2Scale_lengthscales']`` (callable hps -> per-dim scales) and
-    ``args['gp2Scale_support_radius']`` (whitened radius, default 1.0).
+    hps[1:]; it is recognised by identity or by one of its names
+    (:data:`_WENDLAND_NAMES`), so a reference user's own function under
+    such a name is pruned as the JAX package prunes it.  User kernels
+    declare their support via ``args['gp2Scale_lengthscales']`` (callable
+    hps -> per-dim scales) and ``args['gp2Scale_support_radius']``
+    (whitened radius, default 1.0).
     Without a declaration every tile is computed, with a one-time warning.
     """
     hps = np.asarray(hyperparameters, dtype=np.float64)
@@ -98,7 +107,9 @@ def support_geometry(prior, hyperparameters, args):
     if callable(ls_fn):
         return (np.asarray(ls_fn(hps)),
                 float(args.get("gp2Scale_support_radius", 1.0)))
-    if getattr(prior, "kernel", None) is wendland_anisotropic:
+    kern = getattr(prior, "kernel", None)
+    if kern is wendland_anisotropic \
+            or getattr(kern, "__name__", "") in _WENDLAND_NAMES:
         return hps[1:], 1.0
     warnings.warn(
         "gp2Scale: the kernel's support is unknown, so no tile pruning is "
@@ -381,3 +392,202 @@ def _log_assembly(result, total, nb1, nb2):
                  "fill %.4f, %s", total, nb1 * nb2, result.block_size,
                  result.sparsity(), "single-device" if mesh is None else
                  f"rank {mesh.rank} of {mesh.size}, row-owned")
+
+
+# ---------------------------------------------------------------------------
+# Host worker helpers: fvGP's Dask covariance pipeline run in-process, for a
+# scipy CSR covariance on the host (to feed an external solver).  The device
+# engine above never calls them.  numpy/scipy in, numpy/scipy out.
+# ---------------------------------------------------------------------------
+
+def ranges(N, nb):
+    """``nb`` near-equal ``(start, end)`` index windows covering
+    ``range(N)``."""
+    nb = max(int(nb), 1)
+    cuts = [round(N * i / nb) for i in range(nb + 1)]
+    return list(zip(cuts[:-1], cuts[1:]))
+
+
+def num_blocks(n, batch_size):
+    """Chunk count at ``batch_size`` points per chunk."""
+    return max(1, int(n) // int(batch_size))
+
+
+def index_dtype_for(n1, n2):
+    """int32 COO indices whenever they fit."""
+    return np.int32 if max(int(n1), int(n2)) < 2 ** 31 else np.int64
+
+
+def _runs_on_tensors(call, x, hps, device, dtype):
+    """GPprior's probe on the first points: True when the kernel runs on
+    torch tensors while autograd records the hyperparameters (a host
+    kernel refuses such a tensor)."""
+    if not (isinstance(x, np.ndarray) and x.dtype.kind in "fiu"):
+        return False
+    return config.returns_tensor(lambda a, h: call(a, a, h),
+                                 config.to_tensor(x[:2], device, dtype),
+                                 config.to_tensor(hps, device, dtype))
+
+
+def evaluate_kernel(kernel, x1, x2, hyperparameters, k_n_params, args,
+                    compute_device="cuda"):
+    """The kernel block k(x1, x2) as a host array (or the scipy block a
+    support-aware kernel returns): a 3-argument ``k(x1, x2, hps)`` or a
+    4-argument ``k(x1, x2, hps, args)``.  A kernel that runs on torch
+    tensors (the port's catalog, a user's torch kernel) is evaluated on
+    ``compute_device`` (default: the card) in its linalg dtype and brought
+    back to the host; any other kernel is called on the host arrays."""
+    if k_n_params == 3:
+        def call(a, b, h):
+            return kernel(a, b, h)
+    elif k_n_params == 4:
+        def call(a, b, h):
+            return kernel(a, b, h, args)
+    else:
+        raise Exception("No valid kernel function signature")
+    device = config.resolve_device(compute_device)
+    dtype = config.linalg_dtype(args, device)
+    if not _runs_on_tensors(call, x1, hyperparameters, device, dtype):
+        return call(x1, x2, hyperparameters)
+    with torch.no_grad():
+        block = call(*(config.to_tensor(a, device, dtype)
+                       for a in (x1, x2, hyperparameters)))
+    return config.to_numpy(block)
+
+
+def block_to_coo(k, index_dtype=np.int32):
+    """One kernel block as ``(data, rows, cols)`` in block-local
+    coordinates; a scipy.sparse block passes through without densifying."""
+    from scipy import sparse as _sp
+    if _sp.issparse(k):
+        coo = k.tocoo()
+        return (coo.data, coo.row.astype(index_dtype, copy=False),
+                coo.col.astype(index_dtype, copy=False))
+    k = np.asarray(k)
+    nz = np.nonzero(k)
+    return (k[nz], nz[0].astype(index_dtype, copy=False),
+            nz[1].astype(index_dtype, copy=False))
+
+
+def block_triplets(range_ij, x1, x2, hyperparameters, kernel,
+                   k_n_params, args, symmetric, index_dtype=np.int32,
+                   compute_device="cuda"):
+    """Global-coordinate COO triplets for one (row-window, col-window)
+    block.  A diagonal block of a symmetric matrix reports its upper
+    triangle only; the assembler mirrors it."""
+    (i0, i1), (j0, j1) = range_ij
+    block = evaluate_kernel(kernel, x1[i0:i1], x2[j0:j1], hyperparameters,
+                            k_n_params, args, compute_device)
+    data, r, c = block_to_coo(block, index_dtype)
+    if symmetric and i0 == j0 and data.size:
+        upper = r <= c
+        data, r, c = data[upper], r[upper], c[upper]
+    return data, r + index_dtype(i0), c + index_dtype(j0)
+
+
+def row_strip_csr(range_i, x1, x2, hyperparameters, kernel,
+                  k_n_params, args, n2, col_batch_size,
+                  index_dtype=np.int32, compute_device="cuda"):
+    """``(first_row, csr_strip)`` for one row window, evaluated in column
+    chunks so the peak is one dense block (the ``rowwise``
+    distribution)."""
+    from scipy import sparse as _sp
+    i0, i1 = range_i
+    xi = x1[i0:i1]
+    triplets = []
+    for j0, j1 in ranges(n2, num_blocks(n2, col_batch_size)):
+        block = evaluate_kernel(kernel, xi, x2[j0:j1], hyperparameters,
+                                k_n_params, args, compute_device)
+        data, r, c = block_to_coo(block, index_dtype)
+        if data.size:
+            triplets.append((data, r, c + index_dtype(j0)))
+    shape = (i1 - i0, int(n2))
+    if not triplets:
+        return i0, _sp.csr_matrix(shape)
+    strip = _sp.coo_matrix(
+        (np.concatenate([t[0] for t in triplets]),
+         (np.concatenate([t[1] for t in triplets]),
+          np.concatenate([t[2] for t in triplets]))), shape=shape)
+    return i0, strip.tocsr()
+
+
+def assemble_triplets(harvest, n1, n2, symmetric, index_dtype=np.int32):
+    """The CSR matrix from harvested triplet parts in one allocation,
+    mirroring the off-diagonal entries of a symmetric matrix in the same
+    pass."""
+    from scipy import sparse as _sp
+    parts = [(d, r, c) for d, r, c in harvest if d.size]
+    if not parts:
+        return _sp.csr_matrix((int(n1), int(n2)))
+    total = sum(d.size + (int(np.count_nonzero(r != c)) if symmetric else 0)
+                for d, r, c in parts)
+    val = np.empty(total, dtype=np.result_type(*[d.dtype for d, _, _ in parts]))
+    ri = np.empty(total, dtype=index_dtype)
+    ci = np.empty(total, dtype=index_dtype)
+    at = 0
+    while parts:
+        d, r, c = parts.pop()
+        val[at:at + d.size], ri[at:at + d.size], ci[at:at + d.size] = d, r, c
+        at += d.size
+        if symmetric:
+            m = r != c
+            nm = int(np.count_nonzero(m))
+            if nm:
+                val[at:at + nm] = d[m]
+                ri[at:at + nm] = c[m]
+                ci[at:at + nm] = r[m]
+                at += nm
+    return _sp.coo_matrix((val, (ri, ci)), shape=(int(n1), int(n2))).tocsr()
+
+
+def assemble_row_strips(harvest, n1, n2):
+    """Row-ordered vstack of harvested ``(first_row, csr_strip)`` pairs."""
+    from scipy import sparse as _sp
+    strips = dict(harvest)
+    if not strips:
+        return _sp.csr_matrix((int(n1), int(n2)))
+    return _sp.vstack([strips[i] for i in sorted(strips)], format="csr")
+
+
+def covariance_csr(kernel, x1, x2, hyperparameters, *, batch_size=10000,
+                   args=None, symmetric=None, distribution="blockwise",
+                   k_n_params=None, compute_device="cuda"):
+    """The covariance k(x1, x2) as a host scipy CSR matrix through the
+    worker helpers: ``"blockwise"`` schedules the upper triangle of the
+    block grid of a symmetric matrix and mirrors it in the assembly,
+    ``"rowwise"`` assembles finished CSR strips.  The kernel's arity is
+    sniffed like GPprior's when ``k_n_params`` is not given; a kernel that
+    runs on tensors is evaluated on ``compute_device``."""
+    if k_n_params is None:
+        import inspect
+        try:
+            k_n_params = len(inspect.signature(kernel).parameters)
+        except (TypeError, ValueError):
+            k_n_params = 3
+    n1, n2 = len(x1), len(x2)
+    if symmetric is None:
+        if x2 is x1:
+            symmetric = True
+        else:
+            try:                      # ragged object inputs may not compare
+                symmetric = n1 == n2 and bool(np.array_equal(
+                    np.asarray(x1, dtype=object),
+                    np.asarray(x2, dtype=object)))
+            except Exception:
+                symmetric = False
+    idt = index_dtype_for(n1, n2)
+    if distribution == "rowwise":
+        harvest = [row_strip_csr(w, x1, x2, hyperparameters, kernel,
+                                 k_n_params, args, n2, batch_size, idt,
+                                 compute_device)
+                   for w in ranges(n1, num_blocks(n1, batch_size))]
+        return assemble_row_strips(harvest, n1, n2)
+    rw = ranges(n1, num_blocks(n1, batch_size))
+    cw = ranges(n2, num_blocks(n2, batch_size))
+    pairs = [(a, b) for ai, a in enumerate(rw) for bi, b in enumerate(cw)
+             if not (symmetric and bi < ai)]
+    harvest = [block_triplets(p, x1, x2, hyperparameters, kernel,
+                              k_n_params, args, symmetric, idt,
+                              compute_device)
+               for p in pairs]
+    return assemble_triplets(harvest, n1, n2, symmetric, idt)

@@ -16,6 +16,18 @@ import fvgp_tpu_torch.models.gp_marginal_likelihood as TML
 from fvgp_tpu import GP as JaxGP
 from fvgp_tpu_torch import GP, gp_from_numpy_state
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread while this module runs: under the suite's
+    parallel workers torch's default of a thread per core oversubscribes
+    the cores, and loops of small tensor ops slow down tenfold and more."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 N, D, B, PROBES = 900, 3, 64, 16
 HPS = np.array([1.0, 2.0, 2.0, 2.0])
 BOUNDS = np.array([[0.05, 5.0], [1.9, 2.1], [1.9, 2.1], [1.9, 2.1]])

@@ -30,7 +30,7 @@ others; ``WORLD_TIMEOUT`` kills the world instead):
   rank, ``train(method="mcmc")`` off and on the
   traced path from differently seeded ranks, a pickle made on the mesh
   loaded on one rank, ``gp_lin_alg`` CG on the mesh K+V, a carried stored K
-  through ``gp_from_numpy_state``, and the asynchronous refusal.
+  through ``gp_from_numpy_state``, and asynchronous MCMC in lockstep.
 
 The SLQ modes draw 32-64 probes (``tests/test_torch_stored_k.py``'s
 settings) to keep the worlds short.  The workers are functions of this
@@ -50,6 +50,18 @@ import numpy as np
 import pytest
 import scipy.sparse as sps
 import torch
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread while this module runs: under the suite's
+    parallel workers torch's default of a thread per core oversubscribes
+    the cores, and loops of small tensor ops slow down tenfold and more."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 WORLD_TIMEOUT = 300.0          # seconds for one spawned world, start to end
 COLLECTIVE_TIMEOUT = 240.0     # seconds a rank waits in one collective
@@ -382,12 +394,12 @@ def _models_world(rank, world):
                           carried.log_likelihood())
         dense = GP(x[:50], y[:50], init_hyperparameters=np.ones(3),
                    compute_device="cpu")
-        try:
-            dense.train(hyperparameter_bounds=BOUNDS, method="mcmc",
-                        max_iter=4, asynchronous=True)
-            out["async"] = "ran"
-        except NotImplementedError as exc:
-            out["async"] = str(exc)
+        np.random.seed(rank)
+        opt = dense.train(hyperparameter_bounds=BOUNDS, method="mcmc",
+                          max_iter=4, asynchronous=True)
+        opt.actor.join(120)
+        out["async"] = (opt.is_done(), opt.actor.published_steps(),
+                        dense.update_hyperparameters(opt))
     if rank:
         out.pop("pickle")
     out["ops"] = dict(mesh.ops)
@@ -664,5 +676,12 @@ def test_a_carried_stored_k_keeps_each_rank_its_rows(worlds):
 
 
 def test_asynchronous_training_is_refused_under_the_mesh(worlds):
-    for out in worlds["b"]:
-        assert "1.8" in out["async"] and "asynchronous" in out["async"]
+    """No longer refused: asynchronous MCMC from differently seeded ranks
+    runs in lockstep under the mesh, and the agreed poll gives every rank
+    the same hyperparameters (``tests/test_torch_async_mesh.py`` holds
+    the design in full)."""
+    done, steps, hps = worlds["b"][0]["async"]
+    assert done and steps > 0 and np.all(np.isfinite(hps))
+    for out in worlds["b"][1:]:
+        assert out["async"][:2] == (done, steps)
+        np.testing.assert_array_equal(out["async"][2], hps)

@@ -15,6 +15,18 @@ import torch
 
 from fvgp_tpu_torch import GP, NotPortedError
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread while this module runs: under the suite's
+    parallel workers torch's default of a thread per core oversubscribes
+    the cores, and loops of small tensor ops slow down tenfold and more."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ROOT = Path(__file__).resolve().parent.parent
 
 
@@ -49,6 +61,15 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "import fvgp_tpu_torch.models.gpm, fvgp_tpu_torch.models.gplvm\n"
         "import fvgp_tpu_torch.models.ggmp\n"
         "import fvgp_tpu_torch.utils.timing\n"
+        "import fvgp_tpu_torch.examples.single_task\n"
+        "import fvgp_tpu_torch.examples.deep_kernel\n"
+        "import fvgp_tpu_torch.examples.multi_task\n"
+        "import fvgp_tpu_torch.examples.non_euclidean\n"
+        "import fvgp_tpu_torch.examples.gp2scale_sparse\n"
+        "import fvgp_tpu_torch.examples.multichip_mesh\n"
+        "import fvgp_tpu_torch.examples.gplvm_latent\n"
+        "import fvgp_tpu_torch.examples.manifold_gpm\n"
+        "import fvgp_tpu_torch.examples.ggmp_multitask\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'fvgp_tpu' or m.startswith('fvgp_tpu.')"
         " or m == 'optax' or m.startswith('optax.')]\n"
@@ -356,3 +377,226 @@ def test_port_builds_no_path_into_the_jax_package():
             if v.strip("/") == "fvgp_tpu" or "fvgp_tpu/" in v:
                 bad.append(f"{py.relative_to(ROOT)}:{node.lineno}: {v!r}")
     assert not bad, bad
+
+
+# ---------------------------------------------------------------------------
+# the JAX package's whole surface, and the op-level public functions
+# ---------------------------------------------------------------------------
+
+# TPU-only names of the JAX package, each with the reason it has no
+# counterpart in the port
+SURFACE_ALLOWLIST = {
+    "fvgp_tpu.config.asarray":
+        "a jnp array in the linalg dtype; the port's counterpart is "
+        "config.to_tensor, which takes the device explicitly",
+    "fvgp_tpu.parallel.mesh.tile_spec":
+        "a jax.sharding.PartitionSpec; a torch.distributed rank holds its "
+        "own tiles and has no sharding spec",
+    "fvgp_tpu.ops.pallas_kernels":
+        "the Pallas module: its kernels are ops/hopper_kernels.py's "
+        "chunked_spmm, row_chunk_sums, dense_covariance, block_spmv and "
+        "row_aligned_schedule, and chunked_spmm_fits is the TPU's VMEM gate",
+}
+
+
+def _public_names(mod):
+    """A module's public top-level names: ``__all__``, what it defines, its
+    public non-callable values, and in a package's ``__init__`` what it
+    re-exports from its own submodules."""
+    import inspect
+    import types
+    names = set(getattr(mod, "__all__", ()))
+    is_pkg = hasattr(mod, "__path__")
+    for name, value in vars(mod).items():
+        if name.startswith("_") or isinstance(value, types.ModuleType):
+            continue
+        if not (inspect.isfunction(value) or inspect.isclass(value)) \
+                and not (callable(value) and hasattr(value, "__module__")):
+            names.add(name)
+            continue
+        owner = str(getattr(value, "__module__", ""))
+        if owner == mod.__name__ or (is_pkg and owner.startswith(
+                mod.__name__ + ".")):
+            names.add(name)
+    return names
+
+
+def test_the_port_has_every_public_name_of_the_jax_package():
+    """Every module of ``fvgp_tpu`` has its counterpart in the port with
+    each public top-level name, and the classes of ``fvgp_tpu.__all__``
+    each public method; only the TPU-only names of the allowlist are
+    missing."""
+    import importlib
+    import inspect
+    import pkgutil
+
+    import fvgp_tpu
+    import fvgp_tpu_torch
+    missing = []
+    for info in pkgutil.walk_packages(fvgp_tpu.__path__, "fvgp_tpu."):
+        if info.name in SURFACE_ALLOWLIST:
+            continue
+        jax_mod = importlib.import_module(info.name)
+        port_mod = importlib.import_module(
+            info.name.replace("fvgp_tpu", "fvgp_tpu_torch", 1))
+        for name in sorted(_public_names(jax_mod)):
+            if f"{info.name}.{name}" not in SURFACE_ALLOWLIST \
+                    and not hasattr(port_mod, name):
+                missing.append(f"{info.name}.{name}")
+    for name in fvgp_tpu.__all__:
+        cls = getattr(fvgp_tpu, name)
+        if inspect.isclass(cls):
+            port_cls = getattr(fvgp_tpu_torch, name)
+            missing += [f"{name}.{m}" for m in dir(cls)
+                        if not m.startswith("_")
+                        and not hasattr(port_cls, m)]
+    assert not missing, missing
+    assert fvgp_tpu_torch.__version__ == fvgp_tpu.__version__
+    for name in SURFACE_ALLOWLIST:                 # no stale entries
+        module, _, attr = name.rpartition(".")
+        if module == "fvgp_tpu.ops":
+            importlib.import_module(name)
+        else:
+            assert hasattr(importlib.import_module(module), attr), name
+
+
+def wendland_anisotropic_gp2Scale_gpu(x1, x2, hps):
+    """A reference user's own Wendland kernel, under fvGP's name."""
+    from fvgp_tpu_torch.kernels import wendland_anisotropic
+    return wendland_anisotropic(x1, x2, hps)
+
+
+def test_a_wendland_kernel_named_by_fvgp_is_pruned_as_in_jax():
+    """``support_geometry`` knows the Wendland kernel by its names, as the
+    JAX package does: a user's function named
+    ``wendland_anisotropic_gp2Scale_gpu`` gives the same pruned tile set,
+    no "support is unknown" warning, and the JAX package's LML."""
+    import warnings
+
+    import jax.numpy as jnp
+
+    from fvgp_tpu import GP as JaxGP
+    from fvgp_tpu.kernels import wendland_anisotropic as jax_wendland
+
+    def jax_kernel(x1, x2, hps):
+        return jax_wendland(x1, x2, jnp.asarray(hps))
+
+    jax_kernel.__name__ = "wendland_anisotropic_gp2Scale_gpu"
+    rng = np.random.default_rng(8)
+    x = rng.uniform(0, 30, (300, 2))
+    y = np.sin(x[:, 0]) + 0.05 * rng.standard_normal(300)
+    kw = dict(init_hyperparameters=np.array([1.0, 1.5, 1.5]), gp2Scale=True,
+              args={"gp2Scale_block_size": 32, "gp2Scale_traced_lml": False})
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        gp = GP(x, y, kernel_function=wendland_anisotropic_gp2Scale_gpu,
+                compute_device="cpu", **kw)
+        K, lml = gp.K, gp.log_likelihood()
+    assert not [w for w in seen if "support is unknown" in str(w.message)]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        jgp = JaxGP(x, y, kernel_function=jax_kernel, **kw)
+        jK, jlml = jgp.K, jgp.log_likelihood()
+    nb = -(-300 // 32)
+    # the live tile counts (the padding of the two layouts differs)
+    assert K.nnz // 32 ** 2 == jK.nnz // 32 ** 2 < nb * nb
+    np.testing.assert_allclose(lml, jlml, rtol=1e-8)
+
+
+def test_set_linalg_dtype_priority_chain_matches_jax():
+    """``args['dtype']`` > ``set_linalg_dtype`` > the device default, as in
+    ``fvgp_tpu.config``; ``default_backend`` reports the device."""
+    import jax.numpy as jnp
+
+    from fvgp_tpu import config as jconfig
+    from fvgp_tpu_torch import config
+    names = {torch.float64: "float64", torch.float32: "float32",
+             torch.bfloat16: "bfloat16"}
+    assert config.default_backend() == (
+        "cuda" if torch.cuda.is_available() else "cpu")
+    cases = [(None, None), ({"dtype": "float64"}, None)]
+    try:
+        for forced in (None, "float32"):
+            config.set_linalg_dtype(forced)
+            jconfig.set_linalg_dtype(forced)
+            for args in (None, {"dtype": "float64"}, {"dtype": "float32"},
+                         {"kernel_dtype": "bfloat16"}):
+                assert names[config.linalg_dtype(args, "cpu")] \
+                    == jnp.dtype(jconfig.linalg_dtype(args)).name
+                assert names[config.kernel_compute_dtype(args, "cpu")] \
+                    == jnp.dtype(jconfig.kernel_compute_dtype(args)).name
+            cases.append(config.linalg_dtype(None, "cuda"))
+        # a model built under the override solves in it
+        config.set_linalg_dtype("float32")
+        x, y = _tiny_data()
+        with pytest.warns(UserWarning):
+            gp = GP(x, y, compute_device="cpu")
+        assert gp.prior.dtype == gp.kv.KVinvY.dtype == torch.float32
+    finally:
+        config.set_linalg_dtype(None)
+        jconfig.set_linalg_dtype(None)
+    assert cases[2:] == [torch.float32, torch.float32]
+    assert config.linalg_dtype(None, "cpu") == torch.float64
+
+
+def test_op_level_assembler_and_tile_maxabs_match_jax():
+    """``ops.sparse_lml.assemble_tiles`` / ``tile_maxabs`` against the JAX
+    package on unclamped indices: the sentinel rows (== nb) gather the last
+    block in both, and the maxima drive the same zero-tile filter."""
+    import jax.numpy as jnp
+
+    from fvgp_tpu.kernels import wendland_anisotropic as jw
+    from fvgp_tpu.ops import sparse_lml as jsl
+    from fvgp_tpu_torch.kernels import wendland_anisotropic as tw
+    from fvgp_tpu_torch.ops import sparse_lml as tsl
+    rng = np.random.default_rng(4)
+    x = rng.uniform(0, 20, (150, 2))
+    B, hps = 16, np.array([1.0, 1.3, 0.8])
+    nb = -(-len(x) // B)
+    rows = np.concatenate([np.repeat(np.arange(nb), nb), [nb, nb]])
+    cols = np.concatenate([np.tile(np.arange(nb), nb), [nb, 0]])
+    jxb, jmask, *_ = jsl.make_padded_inputs(
+        x, np.zeros(len(x)), np.full(len(x), 1e-2), B, dtype=jnp.float64)
+    txb = torch.as_tensor(np.asarray(jxb))
+    tmask = torch.as_tensor(np.asarray(jmask))
+    jt = np.asarray(jsl.assemble_tiles(jw, jxb, jmask, jnp.asarray(rows),
+                                       jnp.asarray(cols), jnp.asarray(hps)))
+    tt = tsl.assemble_tiles(tw, txb, tmask, rows, cols, hps)
+    assert tt.shape == jt.shape and tt.dtype == torch.float64
+    np.testing.assert_allclose(tt.numpy(), jt, rtol=0, atol=1e-12)
+    assert tsl.assemble_tiles(tw, txb, tmask, rows, cols, hps,
+                              out_dtype="float32").dtype == torch.float32
+    jm = np.asarray(jsl.tile_maxabs(jw, jxb, jmask, jnp.asarray(rows),
+                                    jnp.asarray(cols), jnp.asarray(hps)))
+    tm = tsl.tile_maxabs(tw, txb, tmask, rows, cols, hps).numpy()
+    np.testing.assert_allclose(tm, jm, rtol=0, atol=1e-12)
+    assert 0 < np.count_nonzero(tm) < len(tm)
+    # differentiable in the hyperparameters, as the LML's assembler is
+    h = torch.tensor(hps, requires_grad=True)
+    torch.sum(tsl.assemble_tiles(tw, txb, tmask, rows, cols, h)).backward()
+    assert torch.all(torch.isfinite(h.grad)) and h.grad[0] > 0
+
+
+def test_dense_matvec_and_the_preconditioner_factories():
+    """``make_dense_matvec`` drives ``cg`` as in the JAX suite
+    (``tests/test_linalg.py``), and the Schwarz / two-level factories
+    are the apply functions that ``build_*_op`` return."""
+    from fvgp_tpu_torch.ops import krylov, precond
+    rng = np.random.default_rng(2)
+    M = rng.standard_normal((40, 40))
+    A = torch.as_tensor(M @ M.T + 40 * np.eye(40))
+    b = torch.as_tensor(rng.standard_normal(40))
+    x = krylov.cg(krylov.make_dense_matvec(A), b, tol=1e-12)
+    np.testing.assert_allclose(x.numpy(), np.linalg.solve(A.numpy(),
+                                                          b.numpy()),
+                               atol=1e-9)
+    args = {"sparse_preconditioner_block_size": 8}
+    X = torch.as_tensor(rng.standard_normal((40, 3)))
+    fn, Winv = precond.build_schwarz_op(A, args)
+    np.testing.assert_array_equal(
+        precond.schwarz_apply_factory(5, 8, 40)(Winv, X).numpy(),
+        fn(Winv, X).numpy())
+    fn, data = precond.build_two_level_op(A, args)
+    np.testing.assert_array_equal(
+        precond.two_level_apply_factory(5, 8, 40)(data, X).numpy(),
+        fn(data, X).numpy())

@@ -22,6 +22,18 @@ from fvgp_tpu_torch.kernels import wendland_anisotropic
 from fvgp_tpu_torch.models.gp_kv import sequential_linalg_state
 from fvgp_tpu_torch.parallel.block_sparse import is_block_sparse
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread while this module runs: under the suite's
+    parallel workers torch's default of a thread per core oversubscribes
+    the cores, and loops of small tensor ops slow down tenfold and more."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 N, B = 500, 64
 HPS = np.array([1.0, 1.5, 1.5])
 ARGS = {"gp2Scale_block_size": B, "gp2Scale_traced_lml": False,

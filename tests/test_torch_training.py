@@ -18,6 +18,18 @@ import fvgp_tpu_torch.models.gp_marginal_likelihood as TML
 from fvgp_tpu import GP as JaxGP
 from fvgp_tpu_torch import GP
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread while this module runs: under the suite's
+    parallel workers torch's default of a thread per core oversubscribes
+    the cores, and loops of small tensor ops slow down tenfold and more."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 N = 50
 BOUNDS = np.array([[0.05, 20.0], [0.2, 20.0], [0.2, 20.0]])
 H0 = np.array([1.0, 1.5, 1.5])
