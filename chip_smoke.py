@@ -168,8 +168,21 @@ Wendland kernel, ``covariance_csr`` evaluating on the card, the op-level
 ``"mcmc"``, a stop) on 2 gloo ranks sharing the card, every poll bitwise
 equal across the ranks.
 
+Since the tier-objects slice also: 14. the tier phase (``tier_phase``): the
+members of ``gp.kv``, ``gp.marginal_likelihood`` and ``gp.posterior`` on
+the dense cell's model (N = 10^4, ``Chol``, float32) and on the stored K at
+N = 10,240 (``sparseCGpre``, bfloat16 storage), their array inputs given
+as host numpy arrays: ``compute_new_KVlogdet_KVinvY`` of both tiers,
+``posterior.KVinvY`` / ``K`` / ``m``, ``addKV``, a custom ``[factor,
+solve, logdet]`` mode through ``GP`` and ``resolve_linalg_mode``,
+``default_matern_ard`` / ``wendland_anisotropic`` on the data as a card
+tensor, and the host-made operands fed to the float32 model on the card
+(``addKV`` of host K and V into ``compute_new_KVinvY``, ``default_matern_ard``
+of numpy alone into ``compute_new_KVlogdet_KVinvY``), each held against the facade's own values at the PERF.md §2
+float32 / stored-K bounds; counted as one path.
+
 K4's entry point, phases 6-6e, 7-7c, 9-9c, 9e, 10's two N=1M journeys,
-the nine examples of 11 and the two counted pieces of 5d are the paths:
+the nine examples of 11, the two counted pieces of 5d and 14 are the paths:
 every kernel's launch counter is reset just before each and read just
 after it, and the ``launches`` of a kernel is its sum over them.  The line before the
 last is
@@ -4214,7 +4227,8 @@ def catalog_phase(card="cuda"):
     B = 64
     xb_h, mask_h, *_ = sl.make_padded_inputs(x, np.zeros(len(x)),
                                              np.full(len(x), 1e-2), B,
-                                             torch.float64, "cpu")
+                                             dtype=torch.float64,
+                                             device="cpu")
     nb = xb_h.shape[0]
     rows = np.concatenate([np.repeat(np.arange(nb), nb), [nb]])
     cols = np.concatenate([np.tile(np.arange(nb), nb), [0]])
@@ -4313,6 +4327,226 @@ def async_phase(card="cuda"):
         raise AssertionError("train_async: the ranks stopped apart")
     log(f"train_async mcmc stopped by rank 0 at 1 s, by rank 1 at 2 s: both "
         f"at step {a['stop']['published']}; {time.time() - t0:.1f} s")
+
+
+# the tier phase: a member against the facade's own value of the
+# same quantity in the same precision — the dense cell's float32 bounds
+# (PERF.md §2) for KVinvY (of its scale) and log|K+V| (relative), the
+# stored K's bfloat16-storage bounds for its trial LML (relative) and
+# K + V (of the scale of its product); the kernels on card tensors against
+# the facade's K at the float32 / bfloat16-storage bounds of K @ X
+TIER_BOUNDS = {"dense": {"KVinvY": DENSE_BOUNDS["mean"],
+                         "logdet": DENSE_BOUNDS["lml"],
+                         "addKV": KERNEL_RTOL, "custom_lml":
+                         DENSE_BOUNDS["lml"],
+                         "default_matern_ard": STORED_BOUNDS["float32"][
+                             "matmat"]},
+               "stored": {"lml": STORED_BOUNDS["bfloat16"]["lml"],
+                          "addKV": STORED_BOUNDS["bfloat16"]["matmat"],
+                          "wendland_anisotropic":
+                              STORED_BOUNDS["bfloat16"]["matmat"]}}
+
+
+def _tier_lml(kv, m, KVinvY, logdet):
+    """The LML of a (KVinvY, log|K+V|) pair, as the facade forms it."""
+    import math
+    import torch
+    ym = kv._y_minus(torch.as_tensor(m, dtype=KVinvY.dtype)
+                     .to(KVinvY.device))
+    return -0.5 * (float(torch.sum(ym * KVinvY)) / ym.shape[1] + logdet
+                   + len(ym) * math.log(2.0 * math.pi))
+
+
+def tier_phase(card="cuda", n_dense=10_000, n_stored=10_240):
+    """14. The tier objects' members with host (numpy) inputs, on the dense
+    cell's model and on the stored K, held against the facade's own values
+    (``TIER_BOUNDS``); one counted path.  ``tier_phase("cpu", 1000, 1280)``
+    rehearses it off the card."""
+    import torch
+
+    from fvgp_tpu_torch import GP, config
+    from fvgp_tpu_torch.kernels import default_matern_ard, wendland_anisotropic
+    from fvgp_tpu_torch.models.gp_kv import resolve_linalg_mode
+    from fvgp_tpu_torch.ops import hopper_kernels as hk
+    on_card = card != "cpu"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    host = config.to_numpy
+    times = {}
+    sync()
+    hk.reset_launch_counts()
+    t_phase = time.time()
+    # the dense cell: N = 10^4, Chol, float32 on the card
+    x, y, _ = dense_cell_data(n_dense)
+    hps = np.array([1.0, 1.5, 1.5, 1.5])
+    t0 = time.time()
+    gp = dense_model(x, y, hps, card)
+    kv, ml, post = gp.kv, gp.marginal_likelihood, gp.posterior
+    K_h, V_h, m_h = host(kv.K), host(kv.V), host(kv.m)
+    ref_y, ref_ld = kv.KVinvY, kv.logdet_KV
+    sync()
+    times["dense model and host copies"] = time.time() - t0
+    errs = {}
+    for tier in (kv, ml):
+        t0 = time.time()
+        KVinvY, logdet = tier.compute_new_KVlogdet_KVinvY(K_h, V_h, m_h)
+        sync()
+        name = type(tier).__name__
+        times[f"dense {name}.compute_new_KVlogdet_KVinvY"] = \
+            time.time() - t0
+        errs[f"{name} KVinvY"] = scale_err(host(KVinvY), host(ref_y))
+        errs[f"{name} logdet"] = abs(logdet - ref_ld) / abs(ref_ld)
+    if not (post.KVinvY is kv.KVinvY and post.K is gp.prior.K
+            and post.m is gp.prior.m and post.KVinvY.shape == (n_dense, 1)):
+        raise AssertionError("posterior.KVinvY / K / m are not the model's")
+    # a K+V made by addKV from host K and V lands on the default backend
+    # (the card) and goes into the float32 model's solve
+    t0 = time.time()
+    KV_h = kv.addKV(K_h, V_h)
+    sync()
+    times["dense addKV(host K, host V)"] = time.time() - t0
+    t0 = time.time()
+    y_h = kv.compute_new_KVinvY(KV_h, m_h)
+    sync()
+    times["dense compute_new_KVinvY(that K+V)"] = time.time() - t0
+    t0 = time.time()
+    errs["addKV host"] = scale_err(host(KV_h), host(kv.KV))
+    errs["addKV card K"] = scale_err(host(kv.addKV(kv.K, V_h)), host(kv.KV))
+    errs["compute_new_KVinvY(addKV host) KVinvY"] = scale_err(host(y_h),
+                                                              host(ref_y))
+    times["dense addKV checks (host copies, addKV(card K, host V))"] = \
+        time.time() - t0
+    if on_card and KV_h.device.type != "cuda":
+        raise AssertionError(f"addKV(host K, host V) on {KV_h.device}")
+    del KV_h, y_h
+
+    def factor(KV):
+        return torch.linalg.cholesky(KV)
+
+    def solve(L, b):
+        return torch.cholesky_solve(b, L)
+
+    def logdet_of(L):
+        return 2.0 * float(torch.sum(torch.log(torch.diagonal(L))))
+
+    triple = [factor, solve, logdet_of]
+    t0 = time.time()
+    custom = GP(x, y, init_hyperparameters=hps,
+                noise_variances=np.full(len(x), 1e-2), compute_device=card,
+                linalg_mode=triple)
+    if resolve_linalg_mode(custom.kv.linalg_mode, custom.args) \
+            != (triple, custom.args) or custom.kv.mode is not triple:
+        raise AssertionError("a custom mode did not pass resolve_linalg_mode")
+    lml_c = custom.log_likelihood()
+    _, ld_c = custom.kv.compute_new_KVlogdet_KVinvY(K_h, V_h, m_h)
+    sync()
+    times["dense custom-triple GP, LML, compute_new_KVlogdet_KVinvY"] = \
+        time.time() - t0
+    lml_d = gp.log_likelihood()
+    errs["custom_lml"] = max(abs(lml_c - lml_d),
+                             abs(_tier_lml(kv, m_h, ref_y, ld_c) - lml_d)) \
+        / abs(lml_d)
+    t0 = time.time()
+    x_t = torch.as_tensor(np.asarray(gp.x_data), dtype=gp.prior.dtype) \
+        .to(gp.device)
+    K_cat = default_matern_ard(x_t, x_t, gp.hyperparameters)
+    sync()
+    times["dense default_matern_ard(card x, card x, numpy hps)"] = \
+        time.time() - t0
+    errs["default_matern_ard"] = scale_err(host(K_cat), K_h)
+    del K_cat
+    # the catalog on numpy alone: K on the default backend (the card) in
+    # float64, taken by the float32 model's compute_new_KVlogdet_KVinvY
+    t0 = time.time()
+    x_h = np.asarray(gp.x_data)
+    K_np = default_matern_ard(x_h, x_h, np.asarray(gp.hyperparameters))
+    y_np, ld_np = kv.compute_new_KVlogdet_KVinvY(K_np, V_h, m_h)
+    sync()
+    times["dense default_matern_ard(numpy) into "
+          "compute_new_KVlogdet_KVinvY"] = time.time() - t0
+    if on_card and K_np.device.type != "cuda":
+        raise AssertionError(f"default_matern_ard(numpy) on {K_np.device}")
+    errs["default_matern_ard numpy"] = scale_err(host(K_np), K_h)
+    errs["catalog K KVinvY"] = scale_err(host(y_np), host(ref_y))
+    errs["catalog K logdet"] = abs(ld_np - ref_ld) / abs(ref_ld)
+    del custom, K_np, y_np, K_h
+    held(f"tier phase, dense N={n_dense} Chol {gp.prior.dtype} on {card}, "
+         "against the facade's own values", {
+             "KVinvY": max(v for k, v in errs.items() if "KVinvY" in k),
+             "logdet": max(v for k, v in errs.items() if "logdet" in k),
+             "addKV": max(errs["addKV host"], errs["addKV card K"]),
+             "custom_lml": errs["custom_lml"],
+             "default_matern_ard": max(errs["default_matern_ard"],
+                                       errs["default_matern_ard numpy"])},
+         TIER_BOUNDS["dense"])
+    del gp, kv, ml, post, ref_y
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # the stored K: N = 10,240, sparseCGpre, bfloat16 tile storage
+    x, y, _ = journey_data(n_stored, seed=4)
+    hps = np.array([1.0, 2.0, 2.0, 2.0])
+    t0 = time.time()
+    gp = stored_model(x, y, hps, card, {"gp2Scale_storage_dtype": "bfloat16"})
+    kv, ml, post = gp.kv, gp.marginal_likelihood, gp.posterior
+    K = kv.K
+    V_h, m_h = host(kv.V), host(kv.m)
+    sync()
+    times["stored model and K"] = time.time() - t0
+    errs = {}
+    lml_ref = gp.log_likelihood(hps)            # the facade's trial LML
+    for tier in (kv, ml):
+        t0 = time.time()
+        KVinvY, logdet = tier.compute_new_KVlogdet_KVinvY(K, V_h, m_h)
+        sync()
+        name = type(tier).__name__
+        times[f"stored {name}.compute_new_KVlogdet_KVinvY"] = \
+            time.time() - t0
+        errs[f"{name} lml"] = abs(_tier_lml(kv, m_h, KVinvY, logdet)
+                                  - lml_ref) / abs(lml_ref)
+    t0 = time.time()
+    committed = post.KVinvY
+    sync()
+    times["stored posterior.KVinvY (committed solve)"] = time.time() - t0
+    if not (committed is kv.KVinvY and post.K is gp.prior.K
+            and post.m is gp.prior.m and committed.shape == (n_stored, 1)
+            and bool(torch.all(torch.isfinite(committed)))):
+        raise AssertionError("stored posterior.KVinvY / K / m are not the "
+                             "model's")
+    X = torch.as_tensor(np.random.default_rng(5).standard_normal(
+        (n_stored, 4)), dtype=gp.prior.dtype).to(gp.device)
+    t0 = time.time()
+    ref_kx = host(kv.KV.matmat(X))
+    errs["addKV"] = scale_err(host(kv.addKV(K, V_h).matmat(X)), ref_kx)
+    times["stored addKV (host V) and two products"] = time.time() - t0
+    # the model's own order of the points (gp2Scale sorts them in space)
+    x_t = torch.as_tensor(np.asarray(gp.x_data), dtype=gp.prior.dtype) \
+        .to(gp.device)
+    t0 = time.time()
+    K_cat = wendland_anisotropic(x_t, x_t, gp.hyperparameters)
+    sync()
+    times["stored wendland_anisotropic(card x, card x, numpy hps)"] = \
+        time.time() - t0
+    errs["wendland_anisotropic"] = scale_err(host(K_cat), host(K.to_dense()))
+    del K_cat
+    held(f"tier phase, stored K N={n_stored} sparseCGpre {K.tiles.dtype} "
+         f"storage on {card}, against the facade's own values", {
+             "lml": max(v for k, v in errs.items() if "lml" in k),
+             "addKV": errs["addKV"],
+             "wendland_anisotropic": errs["wendland_anisotropic"]},
+         TIER_BOUNDS["stored"])
+    sync()
+    launches = launch_counts()
+    log(f"tier phase: {time.time() - t_phase:.2f} s; seconds by step: "
+        + json.dumps({k: round(v, 4) for k, v in times.items()}))
+    log(f"tier phase launches: {json.dumps(launches)}")
+    if on_card and not (launches["chunked_spmm"] >= 1
+                        and launches["dense_covariance"] >= 1):
+        raise AssertionError(f"the tier phase missed K1 or K3: {launches}")
+    return launches
 
 
 def main():
@@ -4419,6 +4653,9 @@ def main():
     t0 = time.time()
     async_phase()
     log(f"asynchronous training on the mesh phase: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    tier_launches = tier_phase()
+    log(f"tier phase: {time.time() - t0:.1f} s")
     # each kernel's launches on the four paths, each read just after its
     # run: K4's ops entry, the dense journey, the gp2Scale journey, the
     # stored-K journey
@@ -4429,7 +4666,7 @@ def main():
              diagonal_launches, multitask_launches, formula_launches,
              structured_launches, non_euclidean_launches,
              *extension_launches.values(), *mesh_launches.values(),
-             *example_launches.values()]
+             *example_launches.values(), tier_launches]
     launches = {name: sum(p[name] for p in paths) for name in REPLACES}
     for kern, name in (("K1", "chunked_spmm"), ("K2", "row_chunk_sums")):
         log(f"{kern} launches by path: " + json.dumps(
@@ -4445,7 +4682,8 @@ def main():
              "non-Euclidean gp2Scale": non_euclidean_launches[name],
              "mesh N=1M (2 ranks)": mesh_launches["n1m"][name],
              "mesh stored-K N=1M (2 ranks)":
-                 mesh_launches["stored_n1m"][name]}))
+                 mesh_launches["stored_n1m"][name],
+             "tier phase": tier_launches[name]}))
     log("K3 launches by path: " + json.dumps(
         {"dense journey": dense_launches["dense_covariance"],
          "dense posterior API": dense_api_launches["dense_covariance"],
@@ -4455,7 +4693,8 @@ def main():
          **{path: total["dense_covariance"]
             for path, total in extension_launches.items()},
          **{f"example {name}": total["dense_covariance"]
-            for name, total in example_launches.items()}}))
+            for name, total in example_launches.items()},
+         "tier phase": tier_launches["dense_covariance"]}))
     log("K1 on the merged float32 K+V (bfloat16 K + scipy noise, N = 1M), "
         "k = 1: " + json.dumps(merged_record))
     log("K1 at the SLQ batch width (k = 16, N = 1M structure): "

@@ -13,10 +13,12 @@
 * A pickled model holds host numpy arrays and device names only
   (:func:`host_state` / :func:`device_state`).
 * Float32 matrix products run in full float32: the port never turns TF32 on.
-* :func:`to_tensor`, :func:`returns_tensor` and :func:`hps_jacobian` are the
-  models' shared plumbing: host data onto the device, the "runs on torch
-  tensors" probe of a user callable, and its forward-mode derivative in the
-  hyperparameters.
+* :func:`to_tensor`, :func:`tensor_operand`, :func:`returns_tensor` and
+  :func:`hps_jacobian` are the models' shared plumbing: host data onto the
+  device, a public method's operand onto the model's device and dtype
+  (or a reference tensor's), the "runs
+  on torch tensors" probe of a user callable, and its forward-mode
+  derivative in the hyperparameters.
 
 The dtype override is the one global switch (the JAX package's); there is
 no compile cache, and every tensor is created with an explicit dtype and
@@ -154,6 +156,31 @@ def to_tensor(a, device, dtype):
         return a.to(device, dtype)
     return torch.as_tensor(np.asarray(a, dtype=np.float64),
                            dtype=dtype).to(device)
+
+
+HOST_ARRAYS = (np.ndarray, np.generic, list, tuple)
+
+
+def tensor_operand(a, device=None, dtype=None, like=None):
+    """The one rule by which a public method's array operand becomes a
+    tensor: a host array (:data:`HOST_ARRAYS`) or a number as
+    ``torch.as_tensor`` makes it, a tensor as it is, then moved to
+    ``device`` in ``dtype`` (``like``'s device and dtype where a reference
+    tensor is given).  Where they are None a tensor keeps its own, and a
+    host array takes :func:`default_backend` and the dtype numpy gave it.
+    None and any other object (a block-sparse or ``scipy.sparse`` matrix)
+    pass as they are.  The tier objects' methods take their array inputs
+    through it with the model's device and dtype, the kernel catalog with
+    its first floating tensor argument."""
+    if like is not None:
+        device, dtype = like.device, like.dtype
+    if isinstance(a, HOST_ARRAYS + (int, float)):
+        a = torch.as_tensor(np.asarray(a), dtype=dtype, device=device
+                            if device is not None else default_backend())
+    if not torch.is_tensor(a):
+        return a
+    return a.to(a.device if device is None else device,
+                a.dtype if dtype is None else dtype)
 
 
 def returns_tensor(fn, x, hps):

@@ -25,13 +25,21 @@ dot-product family, fvGP's cpu / gpu / sparse names of the Wendland kernel
 ``scipy.sparse.coo_matrix``), the non-stationary ``g(x1) g(x2)`` kernel and
 its explicit gradient, the 1-d Wasserstein distances, ``bump`` and the
 4-argument landmark kernel ``sle_kernel``.
+
+Like the JAX catalog, every function takes host arrays: a numpy array or a
+list becomes a tensor on the device and in the dtype of a tensor argument
+(on the default backend, the card where there is one, where there is none),
+and the result is a tensor.
 """
 
+import functools
 import math
 
 import numpy as np
 import torch
 from torch.autograd import forward_ad
+
+from . import config
 
 __all__ = [
     "squared_exponential_kernel", "squared_exponential_kernel_robust",
@@ -49,6 +57,29 @@ __all__ = [
     "bump", "sle_kernel"]
 
 _EXACT_MAX_DIM = 32
+
+
+def _host_inputs(fn):
+    """``fn`` taking host arrays as the JAX catalog does: a host array
+    (``config.HOST_ARRAYS``) becomes a tensor by ``config.tensor_operand``
+    on the device and in the dtype of the first floating tensor argument
+    (a tensor keeps its device, host arrays beside it follow it there), and
+    where there is none on the default backend in numpy's dtype; tensors,
+    numbers and other objects pass as they are.  The result is a tensor."""
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        values = (*args, *kwargs.values())
+        if not any(isinstance(a, config.HOST_ARRAYS) for a in values):
+            return fn(*args, **kwargs)
+        like = next((a for a in values if torch.is_tensor(a)
+                     and a.is_floating_point()), None)
+
+        def tensor(a):
+            return config.tensor_operand(a, like=like) \
+                if isinstance(a, config.HOST_ARRAYS) else a
+        return fn(*map(tensor, args),
+                  **{k: tensor(v) for k, v in kwargs.items()})
+    return wrapper
 
 
 def _sq_dist(x1, x2):
@@ -72,11 +103,13 @@ def _safe_sqrt(d2):
                        torch.zeros_like(d2))
 
 
+@_host_inputs
 def get_distance_matrix(x1, x2):
     """Pairwise Euclidean distance matrix."""
     return _safe_sqrt(_sq_dist(x1, x2))
 
 
+@_host_inputs
 def get_anisotropic_distance_matrix(x1, x2, hps):
     """Axial-anisotropic distance: coordinates whitened by ``hps`` per axis."""
     return get_distance_matrix(x1 / hps, x2 / hps)
@@ -90,32 +123,38 @@ _SQRT3 = 1.7320508075688772
 _SQRT5 = 2.23606797749979
 
 
+@_host_inputs
 def squared_exponential_kernel(distance, length):
     """k = exp(-d²/(2 l²))."""
     return torch.exp(-(distance ** 2) / (2.0 * (length ** 2)))
 
 
+@_host_inputs
 def squared_exponential_kernel_robust(distance, phi):
     """k = exp(-d² φ²) — the 1/l² → φ² reparameterization."""
     return torch.exp(-(distance ** 2) * (phi ** 2))
 
 
+@_host_inputs
 def exponential_kernel(distance, length):
     """k = exp(-d/l)."""
     return torch.exp(-distance / length)
 
 
+@_host_inputs
 def exponential_kernel_robust(distance, phi):
     """k = exp(-d φ²)."""
     return torch.exp(-distance * (phi ** 2))
 
 
+@_host_inputs
 def matern_kernel_diff1(distance, length):
     """Matérn ν=3/2: (1+√3 d/l) exp(-√3 d/l)."""
     a = _SQRT3 * distance / length
     return (1.0 + a) * torch.exp(-a)
 
 
+@_host_inputs
 def matern_kernel_diff1_grad(distance, dist_der):
     """d/dl of Matérn-3/2 given d(distance)/d(hp): a catalog helper for
     user kernels that supply their own gradients (the port's own paths
@@ -126,12 +165,14 @@ def matern_kernel_diff1_grad(distance, dist_der):
     return dadl * ea - (1.0 + a) * dadl * ea
 
 
+@_host_inputs
 def matern_kernel_diff1_robust(distance, phi):
     """Matérn-3/2 with 1/l → φ²."""
     a = _SQRT3 * distance * (phi ** 2)
     return (1.0 + a) * torch.exp(-a)
 
 
+@_host_inputs
 def matern_kernel_diff2(distance, length):
     """Matérn ν=5/2."""
     a = _SQRT5 * distance / length
@@ -139,6 +180,7 @@ def matern_kernel_diff2(distance, length):
         * torch.exp(-a)
 
 
+@_host_inputs
 def matern_kernel_diff2_robust(distance, phi):
     """Matérn-5/2 robust form, with fvGP's published 5·3 φ⁴ coefficient."""
     a = _SQRT5 * distance * (phi ** 2)
@@ -146,6 +188,7 @@ def matern_kernel_diff2_robust(distance, phi):
         * torch.exp(-a)
 
 
+@_host_inputs
 def sparse_kernel(distance, radius):
     """Compactly supported spherical kernel."""
     d = torch.as_tensor(distance)
@@ -161,6 +204,7 @@ def sparse_kernel(distance, radius):
         + ((2.0 * u ** 2 + 1.0) * root))
 
 
+@_host_inputs
 def periodic_kernel(distance, length, p):
     """k = exp(-2 sin²(π d / p)/l²)."""
     return torch.exp(-(2.0 / length ** 2)
@@ -176,16 +220,19 @@ def _reversed_axes(x):
     return x.permute(*reversed(range(x.dim())))
 
 
+@_host_inputs
 def linear_kernel(x1, x2, hp1, hp2, hp3):
     """k = hp1 + hp2 (x1-hp3)(x2-hp3)."""
     return hp1 + (hp2 * (x1 - hp3) * (x2 - hp3))
 
 
+@_host_inputs
 def dot_product_kernel(x1, x2, hp, matrix):
     """k = hp + x1ᵀ M x2."""
     return hp + _reversed_axes(x1) @ matrix @ x2
 
 
+@_host_inputs
 def polynomial_kernel(x1, x2, p):
     """k = (1 + x1ᵀx2)^p."""
     return (1.0 + _reversed_axes(x1) @ x2) ** p
@@ -201,11 +248,13 @@ def _wendland_poly(d):
     return (1.0 - d) ** 8 * (32.0 * d ** 3 + 25.0 * d ** 2 + 8.0 * d + 1.0)
 
 
+@_host_inputs
 def wendland_kernel(d):
     """Wendland kernel of a pre-computed distance matrix."""
     return _wendland_poly(d)
 
 
+@_host_inputs
 def wendland_anisotropic(x1, x2, hyperparameters):
     """Anisotropic Wendland: hps = [signal variance, l_1..l_D]."""
     d = get_anisotropic_distance_matrix(x1, x2, hyperparameters[1:])
@@ -242,17 +291,20 @@ wendland_anisotropic_gp2Scale_gpu_sparse = \
 # non-stationary g(x1) g(x2) kernel
 # ---------------------------------------------------------------------------
 
+@_host_inputs
 def _g(x, x0, w, l):
     """g(x) = Σ_j w_j exp(-|x - x0_j|² / l)."""
     d = get_distance_matrix(x, x0)
     return torch.sum(w * torch.exp(-(d ** 2) / l), dim=1)
 
 
+@_host_inputs
 def non_stat_kernel(x1, x2, x0, w, l):
     """k = g(x1) g(x2) with the RBF basis g over the centres ``x0``."""
     return torch.outer(_g(x1, x0, w, l), _g(x2, x0, w, l))
 
 
+@_host_inputs
 def non_stat_kernel_gradient(x1, x2, x0, w, l):
     """∂k/∂(w, l) of :func:`non_stat_kernel`, (len(w) + 1, n1, n2): the
     ``w_j`` derivatives first, the ``l`` derivative last (a catalog helper;
@@ -316,6 +368,7 @@ def _k3_hyperparameters(hps, dim):
     return None
 
 
+@_host_inputs
 def default_matern_ard(x1, x2, hyperparameters):
     """The default kernel: hps[0] · Matérn-3/2 of the anisotropic distance,
     one lengthscale per input dimension.
@@ -338,6 +391,7 @@ def default_matern_ard(x1, x2, hyperparameters):
 # distributions as inputs; landmark embeddings
 # ---------------------------------------------------------------------------
 
+@_host_inputs
 def wasserstein_1d(a, b):
     """W₁ between two unnormalized 1-d measures of equal length: each is
     normalized by its sum, then the mean |sorted difference|."""
@@ -348,6 +402,7 @@ def wasserstein_1d(a, b):
     return torch.mean(torch.abs(a - b))
 
 
+@_host_inputs
 def wasserstein_1d_outer_vec(a, b):
     """Pairwise W₁ distances between two batches of unnormalized 1-d
     measures, rows normalized by their sums: a (N1, S), b (N2, S) →
@@ -359,6 +414,7 @@ def wasserstein_1d_outer_vec(a, b):
     return torch.mean(torch.abs(a[:, None, :] - b[None, :, :]), dim=-1)
 
 
+@_host_inputs
 def bump(d, r, beta=1., ampl=1.):
     """Smooth compactly supported bump: ampl·exp(β)·exp(-β/(1-(d/r)²))
     inside the support, 0 outside.  Both ``where``s matter: the inner one
@@ -373,6 +429,7 @@ def bump(d, r, beta=1., ampl=1.):
     return torch.where(inside, vals, torch.zeros_like(vals))
 
 
+@_host_inputs
 def sle_kernel(x1, x2, hps, args):
     """Sparse-landmark-embedding kernel: points embedded by bump similarity
     to the landmarks ``args['x_data']`` (else ``args['landmarks']``), then

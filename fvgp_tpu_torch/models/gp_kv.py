@@ -49,7 +49,7 @@ from .. import config
 from ..ops import dense as dops
 from ..ops import krylov, slq
 from ..ops.precond import build_preconditioner_op
-from ..parallel.block_sparse import is_block_sparse
+from ..parallel.block_sparse import _dense_dtype, is_block_sparse
 from ..parallel.mesh import all_agree, gather_rows
 
 # ---------------------------------------------------------------------------
@@ -107,7 +107,10 @@ _PRECONDITIONED_MODES = {"sparseMINRESpre", "sparseCGpre"}
 
 def resolve_linalg_mode(mode, args):
     """``sparseCGpre_amg`` → mode ``sparseCGpre`` with
-    ``args['sparse_preconditioner_type'] = 'amg'`` (in a copy of args)."""
+    ``args['sparse_preconditioner_type'] = 'amg'`` (in a copy of args); a
+    custom ``[factor, solve, logdet]`` mode and its args pass unchanged."""
+    if not isinstance(mode, str):
+        return mode, args
     for base in ("sparseCGpre", "sparseMINRESpre"):
         prefix = base + "_"
         if mode.startswith(prefix):
@@ -186,12 +189,29 @@ class GPkv:
         return self.data.y_data
 
     @property
+    def K(self):
+        return self.prior.K
+
+    @property
+    def m(self):
+        return self.prior.m
+
+    @property
+    def V(self):
+        return self.likelihood.V
+
+    @property
     def gp2Scale(self):
         return self.data.gp2Scale
 
     @property
     def dtype(self):
         return config.linalg_dtype(self.args, self.data.device)
+
+    def _operand(self, a):
+        """A host input of a public method as a tensor on the model's
+        device in its dtype (tensors and matrices pass as they are)."""
+        return config.tensor_operand(a, self.data.device, self.dtype)
 
     @staticmethod
     def _is_custom(mode):
@@ -238,9 +258,11 @@ class GPkv:
     @staticmethod
     def matrix_fingerprint(KV):
         """O(nnz) summary (shape, nnz, trace, fro) that detects a moved
-        K+V."""
+        K+V; a host matrix gives the tuple of its tensor
+        (``config.tensor_operand``)."""
         if KV is None:
             return None
+        KV = config.tensor_operand(KV)
         if is_block_sparse(KV):
             trace, fro = KV.trace_and_fro()
             return (tuple(KV.shape), int(KV.nnz), float(trace), float(fro))
@@ -485,10 +507,16 @@ class GPkv:
         On a block-sparse K a structured V is tiled onto K's grid, on K's
         device, with K's dense tile dtype (``from_scipy``), and the two tile
         lists are merged; a float32 merge of bfloat16-stored K keeps the
-        noise at float32 precision.  On a dense K it is densified."""
+        noise at float32 precision.  On a dense K it is densified.  Host
+        arrays are taken as in the JAX package (``config.tensor_operand``):
+        a host K goes to the default backend, the card where there is one,
+        and V follows K's device and dtype."""
         from scipy.sparse import issparse
+        K = config.tensor_operand(K)
+        V = config.tensor_operand(V, K.device, K.dtype if torch.is_tensor(K)
+                                  else _dense_dtype(K.tiles.dtype))
         if is_block_sparse(K):
-            from ..parallel.block_sparse import _dense_dtype, from_scipy, merge
+            from ..parallel.block_sparse import from_scipy, merge
             if issparse(V):
                 return merge(K, from_scipy(V, K.block_size, device=K.device,
                                            dtype=_dense_dtype(K.tiles.dtype)))
@@ -502,10 +530,9 @@ class GPkv:
         if K.dim() != 2 or K.shape[0] != K.shape[1]:
             raise AssertionError("K must be a square 2-d matrix")
         if issparse(V):
-            V = torch.as_tensor(V.toarray())
+            V = config.tensor_operand(V.toarray(), like=K)
         elif is_block_sparse(V):
-            V = V.to_dense()
-        V = V.to(K.device, K.dtype)
+            V = V.to_dense().to(K.device, K.dtype)
         if V.dim() == 1:
             return dops.add_diagonal(K, V)
         if V.dim() == 2:
@@ -627,8 +654,18 @@ class GPkv:
             return dops.cholesky_factor(self._densify(KV))
         return None
 
+    def compute_new_KVlogdet_KVinvY(self, K, V, m, x0=None):
+        """``(KVinvY, log|K+V|)`` of a trial (K, V, m), nothing committed:
+        one factorization serves both in the exact modes; the iterative
+        modes (under gp2Scale the stored K's Krylov solve and SLQ
+        log-determinant) and a custom ``[factor, solve, logdet]`` mode run
+        as the trial LML runs them."""
+        _, KVinvY, logdet, _ = self.trial_state(K, V, m, x0=x0)
+        return KVinvY, logdet
+
     def compute_new_KVinvY(self, KV, m, x0=None):
         """KVinvY for a trial (KV, m) without committing state."""
+        KV, m, x0 = map(self._operand, (KV, m, x0))
         x0 = self._validated_warm_start(KV, x0)
         self.Warm_start_fingerprint = self.matrix_fingerprint(KV)
         y_mean = self._y_minus(m)
@@ -643,6 +680,7 @@ class GPkv:
         nothing committed: the solve and the logdet share one factorization
         (None in the iterative and custom modes), which the formula gradient
         then takes instead of factoring again."""
+        K, V, m, x0 = map(self._operand, (K, V, m, x0))
         KV = self.addKV(K, V)
         x0 = self._validated_warm_start(KV, x0)
         self.Warm_start_fingerprint = self.matrix_fingerprint(KV)
@@ -1065,6 +1103,7 @@ class GPkv:
         fast solver and never materializes the stored K+V (``x0`` is
         ignored there); otherwise the committed factorization or the
         stored-operator Krylov solve serves it."""
+        b, x0 = self._operand(b), self._operand(x0)
         fast = self._fast_solve_or_none(b)
         if fast is not None:
             return fast

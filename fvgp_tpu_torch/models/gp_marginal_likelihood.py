@@ -84,8 +84,25 @@ class GPMarginalLikelihood:
         return self.data.y_data
 
     @property
+    def ram_economy(self):
+        return self.data.ram_economy
+
+    @property
+    def gp2Scale(self):
+        return self.data.gp2Scale
+
+    @property
     def hyperparameters(self):
         return self.trainer.hyperparameters
+
+    def invalidate_traced(self):
+        """Drop what the traced gp2Scale LML caches for the dataset: the
+        program's entry, the candidate tile pairs and the tile filter's
+        keep mask (every entry is also keyed by the data's generation, so
+        ``update_gp_data`` does the same)."""
+        self._sparse_cache = {}
+        self._candidate_cache = None
+        self._filter_mask_cache = None
 
     # ------------------------------------------------------------------
     def _sparse_traced_ready(self):
@@ -717,6 +734,19 @@ class GPMarginalLikelihood:
         self._update_warm_start(KVinvY)
         return KVinvY
 
+    def _trial_state(self, K, V, m):
+        """The kv's trial state of (K, V, m), warm-started where warm starts
+        are on: ``(K+V, KVinvY, logdet, Cholesky factor or None)``."""
+        x0 = self._iterative_initial_guess(tuple(self.y_data.shape))
+        state = self.kv.trial_state(K, V, m, x0=x0)
+        self._update_warm_start(state[1])
+        return state
+
+    def compute_new_KVlogdet_KVinvY(self, K, V, m):
+        """``(KVinvY, log|K+V|)`` of a trial (K, V, m) through the kv's one
+        factorization, warm-started where warm starts are on."""
+        return self._trial_state(K, V, m)[1:3]
+
     def _trial(self, hyperparameters):
         """One trial assembly and solve in the resolved mode: ``(K, V, m,
         K+V, KVinvY, logdet, Cholesky factor or None)``."""
@@ -725,10 +755,7 @@ class GPMarginalLikelihood:
                                                   hyperparameters)
         V = self.likelihood.calculate_V(self.x_data, hyperparameters)
         m = prior.compute_mean(prior._x_points(), hyperparameters)
-        x0 = self._iterative_initial_guess(tuple(self.y_data.shape))
-        KV, KVinvY, logdet, chol = self.kv.trial_state(K, V, m, x0=x0)
-        self._update_warm_start(KVinvY)
-        return K, V, m, KV, KVinvY, logdet, chol
+        return (K, V, m, *self._trial_state(K, V, m))
 
     def _trial_value(self, hyperparameters):
         """The LML from a trial K+V in the resolved mode: the dense LML of

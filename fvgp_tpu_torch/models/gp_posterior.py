@@ -78,6 +78,10 @@ class GPposterior:
         self._cross_cov_memo = None
 
     @property
+    def args(self):
+        return self.data.args
+
+    @property
     def hyperparameters(self):
         return self.trainer.hyperparameters
 
@@ -94,8 +98,34 @@ class GPposterior:
         return self.data.x_out
 
     @property
+    def KVinvY(self):
+        return self.kv.KVinvY
+
+    @property
+    def KVinv(self):
+        return self.kv.KVinv
+
+    @property
+    def input_set_dim(self):
+        return self.data.input_set_dim
+
+    @property
+    def K(self):
+        return self.prior.K
+
+    @property
+    def m(self):
+        return self.prior.m
+
+    @property
     def gp2Scale(self):
         return self.data.gp2Scale
+
+    def _tensor(self, a):
+        """What a prior callable returned (a tensor, or the host array of a
+        host replacement) as a tensor on the model's device in its
+        dtype."""
+        return config.tensor_operand(a, self.data.device, self.kv.dtype)
 
     @staticmethod
     def _cross_cov_key(data, x_pred, hyperparameters):
@@ -108,13 +138,14 @@ class GPposterior:
         (posterior_mean then posterior_covariance assemble the same k); a
         list of objects skips the memo."""
         if not isinstance(x_pred, np.ndarray):
-            return self.prior.compute_data_cross_covariance(x_pred,
-                                                            hyperparameters)
+            return self._tensor(self.prior.compute_data_cross_covariance(
+                x_pred, hyperparameters))
         key = self._cross_cov_key(self.data, x_pred, hyperparameters)
         memo = self._cross_cov_memo
         if memo is not None and memo[0] == key:
             return memo[1]
-        k = self.prior.compute_data_cross_covariance(x_pred, hyperparameters)
+        k = self._tensor(self.prior.compute_data_cross_covariance(
+            x_pred, hyperparameters))
         self._cross_cov_memo = (key, k)
         return k
 
@@ -235,7 +266,8 @@ class GPposterior:
         if hyperparameters is None:
             return self.hyperparameters, self.kv.KVinvY
         prior = self.prior
-        K = prior.compute_prior_covariance_matrix(self.x_data, hyperparameters)
+        K = self._tensor(prior.compute_prior_covariance_matrix(
+            self.x_data, hyperparameters))
         V = self.likelihood.calculate_V(self.x_data, hyperparameters)
         m = prior.compute_mean(self.x_data, hyperparameters)
         return hyperparameters, self.kv.compute_new_KVinvY(self.kv.addKV(K, V),
@@ -247,8 +279,8 @@ class GPposterior:
         hyperparameters, KVinvY = self._hps_and_KVinvY(hyperparameters)
         x_orig, x_pred, x_out = self._product_space(x_pred, x_out)
         A = self._mean_product(x_pred, hyperparameters, KVinvY)
-        prior_mean = config.to_numpy(self.prior.compute_mean(
-            x_pred, hyperparameters))
+        prior_mean = config.to_numpy(self._tensor(self.prior.compute_mean(
+            x_pred, hyperparameters)))
         posterior_mean = prior_mean[:, None] + A
         if isinstance(x_out, np.ndarray):
             return {"x": x_orig,
@@ -292,8 +324,8 @@ class GPposterior:
         einsum."""
         x_orig, x_pred, x_out = self._product_space(x_pred, x_out)
         k = self._cross_cov(x_pred, self.hyperparameters)
-        kk = self.prior.compute_covariances(x_pred, x_pred,
-                                            self.hyperparameters)
+        kk = self._tensor(self.prior.compute_covariances(
+            x_pred, x_pred, self.hyperparameters))
         single = self.y_data.shape[1] == 1
         S = None
         if self.kv.KVinv is not None and variance_only and single:
@@ -377,14 +409,15 @@ class GPposterior:
         K = _jitter(self._dense_K())
         x_orig, x_pred, _ = self._product_space(x_pred, x_out)
         hps = self.hyperparameters
-        k = self.prior.compute_covariances(self.prior._x_dev, x_pred, hps)
-        kk = self.prior.compute_covariances(x_pred, x_pred, hps)
+        k = self._tensor(self.prior.compute_covariances(self.prior._x_dev,
+                                                        x_pred, hps))
+        kk = self._tensor(self.prior.compute_covariances(x_pred, x_pred, hps))
         return x_orig, x_pred, K, k, kk
 
     def _joint_prior(self, x_pred, x_out):
         x_orig, x_pred, K, k, kk = self._joint_blocks(x_pred, x_out)
-        mean = torch.cat([self.prior.m.to(K.dtype), self.prior.compute_mean(
-            x_pred, self.hyperparameters)])
+        mean = torch.cat([self.prior.m.to(K.dtype), self._tensor(
+            self.prior.compute_mean(x_pred, self.hyperparameters))])
         return {"x": x_pred, "K": K, "k": k, "kappa": kk,
                 "prior mean": mean, "S": _jitter(_block(K, k, kk))}
 
@@ -530,10 +563,11 @@ class GPposterior:
             x_out = self.x_out
         x_orig, x_aux, _ = self._product_space(x_pred, x_out)
         hps = self.hyperparameters
-        kk = _jitter(self.prior.compute_covariances(x_aux, x_aux, hps))
+        kk = _jitter(self._tensor(self.prior.compute_covariances(x_aux, x_aux,
+                                                                 hps)))
         post_mean, post_cov = self._device_posterior(x_pred, x_out,
                                                      add_noise=add_noise)
-        prio_mean = self.prior.compute_mean(x_aux, hps)
+        prio_mean = self._tensor(self.prior.compute_mean(x_aux, hps))
         return {"x": x_orig, "RIE": self.kl_div(prio_mean, post_mean, kk,
                                                 _jitter(post_cov))}
 
@@ -589,9 +623,10 @@ class GPposterior:
             from scipy.sparse import issparse
             noise = self.likelihood.calculate_V(x_pred, self.hyperparameters)
             if issparse(noise):
-                noise = torch.as_tensor(noise.toarray())
+                noise = noise.toarray()
             elif is_block_sparse(noise):
                 noise = noise.to_dense()
+            noise = self._tensor(noise)
             diag = torch.diag
             if torch.is_tensor(v):
                 noise = noise.to(v.device, v.dtype)

@@ -457,7 +457,7 @@ class GPprior:
         xc, xp, hps, n_pred = self._cross_scan_inputs(x_pred,
                                                       hyperparameters)
         nch, R = xc.shape[0], xc.shape[1]
-        v = vec.to(self.dtype)
+        v = config.tensor_operand(vec, self.device, self.dtype)
         if v.dim() == 1:
             v = v[:, None]
         vpad = torch.zeros((nch * R, v.shape[1]), dtype=v.dtype,

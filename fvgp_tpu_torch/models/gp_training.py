@@ -73,6 +73,10 @@ class GPtraining:
     def args(self):
         return self.data.args
 
+    @property
+    def gp2Scale(self):
+        return self.data.gp2Scale
+
     def train(self, objective_function=None, objective_function_gradient=None,
               objective_function_hessian=None, hyperparameter_bounds=None,
               init_hyperparameters=None, method="global", pop_size=20,

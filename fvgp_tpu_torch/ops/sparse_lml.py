@@ -737,7 +737,7 @@ class _ImplicitCG(torch.autograd.Function):
 def make_sparse_lml(kernel_fn, nb, B, *, cg_iters=64, slq_degree=20,
                     with_variance=False, mean_mode="data", prior_mean_fn=None,
                     precondition=True, solver_dtype=None, solver="mbcg",
-                    precond_width=1, cg_tol=None, mesh=None, halo_S=None):
+                    mesh=None, precond_width=1, halo_S=None, cg_tol=None):
     """The sparse LML as a differentiable function
 
         lml(hps, rows, cols, xb, mask, y_pad, ypad_mask, noise_diag_pad, Z
@@ -942,8 +942,8 @@ def _coarse_width(nb, coarse_width=None):
 
 def make_committed_solver(kernel_fn, nb, B, *, cg_iters=96, solver_dtype=None,
                           precond_width=1, cg_tol=None, row_chunk=None,
-                          precond_type="block_jacobi", coarse_width=None,
-                          mesh=None, halo_S=None):
+                          mesh=None, halo_S=None,
+                          precond_type="block_jacobi", coarse_width=None):
     """Committed-state WIDE solve (K+V)⁻¹ RHS, on one device or a mesh:
 
         assemble(hps, rows, cols, xb, mask, noise_diag_pad) -> (tiles, pdata)
@@ -1065,11 +1065,13 @@ def make_committed_solver(kernel_fn, nb, B, *, cg_iters=96, solver_dtype=None,
     return assemble, solve
 
 
-def make_padded_inputs(x, y, noise_diag, block_size, dtype, device,
-                       row_multiple=1):
+def make_padded_inputs(x, y, noise_diag, block_size, dtype=torch.float32,
+                       row_multiple=1, device="cuda"):
     """Host helper: pad (x, y, noise) to full blocks and build masks, as
-    tensors on ``device``.  Padded noise is 1.0 (keeps K+V PD on padded
-    rows).  ``row_multiple`` rounds the block count up."""
+    tensors on ``device`` (the card unless asked) in ``dtype`` (a torch or
+    numpy dtype, or its name).  Padded noise is 1.0 (keeps K+V PD on
+    padded rows).  ``row_multiple`` rounds the block count up."""
+    dtype = config.as_torch_dtype(dtype)
     import numpy as np
     n, d = x.shape
     nb = -(-n // block_size)

@@ -217,15 +217,20 @@ def _needed_tiles(dest, off_idx, n_sched):
 
 
 def distributed_covariance(prior, x1, x2, hyperparameters, *,
-                           batch_size=10000, symmetric=False, args=None,
-                           mesh=None):
+                           batch_size=10000, symmetric=False,
+                           distribution="blockwise", args=None, mesh=None):
     """Assemble k(x1, x2) as a BlockSparseMatrix on the prior's device.
 
-    One device engine serves every ``gp2Scale_distribution`` that the
-    facade accepts, so the schedule's name does not reach this function.
-    ``mesh`` (a ``parallel.mesh.Mesh`` of more than one rank, for the
-    symmetric K only): the row-owned layout of the module docstring, every
-    rank calling together; one rank is the meshless matrix."""
+    One device engine serves both of the reference's schedules, so
+    ``distribution`` (``"blockwise"`` or ``"rowwise"``, as in the JAX
+    package) changes nothing but refuses an unknown name.  ``mesh`` (a
+    ``parallel.mesh.Mesh`` of more than one rank, for the symmetric K
+    only): the row-owned layout of the module docstring, every rank calling
+    together; one rank is the meshless matrix."""
+    if distribution not in ("blockwise", "rowwise"):
+        raise ValueError(f"unknown gp2Scale distribution {distribution!r}; "
+                         "'blockwise' and 'rowwise' map to the same device "
+                         "engine")
     if mesh is not None and mesh.size == 1:
         mesh = None
     if mesh is not None and not symmetric:

@@ -421,35 +421,92 @@ def _public_names(mod):
     return names
 
 
+# parameters the port adds to a JAX signature: where the work runs and in
+# what precision (ROADMAP §3, "extra device parameters")
+EXTRA_PARAMETERS = {"device", "compute_device", "dtype"}
+
+# public functions and methods whose parameters differ otherwise, each with
+# the ROADMAP §3 deviation that records why: (deviation, reason)
+SIGNATURE_ALLOWLIST = {
+    "fvgp_tpu.ops.slq.slq_logdet":
+        ("generators", "probes from a torch.Generator in place of a JAX "
+                       "PRNG key"),
+    "fvgp_tpu.parallel.mesh.make_mesh":
+        ("mesh-backend", "a torch.distributed world: backend, group and "
+                         "timeout in place of a list of JAX devices"),
+    "fvgp_tpu.parallel.mesh.make_mesh_2d":
+        ("mesh-backend", "a torch.distributed world: group and timeout in "
+                         "place of a list of JAX devices"),
+    "fvgp_tpu.parallel.block_sparse.BlockSparseMatrix.__init__":
+        ("mesh-argument", "a row-owned matrix names its mesh"),
+    "fvgp_tpu.parallel.sharded_cov.distributed_covariance":
+        ("mesh-argument", "a row-owned K names its mesh"),
+    "fvgp_tpu.models.gpm.GPm.__init__":
+        ("gpm-args", "GPm takes the args dict of its GP"),
+    "fvgp_tpu.ops.dense.check_factor":
+        ("factor-info", "the failure flag of torch.linalg.cholesky_ex"),
+    "fvgp_tpu.models.gp_marginal_likelihood.GPMarginalLikelihood"
+    ".sparse_adam_steps":
+        ("probe-source", "injected probes for the parity tests"),
+}
+
+
+def _jax_modules():
+    """(JAX module, its port counterpart) for every module of ``fvgp_tpu``
+    but the TPU-only ones."""
+    import importlib
+    import pkgutil
+
+    import fvgp_tpu
+    for info in pkgutil.walk_packages(fvgp_tpu.__path__, "fvgp_tpu."):
+        if info.name in SURFACE_ALLOWLIST:
+            continue
+        yield (importlib.import_module(info.name), importlib.import_module(
+            info.name.replace("fvgp_tpu", "fvgp_tpu_torch", 1)))
+
+
+def _public_members(cls):
+    """A class's public methods and properties (inherited ones too)."""
+    return [name for name in dir(cls) if not name.startswith("_")]
+
+
 def test_the_port_has_every_public_name_of_the_jax_package():
     """Every module of ``fvgp_tpu`` has its counterpart in the port with
-    each public top-level name, and the classes of ``fvgp_tpu.__all__``
-    each public method; only the TPU-only names of the allowlist are
-    missing."""
+    each public top-level name, and every public class each public method
+    and property (properties as properties); only the TPU-only names of
+    the allowlist are missing."""
     import importlib
     import inspect
-    import pkgutil
 
     import fvgp_tpu
     import fvgp_tpu_torch
     missing = []
-    for info in pkgutil.walk_packages(fvgp_tpu.__path__, "fvgp_tpu."):
-        if info.name in SURFACE_ALLOWLIST:
-            continue
-        jax_mod = importlib.import_module(info.name)
-        port_mod = importlib.import_module(
-            info.name.replace("fvgp_tpu", "fvgp_tpu_torch", 1))
+    for jax_mod, port_mod in _jax_modules():
         for name in sorted(_public_names(jax_mod)):
-            if f"{info.name}.{name}" not in SURFACE_ALLOWLIST \
-                    and not hasattr(port_mod, name):
-                missing.append(f"{info.name}.{name}")
+            qual = f"{jax_mod.__name__}.{name}"
+            if qual in SURFACE_ALLOWLIST:
+                continue
+            if not hasattr(port_mod, name):
+                missing.append(qual)
+                continue
+            cls = getattr(jax_mod, name)
+            if not (inspect.isclass(cls)
+                    and cls.__module__ == jax_mod.__name__):
+                continue
+            port_cls = getattr(port_mod, name)
+            for member in _public_members(cls):
+                if not hasattr(port_cls, member):
+                    missing.append(f"{qual}.{member}")
+                elif isinstance(inspect.getattr_static(cls, member),
+                                property) and not isinstance(
+                        inspect.getattr_static(port_cls, member), property):
+                    missing.append(f"{qual}.{member} (not a property)")
     for name in fvgp_tpu.__all__:
         cls = getattr(fvgp_tpu, name)
         if inspect.isclass(cls):
             port_cls = getattr(fvgp_tpu_torch, name)
-            missing += [f"{name}.{m}" for m in dir(cls)
-                        if not m.startswith("_")
-                        and not hasattr(port_cls, m)]
+            missing += [f"{name}.{m}" for m in _public_members(cls)
+                        if not hasattr(port_cls, m)]
     assert not missing, missing
     assert fvgp_tpu_torch.__version__ == fvgp_tpu.__version__
     for name in SURFACE_ALLOWLIST:                 # no stale entries
@@ -458,6 +515,62 @@ def test_the_port_has_every_public_name_of_the_jax_package():
             importlib.import_module(name)
         else:
             assert hasattr(importlib.import_module(module), attr), name
+
+
+def _parameters(fn):
+    import inspect
+    try:
+        return list(inspect.signature(fn).parameters)
+    except (TypeError, ValueError):
+        return None
+
+
+def _signature_pairs():
+    """(qualified JAX name, JAX callable, port callable) for every public
+    function of every module and every public method of every class."""
+    import inspect
+    for jax_mod, port_mod in _jax_modules():
+        for name, value in sorted(vars(jax_mod).items()):
+            qual = f"{jax_mod.__name__}.{name}"
+            if name.startswith("_") or qual in SURFACE_ALLOWLIST \
+                    or getattr(value, "__module__", None) != jax_mod.__name__:
+                continue
+            port = getattr(port_mod, name)
+            if not inspect.isclass(value):
+                if callable(value):
+                    yield qual, value, port
+                continue
+            for member in ["__init__", *_public_members(value)]:
+                raw = inspect.getattr_static(value, member)
+                if isinstance(raw, property) or not callable(
+                        getattr(value, member)):
+                    continue
+                yield f"{qual}.{member}", getattr(value, member), \
+                    getattr(port, member)
+
+
+def test_every_public_signature_takes_the_jax_parameters():
+    """Every public function and method of the port takes the JAX
+    package's parameters by the same names in the same order; the port's
+    ``device`` / ``compute_device`` / ``dtype`` parameters aside, every
+    other difference is on the allowlist with the ROADMAP §3 deviation
+    that records it."""
+    from _torch_reference import DEVIATIONS, ROADMAP
+    differ, seen = [], set()
+    for qual, jax_fn, port_fn in _signature_pairs():
+        seen.add(qual)
+        jax_params = _parameters(jax_fn)
+        port_params = [p for p in _parameters(port_fn) or ()
+                       if p not in EXTRA_PARAMETERS
+                       or p in (jax_params or ())]
+        if jax_params is not None and jax_params != port_params \
+                and qual not in SIGNATURE_ALLOWLIST:
+            differ.append((qual, jax_params, port_params))
+    assert not differ, differ
+    roadmap = ROADMAP.read_text()
+    for qual, (key, reason) in SIGNATURE_ALLOWLIST.items():
+        assert qual in seen, qual                   # no stale entries
+        assert reason and DEVIATIONS[key] in roadmap, (qual, key)
 
 
 def wendland_anisotropic_gp2Scale_gpu(x1, x2, hps):
