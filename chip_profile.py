@@ -10,6 +10,7 @@ Run from the root of the repository:
     python3 chip_profile.py k1              # K1's launch order and wrapper
     python3 chip_profile.py k3              # K3's launch and store variants
     python3 chip_profile.py k4              # K4's wrapper, launch by launch
+    python3 chip_profile.py cell <workload> [seed]   # a benchmark cell
 
 Dense: builds the bench's dense cell (``chip_smoke.dense_cell_data``,
 N = 10,000 by default, D = 3, linalg_mode="Chol", float32), warms it up,
@@ -32,10 +33,25 @@ stored: builds the smoke's stored-K model (``chip_smoke.stored_model`` on
 the committed K+V (c) one preconditioned CG solve and (d) one SLQ
 log-determinant.
 
-For each window it prints the wall time, the device time summed over
-kernels, the device's idle share (1 − device time / wall time) and the ten
-largest device-time entries by name.  The profiler stretches wall time, so
+For each window (each call in it marked as one request,
+``gpbench.request``) it prints what the benchmark's trace reducers give:
+the window, the device's idle time (the window less the union of its
+kernel, copy and fill intervals, ``gpbench/harness/trace.py``) and the
+part of it inside the program's spans; per request and span
+(``gpbench/harness/spans.py``) the host, self, device and idle ms; the
+longest idle gaps, each named by the innermost span around it; and the
+largest device-time entries by name.  The profiler stretches host time, so
 the device totals are the comparable numbers.
+
+cell: one cell of the benchmark (``BENCHMARK.json``; the seed defaults to
+1): its data, system and warm-up as ``gpbench/run.py`` makes them, then the
+cell's traced requests in one such window, the program's counters per
+request (``fvgp_tpu_torch.utils.trace.counters()`` and K1's launches), the
+benchmark's ``assembly_ms`` and ``dense_linalg_ms`` kernels of the same
+window by the span that launched them, and one more request
+under ``torch.cuda.set_sync_debug_mode("warn")``: the synchronising calls
+it reports, by the line of the program that made them, beside the
+request's ``host_syncs``.
 
 slq: on the gp2Scale journey's model (N = 1,000,000, bfloat16), the LML
 value by mBCG (the journey's settings, and with ``sparse_cg_tol`` 1e-3 and
@@ -72,30 +88,41 @@ Exits non-zero without a card.
 
 import sys
 import time
+import traceback
 import warnings
 
 import numpy as np
 
 
-def device_table(prof, wall_s, label, top=10):
-    """Device kernels only: the aten operators that launch them carry the
-    same time again and are left out of the sum."""
-    from torch.autograd import DeviceType
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    total_ms = sum(e.self_device_time_total for e in rows) / 1e3
-    print(f"{label}: wall {wall_s * 1e3:.1f} ms, device {total_ms:.1f} ms, "
-          f"idle share {max(0.0, 1 - total_ms / (wall_s * 1e3)):.3f}",
-          flush=True)
-    for e in rows[:top]:
-        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
-              f"{e.key[:90]}", flush=True)
+def window(label, calls, top=10):
+    """``calls`` (callables) under the profiler, each marked as one request
+    and synchronised; prints the idle attribution, the per-span table and
+    the ``top`` largest device entries by name, and returns the window's
+    records (``spans.records``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from gpbench.harness import spans, trace
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for call in calls:
+            with record_function(trace.SPAN):
+                call()
+                torch.cuda.synchronize()
+    sp, launches, device = spans.records(prof.profiler.kineto_results.events())
+    spans.print_table(spans.reduce(sp, launches, device), label,
+                      out=lambda line: print(line, flush=True))
+    by_name = {}
+    for name, s, e, _, _ in device:
+        by_name[name] = by_name.get(name, 0) + e - s
+    for name, ns in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"  device {ns / 1e6:9.3f} ms  {name[:90]}", flush=True)
+    return sp, launches, device
 
 
 def main():
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke as cs
     if not torch.cuda.is_available():
@@ -117,6 +144,8 @@ def main():
         return k3_launch()
     if args and args[0] == "k4":
         return k4_wrapper()
+    if args and args[0] == "cell":
+        return cell(args[1], int(args[2]) if len(args) > 2 else 1)
     N = int(args[0]) if args else 10_000
     print(f"card: {cs.smi_line()}; N={N}", flush=True)
     x, y, xp = cs.dense_cell_data(N)
@@ -126,29 +155,101 @@ def main():
     ml.log_likelihood_value_and_gradient(hps)
     gp.posterior_mean(xp)
     gp.posterior_covariance(xp, variance_only=True)
-    torch.cuda.synchronize()
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
-        t0 = time.time()
-        for i in range(3):
-            ml.log_likelihood_value_and_gradient(hps * (1 + 1e-4 * (i + 1)))
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-    device_table(prof, wall, "3 x LML+grad")
-    with profile(activities=acts) as prof:
-        t0 = time.time()
-        gp.set_hyperparameters(hps * 1.01)
-        gp.posterior_mean(xp)
-        gp.posterior_covariance(xp, variance_only=True)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-    device_table(prof, wall, "commit + posterior mean + variance (500)")
+    window("3 x LML+grad", [
+        lambda i=i: ml.log_likelihood_value_and_gradient(
+            hps * (1 + 1e-4 * (i + 1))) for i in range(3)])
+    window("commit + posterior mean + variance (500)", [lambda: (
+        gp.set_hyperparameters(hps * 1.01), gp.posterior_mean(xp),
+        gp.posterior_covariance(xp, variance_only=True))])
+    return 0
+
+
+def cell(name, seed):
+    import torch
+
+    from fvgp_tpu_torch.ops import hopper_kernels as hk
+    from fvgp_tpu_torch.utils import trace as program
+    from gpbench.harness import spans
+    from gpbench.harness.inputs import Traffic, make_data
+    from gpbench.harness.spec import Spec
+    from gpbench.harness.system import System
+    from gpbench.metrics.assembly_ms import is_assembly
+    from gpbench.metrics.dense_linalg_ms import is_library
+    spec = Spec()
+    w = spec.workload(name)
+    config = spec.config(w["config"])
+    mix = spec.traffic(w["traffic"])
+    op = spec.op(mix["op"])
+    settings = spec.cell(name)
+    if "host_threads" in settings:
+        torch.set_num_threads(int(settings["host_threads"]))
+    data = make_data(spec, config, seed)
+    system = System(spec, config, data, "cuda", op)
+    traffic = Traffic(mix, config, seed, op)
+    for req in traffic.warmup():
+        system.run(req)
+    stream = iter(traffic)
+    reqs = [next(stream) for _ in range(int(settings["traced"]))]
+    counts = []
+
+    def counted(req):
+        before = dict(program.counters(), k1=hk.chunked_spmm.launches)
+        system.run(req)
+        after = dict(program.counters(), k1=hk.chunked_spmm.launches)
+        counts.append({k: v - before.get(k, 0) for k, v in after.items()})
+
+    sp, launches, device = window(f"{name} (seed {seed})",
+                                  [lambda r=r: counted(r) for r in reqs])
+    print(f"  program counters per request: {counts}", flush=True)
+    # the benchmark's outside measures of the same window, per request and
+    # by the span that launched their kernels
+    for label, pick in (("assembly_ms", is_assembly),
+                        ("dense_linalg_ms", is_library)):
+        red = spans.reduce(sp, launches, [d for d in device if pick(d[0])])
+        rows = {k: spans.totals(red, k)["device_ns"] / 1e6
+                for k in {k for r in red["requests"] for k in r}}
+        print(f"  {label} on the same window "
+              f"{sum(rows.values()):.3f} per request: " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in sorted(
+                      rows.items(), key=lambda kv: -kv[1]) if v > 0.0005),
+              flush=True)
+
+    req, index = next(stream), system.calls
+    system.calls += 1
+    before = program.counters().get("host_syncs", 0)
+    where = {}
+
+    def note(message, category, filename, lineno, *rest):
+        # the innermost frame of this repository that made the call
+        if "synchroniz" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack()[:-1]
+                if "fvgp_tpu_torch" in f.filename or "gpbench" in f.filename
+                or f.filename.endswith("chip_profile.py")]
+        frame = ours[-1] if ours else None
+        key = (f"{frame.filename.split('/repo/')[-1]}:{frame.lineno}"
+               if frame else f"{filename}:{lineno}")
+        where[key] = where.get(key, 0) + 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = note
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            op.call(system.model, req, index)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = program.counters().get("host_syncs", 0) - before
+    print(f"  one request under set_sync_debug_mode('warn'): "
+          f"{sum(where.values())} synchronising calls, host_syncs {syncs}",
+          flush=True)
+    for key, n in sorted(where.items(), key=lambda kv: -kv[1]):
+        print(f"    {n:4d}  {key}", flush=True)
     return 0
 
 
 def gp2scale(N):
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke as cs
     print(f"card: {cs.smi_line()}; gp2Scale N={N}", flush=True)
@@ -159,8 +260,6 @@ def gp2scale(N):
     ml.log_likelihood_value_and_gradient(hps)
     gp.posterior_mean(xp)
     gp.posterior_covariance(xp, variance_only=True)
-    torch.cuda.synchronize()
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     windows = (("LML+grad", lambda: ml.log_likelihood_value_and_gradient(
                    hps * (1 + 1e-4))),
                ("commit + posterior mean (500)", lambda: (
@@ -169,12 +268,7 @@ def gp2scale(N):
                ("posterior variance (500)", lambda: gp.posterior_covariance(
                    xp, variance_only=True)))
     for label, fn in windows:
-        with profile(activities=acts) as prof:
-            t0 = time.time()
-            fn()
-            torch.cuda.synchronize()
-            wall = time.time() - t0
-        device_table(prof, wall, label)
+        window(label, [fn])
     return 0
 
 
@@ -330,7 +424,6 @@ def k3_launch():
 
 def stored(N):
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke as cs
     print(f"card: {cs.smi_line()}; stored-K gp2Scale N={N}", flush=True)
@@ -344,7 +437,6 @@ def stored(N):
         gp.prior.K = None
         return gp.K
 
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     windows = (("assemble gp.K", assemble),
                ("trial log_likelihood(hps)",
                 lambda: gp.log_likelihood(hps * 1.002)),
@@ -353,12 +445,7 @@ def stored(N):
                ("SLQ logdet on the committed K+V",
                 lambda: gp.kv._random_logdet(KV)))
     for label, fn in windows:
-        with profile(activities=acts) as prof:
-            t0 = time.time()
-            fn()
-            torch.cuda.synchronize()
-            wall = time.time() - t0
-        device_table(prof, wall, label)
+        window(label, [fn])
     print(f"CG iterations {gp.kv.last_solve_info['iterations']}, SLQ probes "
           f"{gp.kv.last_logdet_info['num_samples']}", flush=True)
     return 0
@@ -366,7 +453,6 @@ def stored(N):
 
 def slq(N):
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke as cs
     print(f"card: {cs.smi_line()}; SLQ solver, gp2Scale N={N}", flush=True)
@@ -405,8 +491,6 @@ def slq(N):
     for precond in ("two_level", "block_jacobi"):
         gp.args["gp2Scale_posterior_precond"] = precond
         gp.posterior_covariance(xp, variance_only=True)
-    torch.cuda.synchronize()
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
 
     def variance(precond, scale):
         gp.args["gp2Scale_posterior_precond"] = precond
@@ -420,12 +504,7 @@ def slq(N):
                ("commit + block-Jacobi variance (500)",
                 lambda: variance("block_jacobi", 1.02)))
     for label, fn in windows:
-        with profile(activities=acts) as prof:
-            t0 = time.time()
-            fn()
-            torch.cuda.synchronize()
-            wall = time.time() - t0
-        device_table(prof, wall, label, top=14)
+        window(label, [fn], top=14)
         if "variance" in label:
             print(f"  CG iterations {gp.kv.last_solve_info['iterations']}",
                   flush=True)

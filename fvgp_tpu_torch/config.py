@@ -28,6 +28,8 @@ device.
 import numpy as np
 import torch
 
+from .utils import trace
+
 _DTYPES = {"float64": torch.float64, "float32": torch.float32,
            "bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -142,11 +144,21 @@ def device_state(value):
 
 
 def to_numpy(x):
-    """Host numpy copy of a tensor (float64 for user-facing returns)."""
-    out = x.detach().cpu()
-    if out.dtype in (torch.float32, torch.float16, torch.bfloat16):
-        out = out.to(torch.float64)
-    return out.numpy()
+    """Host numpy copy of a tensor (float64 for user-facing returns): one
+    host sync, in the span ``fvgp.to_host`` (the wait for the device, the
+    copy and the widening)."""
+    trace.count("host_syncs")
+    with trace.span("fvgp.to_host"):
+        out = x.detach().cpu()
+        if out.dtype in (torch.float32, torch.float16, torch.bfloat16):
+            out = out.to(torch.float64)
+        return out.numpy()
+
+
+def to_float(x):
+    """The Python float of a one-element tensor: one host sync."""
+    trace.count("host_syncs")
+    return float(x)
 
 
 def to_tensor(a, device, dtype):

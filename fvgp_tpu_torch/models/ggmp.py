@@ -977,9 +977,7 @@ class GGMP:
             return config.to_tensor(a, device, dtype)
 
         ys = [np.asarray(g.data.y_data, dtype=float).ravel() for g in gps]
-        with torch.no_grad(), phase_timer(
-                f"GGMP: batched component posterior eval (K={len(gps)}, "
-                f"n_pred={npred})"):
+        with torch.no_grad(), phase_timer("fvgp.ggmp.components"):
             x, xq = tensor(gps[0].data.x_data), tensor(xp)
             hps = [tensor(g.hyperparameters) for g in gps]
             y = tensor(np.stack(ys))

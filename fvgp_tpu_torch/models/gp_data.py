@@ -61,7 +61,7 @@ class GPdata:
             from ..parallel.ordering import morton_order
             from ..utils import structure_cache as sc
             from ..utils.logging import phase_timer
-            with phase_timer("GPdata: Morton reordering"):
+            with phase_timer("fvgp.data.morton"):
                 # the permutation is a pure function of the point cloud and
                 # costs ~2 s at N=1M: content-addressed disk reuse
                 # (utils/structure_cache) makes repeat cold starts I/O

@@ -51,6 +51,7 @@ from ..ops import krylov, slq
 from ..ops.precond import build_preconditioner_op
 from ..parallel.block_sparse import _dense_dtype, is_block_sparse
 from ..parallel.mesh import all_agree, gather_rows
+from ..utils.trace import span
 
 # ---------------------------------------------------------------------------
 # sequential-state gate
@@ -395,8 +396,7 @@ class GPkv:
             return
         from ..utils.logging import phase_timer
         KV = self.addKV(self.prior.K, self.likelihood.V)
-        with phase_timer(f"KV factorization ({self.mode}, "
-                         f"{'rank-n update' if rank_n_update else 'full'})"):
+        with phase_timer("fvgp.kv.factor"):
             if rank_n_update:
                 self.update_KV(KV)
             else:
@@ -966,7 +966,7 @@ class GPkv:
             hit = sc.load(cdir, "tile_structure", dkey)
             if hit is not None:
                 return hit["rows"], hit["cols"]
-        with phase_timer("committed solver: tile structure"):
+        with phase_timer("fvgp.committed.structure"):
             rows, cols = _candidate_pairs(x, None, ls, radius, B,
                                           symmetric=True)
             off = rows < cols
@@ -1021,8 +1021,7 @@ class GPkv:
             # one assembly + preconditioner per committed state, held on
             # the device (the 'fixed' share of the column budget)
             from ..utils.logging import phase_timer
-            with phase_timer("committed solver: tile assembly + "
-                             "preconditioner"):
+            with phase_timer("fvgp.committed.assemble"):
                 ctx["tiles"], ctx["Minv"] = ctx["assemble"](
                     ctx["hps"], ctx["arows"], ctx["cols"], ctx["xb"],
                     ctx["mask"], ctx["noise_pad"])
@@ -1042,9 +1041,12 @@ class GPkv:
                             self._mesh_chunk_fits(ctx, c_eff), mesh):
                         raise torch.cuda.OutOfMemoryError(
                             "a mesh rank cannot hold the chunk")
-                    X, it = ctx["fn"](ctx["tiles"], ctx["Minv"], ctx["rows"],
-                                      ctx["scols"], ctx["noise_pad"],
-                                      rhs_pad[ctx["rsl"]], *ctx["halo_args"])
+                    with span("fvgp.committed.solve"):
+                        X, it = ctx["fn"](ctx["tiles"], ctx["Minv"],
+                                          ctx["rows"], ctx["scols"],
+                                          ctx["noise_pad"],
+                                          rhs_pad[ctx["rsl"]],
+                                          *ctx["halo_args"])
                     if mesh is not None:
                         X = gather_rows(X, mesh)
                     outs.append(X[:n, :c])

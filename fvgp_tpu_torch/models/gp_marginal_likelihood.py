@@ -53,6 +53,8 @@ import torch
 from .. import config
 from ..ops import dense as dops
 from ..ops.slq import rademacher_probes as _rademacher_probes
+from ..utils.logging import phase_timer
+from ..utils.trace import span
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -163,17 +165,49 @@ class GPMarginalLikelihood:
         return st
 
     def _sparse_lml_eval(self, hyperparameters, want_grad=False):
+        st = self._sparse_settings()
+        with span("fvgp.sparse_lml.structure"):
+            entry, run = self._sparse_structure(hyperparameters, st)
+        nb, B, dtype, probes, degree = (st[k] for k in ("nb", "B", "dtype",
+                                                        "probes", "degree"))
+        device = self.data.device
+        with span("fvgp.sparse_lml.probes"):
+            generator = torch.Generator().manual_seed(42 + entry["counter"])
+            entry["counter"] += 1
+            Z = run["probe"](_rademacher_probes(nb * B, probes, dtype, device,
+                                                generator))
+            hps = torch.as_tensor(np.asarray(hyperparameters, np.float64),
+                                  dtype=dtype).to(device)
+        grad = None
+        with torch.set_grad_enabled(want_grad):
+            hps.requires_grad_(want_grad)
+            val, var = run["lml"](hps, *run["static"], Z, *run["halo"])
+            if want_grad:
+                with span("fvgp.sparse_lml.backward"):
+                    grad = torch.autograd.grad(val, hps)[0]
+        var = config.to_float(var.detach())
+        self.kv.last_logdet_variance = var
+        self.kv.last_logdet_info = {"variance": var,
+                                    "num_samples": probes, "degree": degree}
+        if want_grad:
+            return config.to_float(val.detach()), config.to_numpy(grad)
+        return config.to_float(val)
+
+    def _sparse_structure(self, hyperparameters, st):
+        """(entry, run) of the sparse LML at ``hyperparameters``: the cached
+        program and padded inputs, and the schedule of the structure at
+        these lengthscales, revalidated on the host (support geometry, the
+        candidate and liveness caches under the drift policy, the
+        schedule's comparison) and rebuilt where it moved."""
         from ..ops.sparse_lml import make_padded_inputs, make_sparse_lml
         from ..parallel.sharded_cov import (_candidate_pairs,
                                             _stable_kernel_closure,
                                             support_geometry)
         from ..utils import structure_cache as sc
-        from ..utils.logging import phase_timer
         prior = self.prior
         args = self.args
         device = self.data.device
         x = np.asarray(self.x_data, dtype=np.float64)
-        st = self._sparse_settings()
         n, B, nb, pwidth, dtype = (st[k] for k in ("n", "B", "nb", "pwidth",
                                                    "dtype"))
         row_mult = st["n_dev"] * max(pwidth, 1)
@@ -203,7 +237,7 @@ class GPMarginalLikelihood:
             if hit is not None:
                 rows_f, cols_f = hit["rows"], hit["cols"]
             else:
-                with phase_timer("sparse LML: candidate structure"):
+                with phase_timer("fvgp.sparse_lml.candidates"):
                     rows, cols = _candidate_pairs(x, None,
                                                   ls_now * (1.0 + tol_c),
                                                   radius, B, symmetric=True)
@@ -221,8 +255,7 @@ class GPMarginalLikelihood:
                             "solver", "key"))
         entry = self._sparse_cache.get(key)
         if entry is None:
-            with phase_timer("sparse LML: padded inputs (host pad + "
-                             "device transfer)"):
+            with phase_timer("fvgp.sparse_lml.padded_inputs"):
                 noise_h = self.likelihood.calculate_V_host(self.x_data,
                                                            hyperparameters)
                 xb, mask, y_pad, ypad_mask, noise_pad = make_padded_inputs(
@@ -244,8 +277,6 @@ class GPMarginalLikelihood:
                      "noise_pad": noise_pad, "probes": probes, "counter": 0,
                      "schedule": None}
             self._sparse_cache = {key: entry}
-        generator = torch.Generator().manual_seed(42 + entry["counter"])
-        entry["counter"] += 1
 
         # exact-sparsity pass, cached under the drift policy: while the
         # candidate set is unchanged and the support lengthscales moved
@@ -271,7 +302,7 @@ class GPMarginalLikelihood:
                     if hit is not None:
                         keep = hit["keep"].astype(bool)
                 if keep is None:
-                    with phase_timer("sparse LML: exact tile liveness"):
+                    with phase_timer("fvgp.sparse_lml.liveness"):
                         keep = tile_live(x / ls_now, rows_f, cols_f, B,
                                          radius)
                     if lkey is not None:
@@ -302,27 +333,10 @@ class GPMarginalLikelihood:
                    else self._single_run(entry, rows_f, cols_f, nb, device))
             sched = (rows_f.copy(), cols_f.copy(), run)
             entry["schedule"] = sched
-        run = sched[2]
         # what the Adam chain revalidates on entry: the support lengthscales
         # and the data this structure was built for
         entry["chain_ctx"] = {"ls_ref": ls_now, "data_token": data_token}
-
-        Z = _rademacher_probes(nb * B, probes, dtype, device, generator)
-        hps = torch.as_tensor(np.asarray(hyperparameters, np.float64),
-                              dtype=dtype).to(device)
-        with phase_timer("sparse LML: device program"), \
-                torch.set_grad_enabled(want_grad):
-            hps.requires_grad_(want_grad)
-            val, var = run["lml"](hps, *run["static"], run["probe"](Z),
-                                  *run["halo"])
-            grad = torch.autograd.grad(val, hps)[0] if want_grad else None
-        var = float(var.detach())
-        self.kv.last_logdet_variance = var
-        self.kv.last_logdet_info = {"variance": var,
-                                    "num_samples": probes, "degree": degree}
-        if want_grad:
-            return float(val.detach()), config.to_numpy(grad)
-        return float(val)
+        return entry, sched[2]
 
     def _single_run(self, entry, rows_f, cols_f, nb, device):
         """One device: the row-sorted, bucket-padded schedule (sentinels at
@@ -501,20 +515,23 @@ class GPMarginalLikelihood:
         fvals = []
         for i in range(int(n_steps)):
             step = int(t_start) + i
-            if probe_source is not None:
-                Z = torch.as_tensor(probe_source(step), dtype=dtype).to(device)
-            else:
-                key = np.random.SeedSequence(
-                    [int(seed), int(entry["counter"]), step])
-                generator = torch.Generator().manual_seed(
-                    int(key.generate_state(1)[0]))
-                Z = _rademacher_probes(n_pad, entry["probes"], dtype,
-                                       device, generator)
+            with span("fvgp.sparse_lml.probes"):
+                if probe_source is not None:
+                    Z = torch.as_tensor(probe_source(step),
+                                        dtype=dtype).to(device)
+                else:
+                    key = np.random.SeedSequence(
+                        [int(seed), int(entry["counter"]), step])
+                    generator = torch.Generator().manual_seed(
+                        int(key.generate_state(1)[0]))
+                    Z = _rademacher_probes(n_pad, entry["probes"], dtype,
+                                           device, generator)
             h = th.detach().requires_grad_(True)
             with torch.enable_grad():
                 val, _ = run["lml"](h, *run["static"], run["probe"](Z),
                                     *run["halo"])
-                g = -torch.autograd.grad(val, h)[0]        # minimize -LML
+                with span("fvgp.sparse_lml.backward"):
+                    g = -torch.autograd.grad(val, h)[0]    # minimize -LML
             g = torch.where(torch.isfinite(g), g, torch.zeros_like(g))
             th, m, v = adam_step(th, g, m, v, step + 1, lr, beta1, beta2,
                                  eps)
@@ -573,14 +590,18 @@ class GPMarginalLikelihood:
         """(L, dL/dh or None); NaN where the factorization failed, as the
         JAX program returns NaN from a failed Cholesky."""
         hps = self._hps_tensor(hyperparameters, requires_grad=want_grad)
+        grad = None
         with torch.set_grad_enabled(want_grad):
-            val, info = self._dense_lml(hps)
-            grad = torch.autograd.grad(val, hps)[0] if want_grad else None
-        if int(info) != 0:
+            with span("fvgp.dense_lml.forward"):
+                val, info = self._dense_lml(hps)
+            if want_grad:
+                with span("fvgp.dense_lml.backward"):
+                    grad = torch.autograd.grad(val, hps)[0]
+        if config.to_float(info) != 0:
             return np.nan, (None if grad is None
                             else np.full(len(hyperparameters), np.nan))
-        return float(val.detach()), (None if grad is None
-                                     else config.to_numpy(grad))
+        return config.to_float(val.detach()), (None if grad is None
+                                                else config.to_numpy(grad))
 
     def _population_chunk(self, pop):
         """Members per batched evaluation: each holds K+V and its factor

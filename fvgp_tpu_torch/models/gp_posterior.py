@@ -40,6 +40,7 @@ import torch
 from .. import config
 from ..ops import dense as dops
 from ..parallel.block_sparse import is_block_sparse
+from ..utils.trace import span
 
 _JITTER = 1e-9          # the JAX package's diagonal shift of joint covariances
 _FD_STEP = 1e-6         # its step of the k(x*, x*) difference quotients
@@ -137,17 +138,18 @@ class GPposterior:
         """k(x_data, x_pred), memoizing the LAST (data, hps, x_pred) triple
         (posterior_mean then posterior_covariance assemble the same k); a
         list of objects skips the memo."""
-        if not isinstance(x_pred, np.ndarray):
-            return self._tensor(self.prior.compute_data_cross_covariance(
+        with span("fvgp.posterior.cross_cov"):
+            if not isinstance(x_pred, np.ndarray):
+                return self._tensor(self.prior.compute_data_cross_covariance(
+                    x_pred, hyperparameters))
+            key = self._cross_cov_key(self.data, x_pred, hyperparameters)
+            memo = self._cross_cov_memo
+            if memo is not None and memo[0] == key:
+                return memo[1]
+            k = self._tensor(self.prior.compute_data_cross_covariance(
                 x_pred, hyperparameters))
-        key = self._cross_cov_key(self.data, x_pred, hyperparameters)
-        memo = self._cross_cov_memo
-        if memo is not None and memo[0] == key:
-            return memo[1]
-        k = self._tensor(self.prior.compute_data_cross_covariance(
-            x_pred, hyperparameters))
-        self._cross_cov_memo = (key, k)
-        return k
+            self._cross_cov_memo = (key, k)
+            return k
 
     def _mean_product(self, x_pred, hyperparameters, KVinvY):
         """kᵀ·KVinvY for the posterior mean: under gp2Scale at scale fused
@@ -158,14 +160,15 @@ class GPposterior:
             hit = (memo is not None and memo[0] ==
                    self._cross_cov_key(self.data, x_pred, hyperparameters))
             if not hit:
-                prod = self.prior.cross_covariance_product_or_none(
-                    x_pred, hyperparameters, KVinvY)
+                with span("fvgp.posterior.cross_cov"):
+                    prod = self.prior.cross_covariance_product_or_none(
+                        x_pred, hyperparameters, KVinvY)
                 if prod is not None:
                     return config.to_numpy(prod)
         k = self._cross_cov(x_pred, hyperparameters)
-        if is_block_sparse(k):
-            return config.to_numpy(k.rmatmat(KVinvY))
-        return config.to_numpy(k.T @ KVinvY)
+        with span("fvgp.posterior.solve"):
+            prod = k.rmatmat(KVinvY) if is_block_sparse(k) else k.T @ KVinvY
+        return config.to_numpy(prod)
 
     def _dense_K(self):
         """Dense K for the joint-covariance methods."""
@@ -250,14 +253,15 @@ class GPposterior:
 
     def _product_space(self, x_pred, x_out):
         """(x_orig, x_pred in product space, x_out) after the checks."""
-        if x_out is None:
-            x_out = self.x_out
-        self._perform_input_checks(x_pred, x_out)
-        x_orig = x_pred.copy() if isinstance(x_pred, np.ndarray) \
-            else list(x_pred)
-        if isinstance(x_out, np.ndarray):
-            x_pred = self.cartesian_product(x_pred, x_out)
-        return x_orig, x_pred, x_out
+        with span("fvgp.posterior.inputs"):
+            if x_out is None:
+                x_out = self.x_out
+            self._perform_input_checks(x_pred, x_out)
+            x_orig = x_pred.copy() if isinstance(x_pred, np.ndarray) \
+                else list(x_pred)
+            if isinstance(x_out, np.ndarray):
+                x_pred = self.cartesian_product(x_pred, x_out)
+            return x_orig, x_pred, x_out
 
     # ------------------------------------------------------------------
     def _hps_and_KVinvY(self, hyperparameters):
@@ -279,8 +283,10 @@ class GPposterior:
         hyperparameters, KVinvY = self._hps_and_KVinvY(hyperparameters)
         x_orig, x_pred, x_out = self._product_space(x_pred, x_out)
         A = self._mean_product(x_pred, hyperparameters, KVinvY)
-        prior_mean = config.to_numpy(self._tensor(self.prior.compute_mean(
-            x_pred, hyperparameters)))
+        with span("fvgp.posterior.prior"):
+            prior_mean = self._tensor(self.prior.compute_mean(
+                x_pred, hyperparameters))
+        prior_mean = config.to_numpy(prior_mean)
         posterior_mean = prior_mean[:, None] + A
         if isinstance(x_out, np.ndarray):
             return {"x": x_orig,
@@ -324,19 +330,25 @@ class GPposterior:
         einsum."""
         x_orig, x_pred, x_out = self._product_space(x_pred, x_out)
         k = self._cross_cov(x_pred, self.hyperparameters)
-        kk = self._tensor(self.prior.compute_covariances(
-            x_pred, x_pred, self.hyperparameters))
+        with span("fvgp.posterior.prior"):
+            kk = self._tensor(self.prior.compute_covariances(
+                x_pred, x_pred, self.hyperparameters))
         single = self.y_data.shape[1] == 1
         S = None
-        if self.kv.KVinv is not None and variance_only and single:
-            kd = k.to_dense() if is_block_sparse(k) else k
-            v = config.to_numpy(torch.diagonal(kk) - torch.einsum(
-                "ji,jk,ki->i", kd, self.kv.KVinv, kd))
-        elif variance_only and self.gp2Scale and single:
-            v = config.to_numpy(torch.diagonal(kk)
-                                - self._cross_solve_product(k, diag=True))
+        with span("fvgp.posterior.solve"):
+            if self.kv.KVinv is not None and variance_only and single:
+                kd = k.to_dense() if is_block_sparse(k) else k
+                v = torch.diagonal(kk) - torch.einsum(
+                    "ji,jk,ki->i", kd, self.kv.KVinv, kd)
+            elif variance_only and self.gp2Scale and single:
+                v = torch.diagonal(kk) - self._cross_solve_product(k,
+                                                                   diag=True)
+            else:
+                S = kk - self._cross_solve_product(k)
+        if S is None:
+            v = config.to_numpy(v)
         else:
-            S = config.to_numpy(kk - self._cross_solve_product(k))
+            S = config.to_numpy(S)
             v = np.diag(S).copy()
         if np.any(v < -0.0001):
             warnings.warn(

@@ -71,6 +71,7 @@ import numpy as np
 import torch
 
 from ..kernels import _safe_sqrt, _wendland_poly, matern_kernel_diff1
+from ..utils import trace
 
 __all__ = ["chunked_spmm", "chunked_spmm_reference", "chunked_spmm_vjp",
            "row_chunk_sums", "row_chunk_sums_reference",
@@ -196,9 +197,11 @@ def _row_segments(name, rows, nb):
     if kept is not None and kept[:2] == (rows._version, nb):
         return kept[2], kept[3]
     r = rows.to(torch.int32).contiguous()
-    if r.numel() > 1 and bool((r[1:] < r[:-1]).any()):
-        raise ValueError(f"{name}: the tile list must be row-sorted "
-                         "(sort the schedule once on the host)")
+    if r.numel() > 1:
+        trace.count("host_syncs")
+        if bool((r[1:] < r[:-1]).any()):
+            raise ValueError(f"{name}: the tile list must be row-sorted "
+                             "(sort the schedule once on the host)")
     row_ptr = torch.searchsorted(
         r, torch.arange(nb + 1, dtype=torch.int32, device=r.device)
     ).to(torch.int32)

@@ -37,6 +37,7 @@ import warnings
 import torch
 
 from .. import config
+from ..utils import trace
 from ..parallel.mesh import (SLICE_AXIS, _all_reduce, exchange_blocks,
                              flat_tile_index, gather_rows, global_sum,
                              replicate, tile_device_count)
@@ -319,15 +320,17 @@ class _AssembleTiles(torch.autograd.Function):
     def backward(ctx, tiles_bar):
         hps, rows_c, cols_c, live, xb, mask = ctx.saved_tensors
         grad = torch.zeros_like(hps)
-        for s in range(0, rows_c.shape[0], ctx.chunk):
-            sl = slice(s, s + ctx.chunk)
-            with torch.enable_grad():
-                h = hps.detach().requires_grad_(True)
-                Kt = _assemble_chunk(ctx.kernel_fn, h, rows_c[sl],
-                                     cols_c[sl], live[sl], xb, mask,
-                                     ctx.out_dtype)
-                g, = torch.autograd.grad(Kt, h, grad_outputs=tiles_bar[sl])
-            grad += g
+        with trace.span("fvgp.sparse_lml.assemble_bwd"):
+            for s in range(0, rows_c.shape[0], ctx.chunk):
+                sl = slice(s, s + ctx.chunk)
+                with torch.enable_grad():
+                    h = hps.detach().requires_grad_(True)
+                    Kt = _assemble_chunk(ctx.kernel_fn, h, rows_c[sl],
+                                         cols_c[sl], live[sl], xb, mask,
+                                         ctx.out_dtype)
+                    g, = torch.autograd.grad(Kt, h,
+                                             grad_outputs=tiles_bar[sl])
+                grad += g
         return grad, None, None, None, None, None, None, None, None
 
 
@@ -433,6 +436,13 @@ def _tight_floor_sq(res_dtype):
     return 1e-14 if res_dtype == torch.float64 else 1e-10
 
 
+def _above(rz, floor):
+    """The CG exit test, read on the host: whether any column's residual
+    is still above its floor (one host sync)."""
+    trace.count("host_syncs")
+    return bool((rz > floor).any())
+
+
 def _cg_fixed(matvec, Bmat, iters, M=None, tol=None, mv_dtype=None,
               with_iters=False, reduce=None):
     """(Preconditioned) multi-RHS CG, at most ``iters`` trips, exiting as
@@ -458,7 +468,7 @@ def _cg_fixed(matvec, Bmat, iters, M=None, tol=None, mv_dtype=None,
     one = torch.ones((), dtype=Bmat.dtype, device=Bmat.device)
     zero = torch.zeros((), dtype=Bmat.dtype, device=Bmat.device)
     it = 0
-    while it < iters and bool((rz > exit_floor).any()):
+    while it < iters and _above(rz, exit_floor):
         active = rz > floor
         Ap = matvec(P)
         pAp = reduce(torch.sum(P * Ap, dim=0))
@@ -472,6 +482,7 @@ def _cg_fixed(matvec, Bmat, iters, M=None, tol=None, mv_dtype=None,
         P = torch.where(active[None, :], Zn + beta * P, P)
         rz = rz_new
         it += 1
+    trace.count("cg_iterations", it)
     return (X, it) if with_iters else X
 
 
@@ -503,7 +514,7 @@ def _pcg_coeffs(mv, Minv, RHS, iters, tol, mv_dtype, reduce):
     one = torch.ones((), dtype=RHS.dtype, device=RHS.device)
     zero = torch.zeros((), dtype=RHS.dtype, device=RHS.device)
     i = 0
-    while i < iters and bool((rz > exit_floor).any()):
+    while i < iters and _above(rz, exit_floor):
         active = rz > floor
         AD = mv(D)
         dAd = reduce(torch.sum(D * AD, dim=0))
@@ -518,6 +529,7 @@ def _pcg_coeffs(mv, Minv, RHS, iters, tol, mv_dtype, reduce):
         betas[i] = torch.where(active, beta, zero)
         rz = rz2
         i += 1
+    trace.count("mbcg_iterations", i)
     return X, alphas, betas
 
 
@@ -572,17 +584,18 @@ class _QuadLogdet(torch.autograd.Function):
         def mv(X):
             return spmv(rows, cols_c, tiles, X, *halo) + noise[:, None] * X
 
-        Z = _block_apply(Lm, U)
-        RHS = torch.cat([ym[:, None], Z], dim=1)
-        X, alphas, betas = _pcg_coeffs(mv, Minv, RHS, iters, tol, mv_dtype,
-                                       spmv.reduce)
-        x = X[:, 0]
-        S = X[:, 1:]
-        quad = spmv.reduce(torch.dot(ym, x))
-        u2 = spmv.reduce(torch.sum(U * U, dim=0))
-        ld_C, ld_var = _t_quadrature(alphas[:, 1:], betas[:, 1:], u2)
-        ld_M = spmv.reduce(2.0 * torch.sum(torch.log(
-            torch.diagonal(Lm, dim1=1, dim2=2))))
+        with trace.span("fvgp.sparse_lml.mbcg"):
+            Z = _block_apply(Lm, U)
+            RHS = torch.cat([ym[:, None], Z], dim=1)
+            X, alphas, betas = _pcg_coeffs(mv, Minv, RHS, iters, tol,
+                                           mv_dtype, spmv.reduce)
+            x = X[:, 0]
+            S = X[:, 1:]
+            quad = spmv.reduce(torch.dot(ym, x))
+            u2 = spmv.reduce(torch.sum(U * U, dim=0))
+            ld_C, ld_var = _t_quadrature(alphas[:, 1:], betas[:, 1:], u2)
+            ld_M = spmv.reduce(2.0 * torch.sum(torch.log(
+                torch.diagonal(Lm, dim1=1, dim2=2))))
         ctx.save_for_backward(tiles, Minv, x, S, Z, rows, cols_c)
         ctx.spmv, ctx.halo = spmv, halo
         return quad, ld_M + ld_C, ld_var
@@ -591,15 +604,16 @@ class _QuadLogdet(torch.autograd.Function):
     def backward(ctx, qb, lb, _):
         tiles, Minv, x, S, Z, rows, cols_c = ctx.saved_tensors
         P = S.shape[1]
-        Xp = torch.cat([x[:, None], _block_apply(Minv, Z)], dim=1)
-        Cot = torch.cat([(-qb) * x[:, None], (lb / P) * S], dim=1)
-        tiles_bar = None
-        if ctx.needs_input_grad[0]:
-            tiles_bar = ctx.spmv.tiles_vjp(rows, cols_c, tiles, Xp, Cot,
-                                           *ctx.halo)
-        noise_bar = torch.sum(Cot * Xp, dim=1) \
-            if ctx.needs_input_grad[1] else None
-        ym_bar = (2.0 * qb) * x
+        with trace.span("fvgp.sparse_lml.mbcg_bwd"):
+            Xp = torch.cat([x[:, None], _block_apply(Minv, Z)], dim=1)
+            Cot = torch.cat([(-qb) * x[:, None], (lb / P) * S], dim=1)
+            tiles_bar = None
+            if ctx.needs_input_grad[0]:
+                tiles_bar = ctx.spmv.tiles_vjp(rows, cols_c, tiles, Xp, Cot,
+                                               *ctx.halo)
+            noise_bar = torch.sum(Cot * Xp, dim=1) \
+                if ctx.needs_input_grad[1] else None
+            ym_bar = (2.0 * qb) * x
         return (tiles_bar, noise_bar, None, None, ym_bar, None, None, None,
                 None, None, None, None, None, None, None)
 
@@ -803,18 +817,22 @@ def make_sparse_lml(kernel_fn, nb, B, *, cg_iters=64, slq_degree=20,
         # the rank's tiles and the mean enter its own work: their
         # hyperparameter cotangents are summed over the ranks once, here
         hps_l = replicate(hps, mesh) if mesh is not None else hps
-        rows_c = torch.clamp(rows, max=nb - 1)
-        cols_c = torch.clamp(cols, max=nb - 1)
-        tiles = _assemble_chunked_tiles(kernel_fn, B, solver_dtype, hps_l,
-                                        rows_c, cols_c, rows < nb, xb, mask)
+        with trace.span("fvgp.sparse_lml.assemble"):
+            rows_c = torch.clamp(rows, max=nb - 1)
+            cols_c = torch.clamp(cols, max=nb - 1)
+            tiles = _assemble_chunked_tiles(kernel_fn, B, solver_dtype, hps_l,
+                                            rows_c, cols_c, rows < nb, xb,
+                                            mask)
         if halo_S is not None:
             mv_cols, halo = halo_args[-1], tuple(halo_args[:-1])
         else:
             mv_cols, halo = cols_c, ()
         Minv = Lb = None
         if solver == "mbcg" or precondition:
-            Minv, Lb = _diag_precond_blocks(kernel_fn, B, precond_width, hps,
-                                            xb, mask, noise_diag_pad, i0=row0)
+            with trace.span("fvgp.sparse_lml.precond"):
+                Minv, Lb = _diag_precond_blocks(kernel_fn, B, precond_width,
+                                                hps, xb, mask, noise_diag_pad,
+                                                i0=row0)
         n = spmv.reduce(torch.sum(ypad_mask))
         if mean_mode == "data":
             m = spmv.reduce(torch.sum(y_pad)) / n

@@ -3,12 +3,15 @@
 The ``log_time`` context manager keeps per-label cumulative totals and an
 optional printer.  PyTorch returns before the card finishes, so a caller
 that wants exact device timings brackets the block with
-``torch.cuda.synchronize()``.
+``torch.cuda.synchronize()``.  Each block is also a span of
+``utils.trace`` under its label.
 """
 
 import contextlib
 import time
 from collections import defaultdict
+
+from .trace import span
 
 _TOTALS = defaultdict(float)
 _COUNTS = defaultdict(int)
@@ -33,7 +36,8 @@ def log_time(label):
     label."""
     start = time.time()
     try:
-        yield
+        with span(label):
+            yield
     finally:
         elapsed = time.time() - start
         _TOTALS[label] += elapsed
