@@ -16,7 +16,9 @@ line is never printed):
 3. kernel phase: K1 ``chunked_spmm`` and K4 ``block_spmv`` at the N=50k
    training structure (B=256, k=17, bfloat16 and float32 tiles from the
    real assembly), K1 again at the N=1M journey's structure (B=128, k=17,
-   bfloat16: the shape of its launches on that path), K2 ``row_chunk_sums``
+   bfloat16: the shape of its launches on that path), K5
+   ``tile_covariance`` and ``tile_covariance_vjp`` at the same structure
+   (float32 and bfloat16 tiles), K2 ``row_chunk_sums``
    at committed-solver shapes (B=128, C=8; c=128 in bfloat16 and float32,
    and the journeys' widths c=8, c=512 and c=64 in bfloat16), and K3
    ``dense_covariance`` at the dense cell's shapes (N=10,000 x 10,000 on
@@ -184,7 +186,11 @@ float32 / stored-K bounds; counted as one path.
 K4's entry point, phases 6-6e, 7-7c, 9-9c, 9e, 10's two N=1M journeys,
 the nine examples of 11, the two counted pieces of 5d and 14 are the paths:
 every kernel's launch counter is reset just before each and read just
-after it, and the ``launches`` of a kernel is its sum over them.  The line before the
+after it, and the ``launches`` of a kernel is its sum over them.  K5's two
+kernels are counted beside K1-K4 (``replaces`` null) and must launch on the
+gp2Scale journey (the committed solver's assembly, its first
+``posterior_mean``, counted on its own), under its training and on each
+rank of the N=1M mesh journey.  The line before the
 last is
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
 Exits non-zero without a CUDA device.
@@ -200,10 +206,14 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 SOURCE = "fvgp_tpu_torch/csrc/hopper_kernels.cu"
+# every counted kernel and the Pallas kernel it replaces (K5 replaces none:
+# the JAX package assembles the gp2Scale tiles in jnp)
 REPLACES = {"chunked_spmm": "fvgp_tpu/ops/pallas_kernels.py:180",
             "row_chunk_sums": "fvgp_tpu/ops/pallas_kernels.py:354",
             "dense_covariance": "fvgp_tpu/ops/pallas_kernels.py:437",
-            "block_spmv": "fvgp_tpu/ops/pallas_kernels.py:84"}
+            "block_spmv": "fvgp_tpu/ops/pallas_kernels.py:84",
+            "tile_covariance": None, "tile_covariance_vjp": None}
+K5 = ("tile_covariance", "tile_covariance_vjp")
 # kernel vs plain version: both read identical (bf16-rounded) inputs and
 # accumulate in float32, only in another order — 1e-4 of the output scale
 KERNEL_RTOL = 1e-4
@@ -331,7 +341,8 @@ def ptxas_summary(build_log):
     out, name = [], None
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '\w*?((?:segment_mma|"
-                      r"chunk_sums_wgmma|dense_cov)_kernelI\w*?E)Ev", line)
+                      r"chunk_sums_wgmma|dense_cov|tile_cov|tile_cov_vjp)"
+                      r"_kernelI\w*?E)Ev", line)
         if m:
             name = m.group(1)
         elif name and "spill" in line:
@@ -344,7 +355,7 @@ def ptxas_summary(build_log):
 
 
 def launch_counts():
-    """Every kernel's launch counter, read now."""
+    """Every counted kernel's launch counter, read now."""
     from fvgp_tpu_torch.ops import hopper_kernels as hk
     return {name: getattr(hk, name).launches for name in REPLACES}
 
@@ -457,6 +468,85 @@ def k1_case(label, r, c, tiles, X, nb, B, mvd):
         raise AssertionError(f"K1 ({label}) disagrees with its plain "
                              f"version: {err} > {tol}")
     return rec
+
+
+def _max_err(a, b, step=16384):
+    """max |a - b| in float32, a slice of tiles at a time."""
+    return max(float((a[s:s + step].float() - b[s:s + step].float())
+                     .abs().max()) for s in range(0, len(a), step))
+
+
+def k5_flops(D):
+    """float32 operations a tile value of K5 (forward, VJP), counted as
+    the kernels write them, an fma as 2: the D differences and their fma
+    sums, the square root, the Wendland polynomial's powers and Horner
+    steps, the variance and both masks; the VJP adds the cotangent's
+    weight, the second polynomial and the 1 + D sums."""
+    return 3 * D + 15, 6 * D + 24
+
+
+def k5_cases(x, nb, rows_p, cols_p, hps, B, device):
+    """K5 at a training structure: the tile assembly and its VJP, in
+    float32 and bfloat16 tiles, each against its plain version (the
+    forward's max error over the signal variance, the VJP's relative
+    error), timed beside it; bound by the live tiles' bytes, written once
+    (the forward) or read once (the VJP), or by ``k5_flops`` at the
+    float32 peak where that is larger.  Returns {tiles dtype: (forward
+    record, VJP record)}."""
+    import torch
+
+    from fvgp_tpu_torch.ops import hopper_kernels as hk
+    from fvgp_tpu_torch.ops.sparse_lml import make_padded_inputs
+    xb, mask, _, _, _ = make_padded_inputs(x, np.zeros(len(x)),
+                                           np.ones(len(x)), B,
+                                           dtype=torch.float32, device=device)
+    r = torch.as_tensor(rows_p).to(device)
+    c = torch.as_tensor(cols_p).to(device)
+    live = (r < nb) & (c < nb)
+    rc, cc = r.clamp(max=nb - 1), c.clamp(max=nb - 1)
+    h = torch.as_tensor(hps, dtype=torch.float32).to(device)
+    n_live = int(live.sum())
+    ops_fwd, ops_vjp = (n_live * B * B * f for f in k5_flops(x.shape[1]))
+    gen = torch.Generator(device=device).manual_seed(5)
+    out = {}
+    for name, tdt in (("float32", torch.float32),
+                      ("bfloat16", torch.bfloat16)):
+        args = (xb, mask, rc, cc, live, h)
+        n_bytes = n_live * B * B * torch.finfo(tdt).bits // 8
+        tiles = hk.tile_covariance(*args, tdt)
+        ref = hk.tile_covariance_reference(*args, tdt)
+        err = _max_err(tiles, ref) / float(h[0])
+        del ref
+        ms = cuda_ms(lambda: hk.tile_covariance(*args, tdt))
+        plain_ms = cuda_ms(lambda: hk.tile_covariance_reference(*args, tdt),
+                           reps=2, warmup=1)
+        fwd = record(err, ms, plain_ms, n_bytes, ops_fwd, "float32", None)
+        del tiles
+        tbar = torch.randn((len(r), B, B), generator=gen, device=device,
+                           dtype=torch.float32).to(tdt)
+        g = hk.tile_covariance_vjp(*args, tbar).double()
+        g_ref = hk.tile_covariance_vjp_reference(*args, tbar).double()
+        rel = float(torch.linalg.norm(g - g_ref) / torch.linalg.norm(g_ref))
+        ms = cuda_ms(lambda: hk.tile_covariance_vjp(*args, tbar))
+        plain_ms = cuda_ms(lambda: hk.tile_covariance_vjp_reference(
+            *args, tbar), reps=2, warmup=1)
+        vjp = record(rel, ms, plain_ms, n_bytes, ops_vjp, "float32", None)
+        del tbar
+        torch.cuda.empty_cache()
+        log(f"K5 tile_covariance [{name} tiles, B={B}, T={len(r)}, live "
+            f"{n_live}]: max_err/var {err:.3e}; kernel {fwd['ms']:.4f} ms, "
+            f"plain {fwd['plain_ms']:.4f} ms; {share(fwd)}")
+        log(f"K5 tile_covariance_vjp [{name} tiles]: rel_err {rel:.3e}; "
+            f"kernel {vjp['ms']:.4f} ms, plain {vjp['plain_ms']:.4f} ms; "
+            f"{share(vjp)}")
+        if not (err <= 1e-5 if name == "float32" else err <= 2.0 ** -7):
+            raise AssertionError(f"K5 ({name}) disagrees with its plain "
+                                 f"version: {err}")
+        if not rel <= 1e-4:
+            raise AssertionError(f"K5 VJP ({name}) disagrees with its plain "
+                                 f"version: {rel}")
+        out[name] = (fwd, vjp)
+    return out
 
 
 def k1_rank_case(x, nb, rows_p, cols_p, hps, B, k, gen, device):
@@ -695,6 +785,10 @@ def kernel_phase(device):
                                       c, tiles, X16, nb, B1, torch.bfloat16)
     del tiles, X1, X16, r, c
     torch.cuda.empty_cache()
+    records["k5"] = k5_cases(x, nb, rows_p, cols_p, hps1, B1, device)
+    # the kernels line: the float32 tiles of the benchmark's configuration
+    records["tile_covariance"], records["tile_covariance_vjp"] = \
+        records["k5"]["float32"]
     records["k1_rank"] = k1_rank_case(x, nb, rows_p, cols_p, hps1, B1, k,
                                       gen, device)
     torch.cuda.empty_cache()
@@ -1599,9 +1693,11 @@ def full_journey(N):
     if not np.all(np.isfinite(trained)):
         raise AssertionError(f"non-finite trained hps {trained}")
     t0 = time.time()
+    k5_before = hk.tile_covariance.launches
     pm = gp.posterior_mean(xp)["m(x)"]
     torch.cuda.synchronize()
     times["posterior_mean_500_s"] = time.time() - t0
+    committed_k5 = hk.tile_covariance.launches - k5_before
     t0 = time.time()
     pv = gp.posterior_covariance(xp, variance_only=True)["v(x)"]
     torch.cuda.synchronize()
@@ -1620,10 +1716,15 @@ def full_journey(N):
         {k: round(v, 4) for k, v in times.items()}))
     log(f"N={N} peak device memory: "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-        f"launches in this phase: {json.dumps(launches)}")
-    for name in ("chunked_spmm", "row_chunk_sums"):
+        f"launches in this phase: {json.dumps(launches)}; K5 in the "
+        f"committed solver's assembly (the first posterior_mean): "
+        f"{committed_k5}")
+    for name in ("chunked_spmm", "row_chunk_sums", *K5):
         if launches[name] < 1:
             raise AssertionError(f"{name} never launched on the main path")
+    if committed_k5 < 1:
+        raise AssertionError("the committed solver's assembly did not take "
+                             "K5")
     if launches["block_spmv"] != 0:
         raise AssertionError("block_spmv launched on the gp2Scale journey, "
                              "which has no call to it")
@@ -1987,6 +2088,12 @@ def gp2scale_training_phase(gp):
         if gp.device.type == "cuda" and got["chunked_spmm"] < 1:
             raise AssertionError(f"K1 did not launch under gp2Scale "
                                  f"train({method})")
+        if gp.device.type == "cuda" and got["tile_covariance"] < 1:
+            raise AssertionError(f"K5 did not launch under gp2Scale "
+                                 f"train({method})")
+    if gp.device.type == "cuda" and total["tile_covariance_vjp"] < 1:
+        raise AssertionError("K5's VJP did not launch under gp2Scale "
+                             "training")
     return total
 
 
@@ -3872,6 +3979,7 @@ def mesh_phase(ref):
                             n1m[1]["times"].items()},
             "peak_gib": [round(r["peak_gib"], 2) for r in n1m],
             "k1_launches": [r["launches"]["chunked_spmm"] for r in n1m],
+            "k5_launches": [[r["launches"][k] for k in K5] for r in n1m],
             "exchange": n1m[0]["exchange"],
             "bytes_per_matvec": n1m[0]["bytes_per_matvec"],
             "tiles_per_rank": n1m[0]["tiles_per_rank"],
@@ -3880,8 +3988,10 @@ def mesh_phase(ref):
     if n1m[0]["lml"] != n1m[1]["lml"]:
         raise AssertionError("mesh N=1M: the ranks disagree")
     for r in n1m:
-        if r["launches"]["chunked_spmm"] < 1:
-            raise AssertionError("K1 never launched on the mesh journey")
+        for name in ("chunked_spmm", *K5):
+            if r["launches"][name] < 1:
+                raise AssertionError(f"{name} never launched on a rank of "
+                                     f"the mesh journey")
     _check_stored_mesh([r["stored"] for r in pair], stored_ref)
     _report_stored_n1m([r["stored_n1m"] for r in pair])
     t0 = time.time()
@@ -4119,7 +4229,7 @@ def examples_phase(card="cuda"):
     log(f"examples: the CPU float64 references were ready "
         f"{time.time() - t_ref:.1f} s after the card's runs "
         f"({time.time() - t0:.1f} s in all)")
-    kern = dict(zip(REPLACES, ("K1", "K2", "K3", "K4")))
+    kern = dict(zip(REPLACES, ("K1", "K2", "K3", "K4", "K5", "K5 VJP")))
     failed = []
 
     def hold(tag, errs, bounds):
@@ -4668,7 +4778,9 @@ def main():
              *extension_launches.values(), *mesh_launches.values(),
              *example_launches.values(), tier_launches]
     launches = {name: sum(p[name] for p in paths) for name in REPLACES}
-    for kern, name in (("K1", "chunked_spmm"), ("K2", "row_chunk_sums")):
+    for kern, name in (("K1", "chunked_spmm"), ("K2", "row_chunk_sums"),
+                       ("K5", "tile_covariance"),
+                       ("K5 VJP", "tile_covariance_vjp")):
         log(f"{kern} launches by path: " + json.dumps(
             {"gp2Scale journey": sparse_launches[name],
              "SLQ solver (3 LML+grad)": slice_launches["slq"][name],
@@ -4699,6 +4811,8 @@ def main():
         "k = 1: " + json.dumps(merged_record))
     log("K1 at the SLQ batch width (k = 16, N = 1M structure): "
         + json.dumps(records.pop("k1_slq_batch")))
+    log("K5 tile_covariance / tile_covariance_vjp (N = 1M structure; "
+        "replace no Pallas kernel): " + json.dumps(records.pop("k5")))
     log("K1 with nb_out != nb (rank 0 of 2, N = 1M structure): "
         + json.dumps(records.pop("k1_rank")))
     log("K1 with nb_out != nb on the stored N = 1M K (rank 0 of 2, bf16 "

@@ -94,6 +94,25 @@
 // var.  It halves the arithmetic and adds stores that coalesce less well,
 // so the wrapper asks for it where the arithmetic sets the time (float64,
 // or D > 4) and not for float32 at D <= 4.
+//
+// gp2Scale tile assembly (K5, fvgp_tile_covariance and
+// fvgp_tile_covariance_vjp): the T covariance tiles of the block-sparse K
+// under the library's anisotropic Wendland kernel, tiles[t] = live[t] *
+// mask[r_t] (x) mask[c_t] * var * P(d) between point blocks r_t and c_t, and
+// the hyperparameter VJP of that assembly.  They replace no Pallas kernel:
+// the JAX package assembles the tiles in jnp under jax.checkpoint
+// (fvgp_tpu/ops/sparse_lml.py, _assemble_chunked_tiles), which XLA fuses;
+// in PyTorch the same chain ran as a dozen elementwise passes over
+// (chunk, B, B, D) intermediates and autograd's backward ran it again, two
+// thirds of the gp2Scale training step.  Both are streams: the forward
+// writes T * B * B tile values (float32 or bfloat16) and the VJP reads as
+// many cotangents, against 2 * B * (D + 1) inputs a tile, so those bytes
+// bound them.  One block of 256 threads per tile whitens its two point
+// blocks into shared memory (K3's arithmetic), every thread takes 16 bytes
+// of tile values a step (4 float32 or 8 bfloat16 columns, their coordinates
+// in registers), and the VJP recomputes the distances in registers and
+// reduces its 1 + D sums inside the block: one float32 partial per tile,
+// summed over the tiles by the wrapper in float64 (no atomics).
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -1090,6 +1109,352 @@ int launch_cov(const void* x1, const void* x2, const void* hps, void* out, int n
   return launch_cov_d<T, 1, false>(a, b, h, o, n1, n2, D, sym, hint, s);
 }
 
+// ---------------------------------------------------------------------------
+// K5: gp2Scale tile assembly and its hyperparameter VJP
+// ---------------------------------------------------------------------------
+
+constexpr int kTileThreads = 256;   // 8 warps
+
+// 16 bytes of tile values: 4 float32 or 8 bfloat16, converted from and to
+// float32 (round to nearest even, as torch's cast), streamed past L2.
+__device__ __forceinline__ void store_tile16(float* p, const float (&v)[4]) {
+  __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+}
+__device__ __forceinline__ void store_tile16(bf16* p, const float (&v)[8]) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    w[i] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  __stcs(reinterpret_cast<uint4*>(p), make_uint4(w[0], w[1], w[2], w[3]));
+}
+__device__ __forceinline__ void load_tile16(const float* p, float (&v)[4]) {
+  const float4 q = __ldcs(reinterpret_cast<const float4*>(p));
+  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+__device__ __forceinline__ void load_tile16(const bf16* p, float (&v)[8]) {
+  const uint4 q = __ldcs(reinterpret_cast<const uint4*>(p));
+  const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+// The block's tile: its row and column point blocks whitened into shared
+// memory (one IEEE division per coordinate, x / l, as the plain formula and
+// K3 do), rows [B][D], columns [D][B], and both masks.  n_ls lengthscales:
+// D, or 1 broadcast over every dimension.
+__device__ __forceinline__ void tile_cov_load(const float* __restrict__ xb,
+                                              const float* __restrict__ mask,
+                                              const float* __restrict__ hps, int r, int c,
+                                              int B, int D, int n_ls, float* z1s, float* z2s,
+                                              float* m1s, float* m2s) {
+  const float* x1 = xb + static_cast<long long>(r) * B * D;
+  const float* x2 = xb + static_cast<long long>(c) * B * D;
+  for (int e = threadIdx.x; e < B * D; e += kTileThreads) {
+    const int j = e / D, d = e - j * D;
+    const float l = hps[1 + (n_ls == 1 ? 0 : d)];
+    z1s[e] = x1[e] / l;
+    z2s[d * B + j] = x2[e] / l;
+  }
+  for (int i = threadIdx.x; i < B; i += kTileThreads) {
+    m1s[i] = mask[static_cast<long long>(r) * B + i];
+    m2s[i] = mask[static_cast<long long>(c) * B + i];
+  }
+}
+
+// The walk over a B x B tile: the thread takes groups of V neighbouring
+// columns, group g = row * G + cg (G = B / V groups a row) for g = tid,
+// tid + 256, ...; the row and column group advance without a division.
+// Where G divides 256 a thread keeps one column group for the whole tile.
+struct TileWalk {
+  int row, cg, step_r, step_c, G;
+  __device__ __forceinline__ TileWalk(int G_) : G(G_) {
+    row = threadIdx.x / G;
+    cg = threadIdx.x - row * G;
+    step_r = kTileThreads / G;
+    step_c = kTileThreads - step_r * G;
+  }
+  __device__ __forceinline__ void next() {
+    row += step_r;
+    cg += step_c;
+    if (cg >= G) { cg -= G; ++row; }
+  }
+};
+
+// K5 forward: tiles[t] = live[t] * mask[r] (x) mask[c] * var * P(min(d, 1)),
+// d = |x_r / l - x_c / l| (K3's Wendland arithmetic: exact per-dimension
+// differences, fma sums, the approximate rsqrt), for every tile t in one
+// launch, one block per tile.  A write-only stream: T * B * B values
+// against 2 * B * (D + 1) inputs a tile, so the tile write bounds it; each
+// thread writes one 16-byte streaming store per group.  A dead tile (live
+// false: bucket padding) is written as zeros.  DT > 0: D == DT at compile
+// time, the thread's column coordinates in registers; DT == 0: D <= 32 at
+// run time, read from shared memory.
+template <typename OutT, int DT>
+__global__ void __launch_bounds__(kTileThreads)
+tile_cov_kernel(const float* __restrict__ xb, const float* __restrict__ mask,
+                const int* __restrict__ rows, const int* __restrict__ cols,
+                const unsigned char* __restrict__ live, const float* __restrict__ hps,
+                OutT* __restrict__ out, int nb, int B, int d_rt, int n_ls) {
+  constexpr int V = 16 / static_cast<int>(sizeof(OutT));
+  const int D = DT > 0 ? DT : d_rt;
+  const int G = B / V;
+  const long long t = blockIdx.x;
+  OutT* o = out + t * B * B;
+  if (!live[t]) {
+    float zero[V];
+#pragma unroll
+    for (int q = 0; q < V; ++q) zero[q] = 0.0f;
+    for (int g = threadIdx.x; g < B * G; g += kTileThreads) store_tile16(o + g * V, zero);
+    return;
+  }
+  extern __shared__ __align__(16) float tile_smem[];
+  float* z1s = tile_smem;
+  float* z2s = z1s + B * D;
+  float* m1s = z2s + B * D;
+  float* m2s = m1s + B;
+  const int r = min(max(rows[t], 0), nb - 1), c = min(max(cols[t], 0), nb - 1);
+  tile_cov_load(xb, mask, hps, r, c, B, D, n_ls, z1s, z2s, m1s, m2s);
+  __syncthreads();
+
+  const float var = hps[0];
+  TileWalk w(G);
+  int cg_held = -1;
+  float zc[V][DT > 0 ? DT : 1];
+  float mc[V];
+  for (; w.row < B; w.next()) {
+    const int col0 = w.cg * V;
+    if (w.cg != cg_held) {
+      cg_held = w.cg;
+#pragma unroll
+      for (int q = 0; q < V; ++q) {
+        mc[q] = m2s[col0 + q];
+        if constexpr (DT > 0) {
+#pragma unroll
+          for (int d = 0; d < DT; ++d) zc[q][d] = z2s[d * B + col0 + q];
+        }
+      }
+    }
+    float d2[V];
+#pragma unroll
+    for (int q = 0; q < V; ++q) d2[q] = 0.0f;
+    if constexpr (DT > 0) {
+#pragma unroll
+      for (int d = 0; d < DT; ++d) {
+        const float a = z1s[w.row * DT + d];
+#pragma unroll
+        for (int q = 0; q < V; ++q) {
+          const float diff = a - zc[q][d];
+          d2[q] = dev_fma(diff, diff, d2[q]);
+        }
+      }
+    } else {
+      for (int d = 0; d < D; ++d) {
+        const float a = z1s[w.row * D + d];
+#pragma unroll
+        for (int q = 0; q < V; ++q) {
+          const float diff = a - z2s[d * B + col0 + q];
+          d2[q] = dev_fma(diff, diff, d2[q]);
+        }
+      }
+    }
+    const float mr = m1s[w.row];
+    float v[V];
+#pragma unroll
+    for (int q = 0; q < V; ++q) {
+      const float dist = d2[q] > 0.0f ? dev_sqrt(d2[q]) : 0.0f;
+      v[q] = (var * cov_poly<float, 1>(dist)) * (mr * mc[q]);
+    }
+    store_tile16(o + static_cast<long long>(w.row) * B + col0, v);
+  }
+}
+
+// K5 VJP: the 1 + D partial sums of tile t against its cotangent tbar[t],
+//   partial[t, 0]     = sum_ij w_ij P(d_ij)
+//   partial[t, 1 + k] = sum_ij w_ij Q(d_ij) dz_ijk^2
+// with w = tbar * live * mask[r] (x) mask[c], dz = x_r / l - x_c / l,
+// P(d) = (1 - d)^8 (32 d^3 + 25 d^2 + 8 d + 1) and Q(d) = 22 (1 - d)^7
+// (16 d^2 + 7 d + 1) on d clipped at 1 (so Q = 0 past the support).  The
+// wrapper turns them into dK/dvar = P and dK/dl_k = var Q dz_k^2 / l_k (the
+// 1 / d of the chain rule cancels, so d = 0 needs no case).  A read-only
+// stream of the cotangent with 16-byte loads, bound by those bytes; the
+// sums stay in registers, then warp shuffles and shared memory reduce them
+// in a fixed order: deterministic, no atomics.  A dead tile's partial is
+// zero and its cotangent is not read.
+template <typename InT, int DT>
+__global__ void __launch_bounds__(kTileThreads)
+tile_cov_vjp_kernel(const float* __restrict__ xb, const float* __restrict__ mask,
+                    const int* __restrict__ rows, const int* __restrict__ cols,
+                    const unsigned char* __restrict__ live, const float* __restrict__ hps,
+                    const InT* __restrict__ tbar, float* __restrict__ partial, int nb, int B,
+                    int d_rt, int n_ls) {
+  constexpr int V = 16 / static_cast<int>(sizeof(InT));
+  constexpr int NS = 1 + (DT > 0 ? DT : kCovMaxD);
+  const int D = DT > 0 ? DT : d_rt;
+  const int G = B / V;
+  const long long t = blockIdx.x;
+  const int tid = threadIdx.x;
+  float* pt = partial + t * (1 + D);
+  if (!live[t]) {
+    for (int k = tid; k < 1 + D; k += kTileThreads) pt[k] = 0.0f;
+    return;
+  }
+  extern __shared__ __align__(16) float tile_smem[];
+  float* z1s = tile_smem;
+  float* z2s = z1s + B * D;
+  float* m1s = z2s + B * D;
+  float* m2s = m1s + B;
+  float* red = m2s + B;   // [8 warps][1 + D]
+  const int r = min(max(rows[t], 0), nb - 1), c = min(max(cols[t], 0), nb - 1);
+  tile_cov_load(xb, mask, hps, r, c, B, D, n_ls, z1s, z2s, m1s, m2s);
+  __syncthreads();
+
+  const InT* tb_t = tbar + t * B * B;
+  float s[NS];
+#pragma unroll
+  for (int k = 0; k < NS; ++k) s[k] = 0.0f;
+  TileWalk w(G);
+  int cg_held = -1;
+  float zc[V][DT > 0 ? DT : 1];
+  float mc[V];
+  for (; w.row < B; w.next()) {
+    const int col0 = w.cg * V;
+    if (w.cg != cg_held) {
+      cg_held = w.cg;
+#pragma unroll
+      for (int q = 0; q < V; ++q) {
+        mc[q] = m2s[col0 + q];
+        if constexpr (DT > 0) {
+#pragma unroll
+          for (int d = 0; d < DT; ++d) zc[q][d] = z2s[d * B + col0 + q];
+        }
+      }
+    }
+    float tb[V];
+    load_tile16(tb_t + static_cast<long long>(w.row) * B + col0, tb);
+    const float mr = m1s[w.row];
+    float dz[V][DT > 0 ? DT : 1];
+    float d2[V];
+#pragma unroll
+    for (int q = 0; q < V; ++q) d2[q] = 0.0f;
+    if constexpr (DT > 0) {
+#pragma unroll
+      for (int d = 0; d < DT; ++d) {
+        const float a = z1s[w.row * DT + d];
+#pragma unroll
+        for (int q = 0; q < V; ++q) {
+          dz[q][d] = a - zc[q][d];
+          d2[q] = dev_fma(dz[q][d], dz[q][d], d2[q]);
+        }
+      }
+    } else {
+      for (int d = 0; d < D; ++d) {
+        const float a = z1s[w.row * D + d];
+#pragma unroll
+        for (int q = 0; q < V; ++q) {
+          const float diff = a - z2s[d * B + col0 + q];
+          d2[q] = dev_fma(diff, diff, d2[q]);
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < V; ++q) {
+      const float wt = tb[q] * (mr * mc[q]);
+      const float dist = d2[q] > 0.0f ? dev_sqrt(d2[q]) : 0.0f;
+      const float dd = dist < 1.0f ? dist : 1.0f;
+      const float u = 1.0f - dd;
+      const float u2 = u * u;
+      const float u7 = (u2 * u2) * u2 * u;
+      const float p = (u7 * u) * dev_fma(dev_fma(dev_fma(32.0f, dd, 25.0f), dd, 8.0f), dd, 1.0f);
+      const float wq = wt * (u7 * dev_fma(dev_fma(352.0f, dd, 154.0f), dd, 22.0f));
+      s[0] = dev_fma(wt, p, s[0]);
+      if constexpr (DT > 0) {
+#pragma unroll
+        for (int d = 0; d < DT; ++d) s[1 + d] = dev_fma(wq, dz[q][d] * dz[q][d], s[1 + d]);
+      } else {
+        for (int d = 0; d < D; ++d) {
+          const float diff = z1s[w.row * D + d] - z2s[d * B + col0 + q];
+          s[1 + d] = dev_fma(wq, diff * diff, s[1 + d]);
+        }
+      }
+    }
+  }
+  const int warp = tid / 32, lane = tid % 32;
+#pragma unroll
+  for (int k = 0; k < NS; ++k) {
+    if (k > D) break;
+    float v = s[k];
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2) v += __shfl_xor_sync(0xffffffffu, v, off);
+    if (lane == 0) red[warp * (1 + D) + k] = v;
+  }
+  __syncthreads();
+  for (int k = tid; k < 1 + D; k += kTileThreads) {
+    float v = 0.0f;
+    for (int wi = 0; wi < kTileThreads / 32; ++wi) v += red[wi * (1 + D) + k];
+    pt[k] = v;
+  }
+}
+
+// Shared memory of a K5 block: the whitened points and masks (and, for the
+// VJP, the warps' partial sums).
+inline long long tile_cov_smem(int B, int D, bool vjp) {
+  return (2LL * B * D + 2LL * B + (vjp ? (kTileThreads / 32) * (1 + D) : 0)) * 4;
+}
+
+constexpr long long kTileMaxSmem = 232448;   // a block's most, opted in
+
+template <typename E, int DT>
+int launch_tile_cov_one(const float* xb, const float* mask, const int* rows, const int* cols,
+                        const unsigned char* live, const float* hps, const void* tbar,
+                        void* out, long long n_tiles, int nb, int B, int D, int n_ls, bool vjp,
+                        cudaStream_t s) {
+  const int smem = static_cast<int>(tile_cov_smem(B, D, vjp));
+  const bool opt_in = smem > 48 * 1024;   // above 48 KB only when asked for
+  cudaError_t err = cudaSuccess;
+  if (vjp) {
+    if (opt_in)
+      err = cudaFuncSetAttribute(tile_cov_vjp_kernel<E, DT>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    tile_cov_vjp_kernel<E, DT><<<static_cast<unsigned>(n_tiles), kTileThreads, smem, s>>>(
+        xb, mask, rows, cols, live, hps, static_cast<const E*>(tbar),
+        static_cast<float*>(out), nb, B, D, n_ls);
+  } else {
+    if (opt_in)
+      err = cudaFuncSetAttribute(tile_cov_kernel<E, DT>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    tile_cov_kernel<E, DT><<<static_cast<unsigned>(n_tiles), kTileThreads, smem, s>>>(
+        xb, mask, rows, cols, live, hps, static_cast<E*>(out), nb, B, D, n_ls);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename E>
+int launch_tile_cov(const float* xb, const float* mask, const int* rows, const int* cols,
+                    const unsigned char* live, const float* hps, const void* tbar, void* out,
+                    long long n_tiles, int nb, int B, int D, int n_ls, bool vjp, cudaStream_t s) {
+  constexpr int V = 16 / static_cast<int>(sizeof(E));
+  if (n_tiles < 0 || nb < 1 || B < V || B % 8 != 0 || D < 1 || D > kCovMaxD ||
+      (n_ls != 1 && n_ls != D) || n_tiles > 0x7fffffffLL || tile_cov_smem(B, D, vjp) > kTileMaxSmem ||
+      reinterpret_cast<uintptr_t>(vjp ? tbar : out) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_tiles == 0) return static_cast<int>(cudaSuccess);
+  // D = 3 (the gp2Scale configuration measured) in registers; every other
+  // D in the run-time body
+  if (D == 3)
+    return launch_tile_cov_one<E, 3>(xb, mask, rows, cols, live, hps, tbar, out, n_tiles, nb, B, D,
+                                     n_ls, vjp, s);
+  return launch_tile_cov_one<E, 0>(xb, mask, rows, cols, live, hps, tbar, out, n_tiles, nb, B, D,
+                                   n_ls, vjp, s);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (tiles and X alike).  X has nb blocks
@@ -1163,5 +1528,40 @@ extern "C" int fvgp_dense_covariance(const void* x1, const void* x2, const void*
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_cov<float>(x1, x2, hps, out, n1, n2, D, kind, flags, s);
   if (dtype == 2) return launch_cov<double>(x1, x2, hps, out, n1, n2, D, kind, flags, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K5: xb (nb, B, D) and mask (nb, B) float32, rows / cols (T,) int32 point
+// blocks (clamped into [0, nb) where read), live (T,) one byte a tile, hps
+// (1 + n_ls,) float32: the signal variance, then n_ls = D lengthscales or
+// one for every dimension; dtype 0 = float32, 1 = bfloat16 tiles.
+// fvgp_tile_covariance writes out (T, B, B) tiles; fvgp_tile_covariance_vjp
+// reads tbar (T, B, B) tile cotangents and writes partial (T, 1 + D) float32.
+extern "C" int fvgp_tile_covariance(const float* xb, const float* mask, const int* rows,
+                                    const int* cols, const unsigned char* live,
+                                    const float* hps, void* out, long long T, int nb, int B,
+                                    int D, int n_ls, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_tile_cov<float>(xb, mask, rows, cols, live, hps, nullptr, out, T, nb, B, D,
+                                  n_ls, false, s);
+  if (dtype == 1)
+    return launch_tile_cov<bf16>(xb, mask, rows, cols, live, hps, nullptr, out, T, nb, B, D,
+                                 n_ls, false, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int fvgp_tile_covariance_vjp(const float* xb, const float* mask, const int* rows,
+                                        const int* cols, const unsigned char* live,
+                                        const float* hps, const void* tbar, float* partial,
+                                        long long T, int nb, int B, int D, int n_ls, int dtype,
+                                        void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_tile_cov<float>(xb, mask, rows, cols, live, hps, tbar, partial, T, nb, B, D,
+                                  n_ls, true, s);
+  if (dtype == 1)
+    return launch_tile_cov<bf16>(xb, mask, rows, cols, live, hps, tbar, partial, T, nb, B, D,
+                                 n_ls, true, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

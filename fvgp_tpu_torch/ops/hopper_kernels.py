@@ -1,7 +1,7 @@
 """Hand-written Hopper kernels, with their plain PyTorch versions and launch
 counters.
 
-Four kernels, all in ``csrc/hopper_kernels.cu`` (CUDA C++ for ``sm_90a``,
+Five kernels, all in ``csrc/hopper_kernels.cu`` (CUDA C++ for ``sm_90a``,
 built with ``nvcc`` at first use into ``fvgp_tpu_torch/_build/`` and loaded
 with ``ctypes`` through a plain C interface):
 
@@ -46,6 +46,17 @@ with ``ctypes`` through a plain C interface):
   kernel as they are (the row offsets are kept on the rows tensor, so a
   structure pays the sortedness check's host sync once), and the ragged
   ends of X and of the output are handled in the kernel.
+* ``tile_covariance`` and ``tile_covariance_vjp`` (K5) replace no Pallas
+  kernel: the JAX package assembles the gp2Scale tiles in ``jnp`` under
+  ``jax.checkpoint`` (``fvgp_tpu/ops/sparse_lml.py``,
+  ``_assemble_chunked_tiles``).  They build every covariance tile of the
+  library's anisotropic Wendland kernel in one launch, and its
+  hyperparameter cotangent in another, where PyTorch ran a chain of
+  elementwise passes per chunk and autograd's backward through it again.
+  One block per tile; the forward is bound by the tile bytes it writes, the
+  VJP by the cotangent bytes it reads, which it reduces to 1 + D float32
+  partial sums a tile in closed form (the wrapper sums them over the tiles
+  in float64).
 
 The SpMM wrappers pad X's columns to a multiple of 8 (a copy where they are
 not), so that every row of X is 16-byte aligned for the asynchronous copies.
@@ -54,7 +65,9 @@ Dispatch is decided before launch: a CPU tensor takes the plain version; a
 CUDA tensor of a dtype the kernel takes launches it and never falls back,
 the dtype picking the body; float64 follows the JAX package's rule
 (``sparse_lml.py:356-360``): K1 and K4 take the plain formulation, K2
-refuses it (its callers keep the plain scan); K3 runs float64 in the kernel.
+refuses it (its callers keep the plain scan); K3 runs float64 in the kernel;
+K5 takes float32 points only (:func:`tile_covariance_takes`, which its
+caller asks first).
 Each wrapper counts its launches in a plain integer attribute
 (``chunked_spmm.launches`` and so on).
 """
@@ -70,14 +83,17 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..kernels import _safe_sqrt, _wendland_poly, matern_kernel_diff1
+from ..kernels import _safe_sqrt, _sq_dist, _wendland_poly, matern_kernel_diff1
 from ..utils import trace
 
 __all__ = ["chunked_spmm", "chunked_spmm_reference", "chunked_spmm_vjp",
            "row_chunk_sums", "row_chunk_sums_reference",
            "row_aligned_schedule", "dense_covariance",
            "dense_covariance_reference", "block_spmv",
-           "block_spmv_reference", "build_kernels", "reset_launch_counts"]
+           "block_spmv_reference", "tile_covariance",
+           "tile_covariance_reference", "tile_covariance_vjp",
+           "tile_covariance_vjp_reference", "tile_covariance_takes",
+           "build_kernels", "reset_launch_counts"]
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "hopper_kernels.cu"
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -131,6 +147,12 @@ def build_kernels(verbose=False):
     lib.fvgp_dense_covariance.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32,
                                           i32, i32, vp]
     lib.fvgp_dense_covariance.restype = i32
+    lib.fvgp_tile_covariance.argtypes = [vp, vp, vp, vp, vp, vp, vp, i64, i32,
+                                         i32, i32, i32, i32, vp]
+    lib.fvgp_tile_covariance.restype = i32
+    lib.fvgp_tile_covariance_vjp.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
+                                             i64, i32, i32, i32, i32, i32, vp]
+    lib.fvgp_tile_covariance_vjp.restype = i32
     _lib = lib
     return time.time() - t0, log
 
@@ -146,6 +168,8 @@ def reset_launch_counts():
     row_chunk_sums.launches = 0
     dense_covariance.launches = 0
     block_spmv.launches = 0
+    tile_covariance.launches = 0
+    tile_covariance_vjp.launches = 0
 
 
 def _stream(t):
@@ -656,3 +680,202 @@ def block_spmv(rows, cols, tiles, X, nb, block_size, n=None):
 
 
 block_spmv.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K5: tile_covariance — the gp2Scale tile assembly and its hyperparameter VJP
+# ---------------------------------------------------------------------------
+
+_TILE_CHUNK = 2048           # tiles per slice of the plain versions
+_TILE_THREADS = 256
+_TILE_MAX_SMEM = 232448      # a block's shared memory, opted in
+_TILE_PLAIN_DTYPES = (torch.float32, torch.bfloat16, torch.float64)
+
+
+def _tile_smem(B, D):
+    """Shared memory of a K5 VJP block (the forward's is smaller): both
+    point blocks whitened, both masks, the warps' 1 + D partial sums."""
+    return (2 * B * D + 2 * B + _TILE_THREADS // 32 * (1 + D)) * 4
+
+
+def tile_covariance_takes(xb, hps, out_dtype):
+    """True when :func:`tile_covariance` computes the tiles of these
+    operands: point blocks ``xb`` (nb, B, D) with B a multiple of 8 and
+    D <= 32, ``hps`` of xb's dtype holding the signal variance and D
+    lengthscales or one for every dimension.  On the card the points are
+    float32 and the tiles float32 or bfloat16; the plain versions, for CPU
+    tensors, take float64 points and tiles too."""
+    if xb.dim() != 3 or hps.dim() != 1 or hps.dtype != xb.dtype:
+        return False
+    B, D = xb.shape[1], xb.shape[2]
+    if hps.shape[0] not in (2, 1 + D) or B < 8 or B % 8 or D > _COV_MAX_DIM \
+            or _tile_smem(B, D) > _TILE_MAX_SMEM:
+        return False
+    if xb.device.type == "cpu":
+        return xb.dtype in (torch.float32, torch.float64) \
+            and out_dtype in _TILE_PLAIN_DTYPES
+    return xb.dtype == torch.float32 and out_dtype in _KERNEL_DTYPES
+
+
+def tile_covariance_reference(xb, mask, rows, cols, live, hps, out_dtype):
+    """Plain PyTorch tiles of the library's anisotropic Wendland kernel,
+
+        tiles[t] = live[t] · mask[rows[t]] ⊗ mask[cols[t]]
+                   · hps[0] · P(‖x_rows[t] / ℓ − x_cols[t] / ℓ‖)
+
+    with P the C⁴ Wendland polynomial on the distance clipped at 1 and ℓ =
+    hps[1:] (one lengthscale broadcast over D, or D): the arithmetic of
+    ``kernels.wendland_anisotropic`` on the gathered blocks, in slices of
+    tiles.  ``rows``/``cols`` are point blocks in [0, nb), ``live`` (T,)
+    bool; tiles in ``out_dtype``."""
+    T, B = rows.shape[0], xb.shape[1]
+    out = torch.empty((T, B, B), dtype=out_dtype, device=xb.device)
+    ls = hps[1:]
+    zero = torch.zeros((), dtype=xb.dtype, device=xb.device)
+    for s in range(0, T, _TILE_CHUNK):
+        sl = slice(s, s + _TILE_CHUNK)
+        r, c = rows[sl].long(), cols[sl].long()
+        K = hps[0] * _wendland_poly(_safe_sqrt(_sq_dist(xb[r] / ls,
+                                                        xb[c] / ls)))
+        K = K * (mask[r][:, :, None] * mask[c][:, None, :])
+        out[sl] = torch.where(live[sl, None, None], K, zero).to(out_dtype)
+    return out
+
+
+def _tile_cov_partials_reference(xb, mask, rows, cols, live, hps, tiles_bar):
+    """The VJP's per-tile sums (T, 1 + D), in float64 for float64 points
+    and float32 otherwise: with w = tiles_bar · live · mask ⊗ mask, Δz the
+    whitened differences and d = min(|Δz|, 1),
+
+        [Σ w·P(d),  Σ w·Q(d)·Δz_1², …,  Σ w·Q(d)·Δz_D²],
+        P(d) = (1−d)⁸(32d³+25d²+8d+1),  Q(d) = 22(1−d)⁷(16d²+7d+1)."""
+    T, D = rows.shape[0], xb.shape[2]
+    acc = torch.float64 if xb.dtype == torch.float64 else torch.float32
+    ls = hps.detach()[1:]
+    out = torch.empty((T, 1 + D), dtype=acc, device=xb.device)
+    zero = torch.zeros((), dtype=acc, device=xb.device)
+    for s in range(0, T, _TILE_CHUNK):
+        sl = slice(s, s + _TILE_CHUNK)
+        r, c = rows[sl].long(), cols[sl].long()
+        dz = ((xb[r] / ls)[:, :, None, :] - (xb[c] / ls)[:, None, :, :]) \
+            .to(acc)
+        m = mask[r][:, :, None] * mask[c][:, None, :]
+        d = torch.clamp(_safe_sqrt(torch.sum(dz * dz, dim=-1)), max=1.0)
+        u = 1.0 - d
+        w = torch.where(live[sl, None, None], tiles_bar[sl].to(acc) * m, zero)
+        P = u ** 8 * (32.0 * d ** 3 + 25.0 * d ** 2 + 8.0 * d + 1.0)
+        Q = 22.0 * u ** 7 * (16.0 * d ** 2 + 7.0 * d + 1.0)
+        out[sl, 0] = torch.sum(w * P, dim=(1, 2))
+        out[sl, 1:] = torch.einsum("tij,tijd->td", w * Q, dz * dz)
+    return out
+
+
+def _hps_cotangent(partial, hps):
+    """The hyperparameters' cotangent from the per-tile sums: summed over
+    the tiles in float64, dK/dvar = P and dK/dℓ_k = var·Q·Δz_k²/ℓ_k (with
+    one lengthscale, the D sums add into one), cast to ``hps.dtype``."""
+    s = partial.to(torch.float64).sum(dim=0)
+    h = hps.detach().to(torch.float64)
+    if h.shape[0] == 2:
+        g_ls = (h[0] / h[1] * s[1:].sum())[None]
+    else:
+        g_ls = h[0] / h[1:] * s[1:]
+    return torch.cat([s[:1], g_ls]).to(hps.dtype)
+
+
+def tile_covariance_vjp_reference(xb, mask, rows, cols, live, hps,
+                                  tiles_bar):
+    """Plain PyTorch cotangent of ``hps`` under
+    :func:`tile_covariance_reference`'s tiles, given their cotangent
+    ``tiles_bar`` (T, B, B): the closed form of
+    :func:`_tile_cov_partials_reference`, summed by :func:`_hps_cotangent`."""
+    return _hps_cotangent(_tile_cov_partials_reference(
+        xb, mask, rows, cols, live, hps, tiles_bar), hps)
+
+
+def _tile_cov_operands(name, xb, mask, rows, cols, live, hps, out_dtype):
+    """The launch operands of K5 on the card, or a raise where the kernel
+    does not take them: (xb, mask, rows, cols, live, hps, T, B, D)."""
+    if not tile_covariance_takes(xb, hps, out_dtype):
+        raise TypeError(
+            f"{name}: the kernel takes float32 point blocks (nb, B, D) with "
+            "B a multiple of 8 and D <= 32, hps of the points' dtype (the "
+            "signal variance and D or one lengthscale) and float32 or "
+            f"bfloat16 tiles; got {xb.dtype} {tuple(xb.shape)}, hps "
+            f"{hps.dtype} {tuple(hps.shape)}, tiles {out_dtype}")
+    T = rows.shape[0]
+    if cols.shape[0] != T or live.shape[0] != T \
+            or mask.shape != xb.shape[:2]:
+        raise ValueError(f"{name}: rows, cols and live must list the same "
+                         "tiles and mask must be (nb, B)")
+    return (xb.contiguous(), mask.to(xb.dtype).contiguous(),
+            rows.to(torch.int32).contiguous(),
+            cols.to(torch.int32).contiguous(),
+            live.to(torch.bool).contiguous().view(torch.uint8),
+            hps.contiguous(), T, xb.shape[1], xb.shape[2])
+
+
+def tile_covariance(xb, mask, rows, cols, live, hps, out_dtype):
+    """The gp2Scale covariance tiles of the library's anisotropic Wendland
+    kernel (the contract of :func:`tile_covariance_reference`).  CPU
+    tensors take the plain version; CUDA tensors that
+    :func:`tile_covariance_takes` accepts launch the K5 kernel once, others
+    raise.  The launch has no autograd: the hyperparameters' cotangent is
+    :func:`tile_covariance_vjp`."""
+    if xb.device.type == "cpu":
+        return tile_covariance_reference(xb, mask, rows, cols, live, hps,
+                                         out_dtype)
+    if torch.is_grad_enabled() and hps.requires_grad:
+        raise RuntimeError("tile_covariance: the kernel has no autograd; "
+                           "differentiate through tile_covariance_vjp")
+    xb, mask, rows, cols, live, hps, T, B, D = _tile_cov_operands(
+        "tile_covariance", xb, mask, rows, cols, live, hps, out_dtype)
+    out = torch.empty((T, B, B), dtype=out_dtype, device=xb.device)
+    lib = _kernels()
+    with torch.cuda.device(xb.device):
+        err = lib.fvgp_tile_covariance(
+            _ptr(xb), _ptr(mask), _ptr(rows), _ptr(cols), _ptr(live),
+            _ptr(hps), _ptr(out), T, xb.shape[0], B, D, hps.shape[0] - 1,
+            _KERNEL_DTYPES[out_dtype], _stream(xb))
+    if err != 0:
+        raise RuntimeError(f"tile_covariance: kernel launch failed with CUDA "
+                           f"error {err}")
+    tile_covariance.launches += 1
+    return out
+
+
+tile_covariance.launches = 0
+
+
+def tile_covariance_vjp(xb, mask, rows, cols, live, hps, tiles_bar):
+    """The cotangent of ``hps`` (in its dtype) under
+    :func:`tile_covariance`'s tiles, given their cotangent ``tiles_bar``
+    (T, B, B) in the tiles' dtype.  CPU tensors take the plain version;
+    CUDA tensors launch the K5 VJP kernel once, which writes the per-tile
+    sums, then summed over the tiles in float64."""
+    if xb.device.type == "cpu":
+        return tile_covariance_vjp_reference(xb, mask, rows, cols, live, hps,
+                                             tiles_bar)
+    xb, mask, rows, cols, live, hps_c, T, B, D = _tile_cov_operands(
+        "tile_covariance_vjp", xb, mask, rows, cols, live, hps.detach(),
+        tiles_bar.dtype)
+    if tiles_bar.shape != (T, B, B):
+        raise ValueError(f"tile_covariance_vjp: the cotangent must be "
+                         f"({T}, {B}, {B}), got {tuple(tiles_bar.shape)}")
+    tiles_bar = _aligned("tile_covariance_vjp", tiles_bar)
+    partial = torch.empty((T, 1 + D), dtype=torch.float32, device=xb.device)
+    lib = _kernels()
+    with torch.cuda.device(xb.device):
+        err = lib.fvgp_tile_covariance_vjp(
+            _ptr(xb), _ptr(mask), _ptr(rows), _ptr(cols), _ptr(live),
+            _ptr(hps_c), _ptr(tiles_bar), _ptr(partial), T, xb.shape[0], B,
+            D, hps_c.shape[0] - 1, _KERNEL_DTYPES[tiles_bar.dtype],
+            _stream(xb))
+    if err != 0:
+        raise RuntimeError(f"tile_covariance_vjp: kernel launch failed with "
+                           f"CUDA error {err}")
+    tile_covariance_vjp.launches += 1
+    return _hps_cotangent(partial, hps)
+
+
+tile_covariance_vjp.launches = 0

@@ -2,9 +2,13 @@
 wide solver — the gp2Scale engine, on one device or on a mesh of ranks
 (counterpart of ``fvgp_tpu/ops/sparse_lml.py``).
 
-* Covariance tiles are assembled chunk by chunk from the block structure;
-  the gradient reaches the hyperparameters through a per-chunk recompute in
-  the backward, so no full (T, B, B) autograd graph is ever held.
+* Covariance tiles of the library's anisotropic Wendland kernel are
+  assembled by the hand-written K5 kernel in one launch on the card
+  (``ops/hopper_kernels.tile_covariance``; its plain version on the CPU),
+  and the gradient reaches the hyperparameters through its closed-form VJP,
+  one more launch.  Any other kernel is assembled chunk by chunk from the
+  block structure, its gradient through a per-chunk recompute in the
+  backward, so no full (T, B, B) autograd graph is ever held.
 * The LML has two solvers.  ``solver="mbcg"`` (the default) is the fused
   mBCG estimator (Gardner et al. 2018): one preconditioned CG over
   ``[y-m | L_M·probes]`` gives the solve and a Lanczos quadrature of the
@@ -37,11 +41,14 @@ import warnings
 import torch
 
 from .. import config
+from ..kernels import wendland_anisotropic
 from ..utils import trace
 from ..parallel.mesh import (SLICE_AXIS, _all_reduce, exchange_blocks,
                              flat_tile_index, gather_rows, global_sum,
                              replicate, tile_device_count)
-from .hopper_kernels import chunked_spmm, chunked_spmm_vjp, row_chunk_sums
+from .hopper_kernels import (chunked_spmm, chunked_spmm_vjp, row_chunk_sums,
+                             tile_covariance, tile_covariance_takes,
+                             tile_covariance_vjp)
 
 __all__ = ["make_sparse_lml", "make_committed_solver", "make_padded_inputs",
            "assemble_tiles", "tile_maxabs"]
@@ -334,12 +341,39 @@ class _AssembleTiles(torch.autograd.Function):
         return grad, None, None, None, None, None, None, None, None
 
 
+class _WendlandTiles(torch.autograd.Function):
+    """The library Wendland kernel's tile assembly on K5 (its plain version
+    for CPU tensors): one launch writes every tile, and the backward is the
+    closed-form hyperparameter VJP, one launch that reads the tiles'
+    cotangent once."""
+
+    @staticmethod
+    def forward(ctx, hps, out_dtype, rows_c, cols_c, live, xb, mask):
+        ctx.save_for_backward(hps, rows_c, cols_c, live, xb, mask)
+        return tile_covariance(xb, mask, rows_c, cols_c, live, hps, out_dtype)
+
+    @staticmethod
+    def backward(ctx, tiles_bar):
+        hps, rows_c, cols_c, live, xb, mask = ctx.saved_tensors
+        with trace.span("fvgp.sparse_lml.assemble_bwd"):
+            grad = tile_covariance_vjp(xb, mask, rows_c, cols_c, live, hps,
+                                       tiles_bar)
+        return grad, None, None, None, None, None, None
+
+
 def _assemble_chunked_tiles(kernel_fn, B, solver_dtype, hps, rows_c, cols_c,
                             live, xb, mask):
-    """Chunked tile assembly (shared by the LML and the committed solver);
+    """Tile assembly (shared by the LML and the committed solver);
     differentiable in ``hps``.  Tiles come out in ``solver_dtype`` (or the
-    points' dtype)."""
+    points' dtype).  The library's Wendland object (by identity: a user's
+    function of that name is another kernel) takes K5 where its operands
+    are ones K5 takes (``tile_covariance_takes``); every other kernel the
+    chunked autograd path, which differentiates any callable."""
     out_dtype = solver_dtype if solver_dtype is not None else xb.dtype
+    if kernel_fn is wendland_anisotropic \
+            and tile_covariance_takes(xb, hps, out_dtype):
+        return _WendlandTiles.apply(hps, out_dtype, rows_c, cols_c, live, xb,
+                                    mask)
     return _AssembleTiles.apply(hps, kernel_fn, B, out_dtype, rows_c, cols_c,
                                 live, xb, mask)
 
