@@ -20,7 +20,8 @@ line is never printed):
    ``tile_covariance`` and ``tile_covariance_vjp`` at the same structure
    (float32 and bfloat16 tiles), K2 ``row_chunk_sums``
    at committed-solver shapes (B=128, C=8; c=128 in bfloat16 and float32,
-   and the journeys' widths c=8, c=512 and c=64 in bfloat16), and K3
+   the journeys' widths c=8, c=512 and c=64 in bfloat16, and the
+   gp2scale-predict cell's c=512, 256 and 8 in float32), and K3
    ``dense_covariance`` at the dense cell's shapes (N=10,000 x 10,000 on
    one tensor — as the journey calls it — and on two, 10,000 x 500 and
    500 x 500, D=3; Matérn-3/2 and Wendland; float32 and float64) — each against its plain PyTorch version, with errors, times,
@@ -45,7 +46,10 @@ line is never printed):
 7. the gp2Scale journey at full size through the public GP: N=1,000,000,
    D=3, bfloat16 solver, 16 probes — construction, LML+gradient (1 + 2
    timed), train(method="local", max_iter=1), posterior_mean and
-   posterior_covariance(variance_only=True) on 500 points;
+   posterior_covariance(variance_only=True) on 500 points; then 7d. the
+   gp2scale-predict cell's path at the same data and h0 in float32: one
+   500-point request counted (K2 alone, the CG's dropped columns, eight
+   variances against the same points solved alone);
 8. stored-K cross-check: the stored-K path (``gp2Scale_traced_lml=False``)
    at N=10,240 on CUDA (float32, and bfloat16 tile storage) against the CPU
    in float64 — K @ X, the trial LML (CG + SLQ at the same probes), a full
@@ -795,27 +799,32 @@ def kernel_phase(device):
     records["k1_stored_rank"] = k1_stored_rank_cases(x, nb, rows_p, cols_p,
                                                      hps1, B1, gen, device)
     torch.cuda.empty_cache()
-    # ---- K2 at committed-solver shapes: c=128 in both dtypes, and in
+    # ---- K2 at committed-solver shapes: c=128 in both dtypes; in
     # bfloat16 the N=1M journey's widths (posterior mean 8, variance 512)
-    # and the stored-K journey's (a 64-point full covariance: 64)
+    # and the stored-K journey's (a 64-point full covariance: 64); in
+    # float32 the gp2scale-predict cell's widths (its variance solve
+    # starts at 512 columns and drops converged ones down to 8)
     B, C = 128, 8
     hps2 = np.array([1.0, 2.0, 2.0, 2.0])
     x, nb, rows_p, cols_p = bench_structure(N, B, hps2, seed=1)
     live = rows_p < nb
     rows_a, cols_a, rowsc, n_chunks = hk.row_aligned_schedule(
         rows_p[live], cols_p[live], nb, C=C)
+    records["k2"] = {}
     for name, tdt, widths in (("bfloat16", torch.bfloat16,
                                (128, 8, 512, 64)),
-                              ("float32", torch.float32, (128,))):
+                              ("float32", torch.float32, (128, 512, 256, 8))):
         tiles, r, cc = assemble(x, nb, B, rows_a, cols_a, hps2, tdt,
                                 torch.float32, device)
         for c_w in widths:
             Xb = torch.randn((nb, B, c_w), generator=gen).to(tdt).to(device)
-            rec = k2_case(name, tiles, cc, Xb, B, C, n_chunks, nb)
-            if (name, c_w) == ("bfloat16", 128):
-                records["row_chunk_sums"] = rec
+            records["k2"][f"{name} c={c_w}"] = k2_case(name, tiles, cc, Xb,
+                                                       B, C, n_chunks, nb)
             del Xb
         del tiles
+    # the kernels line: the float32 variance width of the benchmark's
+    # gp2scale-predict configuration
+    records["row_chunk_sums"] = records["k2"]["float32 c=512"]
     torch.cuda.empty_cache()
     return records, spmv_launches
 
@@ -1735,6 +1744,74 @@ def full_journey(N):
     slice_launches["posterior_api"] = gp2scale_api_phase(gp, xp)
     slice_launches["training"] = gp2scale_training_phase(gp)
     return launches, lml_at_hps, slice_launches
+
+
+def committed_posterior_phase(N):
+    """The gp2scale-predict cell's path at full size: a gp2Scale GP at the
+    journey's data and h0 in the port's default precision on the card
+    (float32), its committed state made by a first request (the structure
+    pass, K5's assembly, the refined weights); then one request counted,
+    ``posterior_mean`` and ``posterior_covariance(variance_only=True)`` at
+    the journey's 500 points.  Its variance solve must run on K2 alone and
+    drop converged columns (fewer column products than trips x 512), and
+    eight of its variances must match those points' variances solved
+    alone, at a width the CG never narrows."""
+    import torch
+
+    from fvgp_tpu_torch import GP
+    from fvgp_tpu_torch.utils import trace
+    x, y, xp = journey_data(N)
+    h0 = np.array([1.0, 2.0, 2.0, 2.0])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    gp = GP(x, y, init_hyperparameters=h0,
+            noise_variances=np.full(len(x), 1e-2), gp2Scale=True,
+            compute_device="cuda",
+            args={"gp2Scale_block_size": 128, "sparse_cg_maxiter": 32,
+                  "random_logdet_fixed_probes": 16,
+                  "gp2Scale_structure_cache_dir": False})
+    gp.posterior_mean(xp)
+    gp.posterior_covariance(xp, variance_only=True)
+    torch.cuda.synchronize()
+    first_s = time.time() - t0
+    trace.reset()
+
+    def request():
+        return (gp.posterior_mean(xp)["m(x)"],
+                gp.posterior_covariance(xp, variance_only=True)["v(x)"])
+
+    (pm, pv), request_s, launches = counted(request)
+    counts = trace.counters()
+    info = dict(gp.kv.last_solve_info)
+    idx = np.arange(0, 500, 63)
+    pv8 = gp.posterior_covariance(xp[idx], variance_only=True)["v(x)"]
+    err8 = float(np.max(np.abs(pv8 - pv[idx]))) / h0[0]
+    log(f"committed posterior, float32, N={N}: first request (structure, "
+        f"assembly, weights) {first_s:.3f} s, a counted request "
+        f"{request_s:.4f} s; solve {json.dumps(info)}; counters "
+        f"{json.dumps(counts)}; launches {json.dumps(launches)}; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB; 8 variances alone against the request's: {err8:.3e} of h0")
+    if gp.kv.dtype != torch.float32 or info["method"] != "committed_pcg":
+        raise AssertionError(f"the committed posterior ran in "
+                             f"{gp.kv.dtype} by {info['method']}")
+    if not (pm.shape == (500,) and pv.shape == (500,)
+            and np.all(np.isfinite(pm)) and np.all(np.isfinite(pv))
+            and np.all(pv >= 0.0)):
+        raise AssertionError("committed posterior mean/variance not finite "
+                             "or of the wrong shape")
+    if launches["row_chunk_sums"] < 1 or launches["chunked_spmm"] \
+            or launches["block_spmv"]:
+        raise AssertionError(f"the committed posterior's solve left K2: "
+                             f"{launches}")
+    if not counts.get("cg_columns", 0) < 512 * counts["cg_iterations"]:
+        raise AssertionError(f"the committed CG dropped no column: {counts}")
+    # the cell's variance limit is 1.5e-4: a misplaced or dropped column
+    # reads O(1)
+    if not err8 <= 1e-4:
+        raise AssertionError(f"the compacted variance solve disagrees with "
+                             f"a narrow one: {err8}")
+    return launches
 
 
 def counted(fn):
@@ -4730,6 +4807,10 @@ def main():
         f"{time.time() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.time()
+    committed_launches = committed_posterior_phase(1_000_000)
+    log(f"committed posterior float32 N=1M phase: {time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.time()
     stored_cross_check()
     log(f"stored-K cross-check phase: {time.time() - t0:.1f} s")
     t0 = time.time()
@@ -4772,7 +4853,8 @@ def main():
     paths = [spmv_launches, dense_launches, dense_api_launches,
              dense_train_launches, sparse_launches, slice_launches["slq"],
              slice_launches["two_level"], slice_launches["posterior_api"],
-             slice_launches["training"], stored_launches, merged_launches,
+             slice_launches["training"], committed_launches,
+             stored_launches, merged_launches,
              diagonal_launches, multitask_launches, formula_launches,
              structured_launches, non_euclidean_launches,
              *extension_launches.values(), *mesh_launches.values(),
@@ -4787,6 +4869,8 @@ def main():
              "two-level variance": slice_launches["two_level"][name],
              "gp2Scale posterior API": slice_launches["posterior_api"][name],
              "gp2Scale training": slice_launches["training"][name],
+             "committed posterior float32 (n = 500)":
+                 committed_launches[name],
              "stored-K journey": stored_launches[name],
              "merged K+V LML (N=10,240)": merged_launches[name],
              "diagonal noise callable posterior": diagonal_launches[name],
@@ -4811,6 +4895,8 @@ def main():
         "k = 1: " + json.dumps(merged_record))
     log("K1 at the SLQ batch width (k = 16, N = 1M structure): "
         + json.dumps(records.pop("k1_slq_batch")))
+    log("K2 row_chunk_sums by dtype and width (N = 50k structure, B = "
+        "128, C = 8): " + json.dumps(records.pop("k2")))
     log("K5 tile_covariance / tile_covariance_vjp (N = 1M structure; "
         "replace no Pallas kernel): " + json.dumps(records.pop("k5")))
     log("K1 with nb_out != nb (rank 0 of 2, N = 1M structure): "

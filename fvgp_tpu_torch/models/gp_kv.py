@@ -410,8 +410,12 @@ class GPkv:
             if self._m_vec is None:
                 self._m_vec = self.prior.m
             y_mean = self._y_minus(self._m_vec)
-            self._KVinvY = self.solve(
-                y_mean, x0=self._x0_hint).reshape(y_mean.shape)
+            # the weights serve every posterior mean of this state: below
+            # float64 the committed solver refines them once past its CG's
+            # exit floor
+            self._KVinvY = self._solve(
+                y_mean, x0=self._x0_hint,
+                refine=int(self.dtype != torch.float64)).reshape(y_mean.shape)
             self._x0_hint = None
         return self._KVinvY
 
@@ -1008,7 +1012,7 @@ class GPkv:
             return False
         return True
 
-    def _fast_solve(self, ctx, b):
+    def _fast_solve(self, ctx, b, refine=0):
         dtype = self.dtype
         b = b.to(dtype)
         squeeze = b.dim() == 1
@@ -1046,7 +1050,7 @@ class GPkv:
                                           ctx["rows"], ctx["scols"],
                                           ctx["noise_pad"],
                                           rhs_pad[ctx["rsl"]],
-                                          *ctx["halo_args"])
+                                          *ctx["halo_args"], refine=refine)
                     if mesh is not None:
                         X = gather_rows(X, mesh)
                     outs.append(X[:n, :c])
@@ -1076,8 +1080,9 @@ class GPkv:
             "chunks": len(widths)}
         return out[:, 0] if squeeze else out
 
-    def _fast_solve_or_none(self, b):
-        """A committed-state solve through the fast path, or None."""
+    def _fast_solve_or_none(self, b, refine=0):
+        """A committed-state solve through the fast path (``refine`` rounds
+        of iterative refinement after its CG), or None."""
         if not self.gp2Scale:
             return None
         if self.mode is not None and (self._is_custom(self.mode)
@@ -1089,7 +1094,7 @@ class GPkv:
         if self.mode is None:
             # lazy gp2Scale: commit the auto mode WITHOUT materializing KV
             self.mode = ctx["mode"]
-        return self._fast_solve(ctx, b)
+        return self._fast_solve(ctx, b, refine)
 
     def _materialize(self):
         """Under gp2Scale, build the stored K+V and its factorization if a
@@ -1105,8 +1110,13 @@ class GPkv:
         fast solver and never materializes the stored K+V (``x0`` is
         ignored there); otherwise the committed factorization or the
         stored-operator Krylov solve serves it."""
+        return self._solve(b, x0)
+
+    def _solve(self, b, x0=None, refine=0):
+        """``solve``, with ``refine`` rounds of iterative refinement after
+        the committed-state fast solver's CG where that solver serves."""
         b, x0 = self._operand(b), self._operand(x0)
-        fast = self._fast_solve_or_none(b)
+        fast = self._fast_solve_or_none(b, refine)
         if fast is not None:
             return fast
         self._materialize()

@@ -53,6 +53,7 @@ from torch.autograd import forward_ad
 
 from .. import config
 from ..kernels import default_matern_ard, wendland_anisotropic
+from ..utils.trace import span
 
 warnings.filterwarnings("once", category=UserWarning,
                         module=r"fvgp_tpu_torch(\..*)?")
@@ -463,8 +464,9 @@ class GPprior:
         vpad = torch.zeros((nch * R, v.shape[1]), dtype=v.dtype,
                            device=v.device)
         vpad[:v.shape[0]] = v
-        out = _dense_cross_product_scan(self._kernel_fn(), xc, xp, hps,
-                                        vpad.reshape(nch, R, -1))
+        with span("fvgp.posterior.cross_sweep"):
+            out = _dense_cross_product_scan(self._kernel_fn(), xc, xp, hps,
+                                            vpad.reshape(nch, R, -1))
         return out[:n_pred]
 
     # ----------------------------------------------------------------------

@@ -477,14 +477,31 @@ def _above(rz, floor):
     return bool((rz > floor).any())
 
 
+def _live_columns(rz, floor):
+    """The CG exit test with the columns it leaves: (how many columns are
+    still above their floor, read on the host in one host sync, and which
+    they are)."""
+    live = rz > floor
+    trace.count("host_syncs")
+    return int(live.sum()), live
+
+
 def _cg_fixed(matvec, Bmat, iters, M=None, tol=None, mv_dtype=None,
-              with_iters=False, reduce=None):
+              with_iters=False, reduce=None, compact=False):
     """(Preconditioned) multi-RHS CG, at most ``iters`` trips, exiting as
     soon as every column's preconditioned residual is below the exit
     floor.  ``with_iters=True`` also returns the executed trip count.  On a
     mesh ``Bmat`` is the rank's rows and ``reduce`` sums each column's
     inner product over the ranks, so every rank sees the same coefficients
-    and exit test."""
+    and exit test.
+
+    ``compact=True`` drops the columns that are below the exit floor from
+    the iteration once the rest fit three quarters of the width, keeping a
+    multiple of 8 columns: a trip then costs the columns still converging,
+    not the width, and every column stops where it meets the floor (the
+    trip count is the slowest column's either way).  On a mesh every rank
+    drops the same columns, since the reduced inner products, and so the
+    exit test, are the same on every rank."""
     if M is None:
         M = lambda X: X                       # noqa: E731
     if reduce is None:
@@ -501,10 +518,34 @@ def _cg_fixed(matvec, Bmat, iters, M=None, tol=None, mv_dtype=None,
     exit_floor = rz0 * _freeze_tol_sq(tol, mv_dtype, Bmat.dtype)
     one = torch.ones((), dtype=Bmat.dtype, device=Bmat.device)
     zero = torch.zeros((), dtype=Bmat.dtype, device=Bmat.device)
+    # the full-width solution and the columns X holds of it (all, until a
+    # compaction)
+    out, cols = X, None
     it = 0
-    while it < iters and _above(rz, exit_floor):
+    while it < iters:
+        if not compact:
+            if not _above(rz, exit_floor):
+                break
+        else:
+            n_live, live = _live_columns(rz, exit_floor)
+            if n_live == 0:
+                break
+            width = -(-n_live // 8) * 8
+            if width <= 3 * X.shape[1] // 4:
+                # the live columns first, each group in column order
+                keep = torch.argsort((~live).to(torch.uint8),
+                                     stable=True)[:width]
+                if cols is None:
+                    cols = keep
+                else:
+                    out[:, cols] = X
+                    cols = cols[keep]
+                X, R, P = X[:, keep], R[:, keep], P[:, keep]
+                rz, floor, exit_floor = rz[keep], floor[keep], \
+                    exit_floor[keep]
         active = rz > floor
         Ap = matvec(P)
+        trace.count("cg_columns", P.shape[1])
         pAp = reduce(torch.sum(P * Ap, dim=0))
         alpha = torch.where(active, rz / torch.where(active, pAp, one), zero)
         X.add_(alpha * P)
@@ -516,8 +557,10 @@ def _cg_fixed(matvec, Bmat, iters, M=None, tol=None, mv_dtype=None,
         P = torch.where(active[None, :], Zn + beta * P, P)
         rz = rz_new
         it += 1
+    if cols is not None:
+        out[:, cols] = X
     trace.count("cg_iterations", it)
-    return (X, it) if with_iters else X
+    return (out, it) if with_iters else out
 
 
 def _block_apply(mats, X):
@@ -992,6 +1035,18 @@ def _coarse_width(nb, coarse_width=None):
     return int(coarse_width) if coarse_width else max(1, -(-nb // 4096))
 
 
+def _refined(cg, matvec, RHS, refine):
+    """``cg(RHS)``'s (X, trips), then ``refine`` rounds of iterative
+    refinement: each solves the residual RHS − A·X, formed with the
+    operator's own product, by ``cg`` again and adds the correction, so
+    the exit floor bounds each round's residual relative to the last."""
+    X, it = cg(RHS)
+    for _ in range(refine):
+        dX, more = cg(RHS - matvec(X))
+        X, it = X + dX, it + more
+    return X, it
+
+
 def make_committed_solver(kernel_fn, nb, B, *, cg_iters=96, solver_dtype=None,
                           precond_width=1, cg_tol=None, row_chunk=None,
                           mesh=None, halo_S=None,
@@ -999,11 +1054,15 @@ def make_committed_solver(kernel_fn, nb, B, *, cg_iters=96, solver_dtype=None,
     """Committed-state WIDE solve (K+V)⁻¹ RHS, on one device or a mesh:
 
         assemble(hps, rows, cols, xb, mask, noise_diag_pad) -> (tiles, pdata)
-        solve(tiles, pdata, rows, cols, noise_diag_pad, RHS[, *plan])
-            -> (X, iters)
+        solve(tiles, pdata, rows, cols, noise_diag_pad, RHS[, *plan],
+              refine=0) -> (X, iters)
 
     ``assemble`` runs once per committed state; ``solve`` once per column
-    chunk.  ``precond_type`` is ``"block_jacobi"`` (pdata = the batched
+    chunk, with ``refine`` rounds of iterative refinement after its CG
+    (``_refined``).  The CG drops the columns that have met its exit floor
+    (``_cg_fixed(compact=True)``), so a solve costs its columns' own
+    trips, not the slowest column's trips times the width.
+    ``precond_type`` is ``"block_jacobi"`` (pdata = the batched
     block inverses) or ``"two_level"`` / ``"amg"`` (pdata = (block inverses,
     the coarse inverse of ``_coarse_inverse``), ``coarse_width`` blocks per
     coarse aggregate, default sized so the coarse grid stays at most 4096).
@@ -1052,6 +1111,15 @@ def make_committed_solver(kernel_fn, nb, B, *, cg_iters=96, solver_dtype=None,
             return lambda X: _two_level_apply(pdata, X, B, cw, row0, reduce)
         return lambda X: _block_apply(pdata, X)
 
+    def run_cg(matvec, pdata, RHS, refine):
+        def cg(rhs):
+            return _cg_fixed(matvec, rhs, cg_iters, M=m_for(pdata),
+                             tol=cg_tol, mv_dtype=solver_dtype,
+                             with_iters=True, reduce=reduce, compact=True)
+
+        with torch.no_grad():
+            return _refined(cg, matvec, RHS, refine)
+
     def assemble(hps, rows, cols, xb, mask, noise_diag_pad):
         with torch.no_grad():
             rows_c = torch.clamp(rows, max=nb - 1)
@@ -1070,7 +1138,8 @@ def make_committed_solver(kernel_fn, nb, B, *, cg_iters=96, solver_dtype=None,
         return tiles, Minv
 
     if mesh is not None:
-        def mesh_solve(tiles, pdata, rows, cols, noise_diag_pad, RHS, *halo):
+        def mesh_solve(tiles, pdata, rows, cols, noise_diag_pad, RHS, *halo,
+                       refine=0):
             # all-gather: global columns, the sentinels clamped (their tiles
             # are zero); halo: the remapped columns are in range
             mv_cols = cols if halo_S is not None \
@@ -1080,14 +1149,11 @@ def make_committed_solver(kernel_fn, nb, B, *, cg_iters=96, solver_dtype=None,
                 return (flat_spmv(rows, mv_cols, tiles, X, *halo)
                         + noise_diag_pad[:, None] * X)
 
-            with torch.no_grad():
-                return _cg_fixed(matvec, RHS, cg_iters, M=m_for(pdata),
-                                 tol=cg_tol, mv_dtype=solver_dtype,
-                                 with_iters=True, reduce=reduce)
+            return run_cg(matvec, pdata, RHS, refine)
 
         return assemble, mesh_solve
 
-    def solve(tiles, pdata, rows, cols, noise_diag_pad, RHS):
+    def solve(tiles, pdata, rows, cols, noise_diag_pad, RHS, refine=0):
         if row_chunk is not None and RHS.dtype == torch.float64:
             raise ValueError(
                 "make_committed_solver(row_chunk=...): the fused row-aligned "
@@ -1109,10 +1175,7 @@ def make_committed_solver(kernel_fn, nb, B, *, cg_iters=96, solver_dtype=None,
                 out = flat_spmv(rows, cols_c, tiles, X)
             return out + noise_diag_pad[:, None] * X
 
-        with torch.no_grad():
-            return _cg_fixed(matvec, RHS, cg_iters, M=m_for(pdata),
-                             tol=cg_tol, mv_dtype=solver_dtype,
-                             with_iters=True)
+        return run_cg(matvec, pdata, RHS, refine)
 
     return assemble, solve
 

@@ -23,7 +23,9 @@ The spans, by area:
 * ``fvgp.committed``: ``structure``, ``assemble``, ``solve`` (the gp2Scale
   committed-state solver);
 * ``fvgp.dense_lml``: ``forward``, ``backward``;
-* ``fvgp.posterior``: ``inputs``, ``cross_cov``, ``prior``, ``solve``;
+* ``fvgp.posterior``: ``inputs``, ``cross_cov``, ``prior``, ``solve``,
+  and ``cross_sweep`` (the gp2Scale mean's fused k(X, x*)ᵀ·v sweep, inside
+  ``cross_cov``);
 * ``fvgp.kv.factor``, ``fvgp.data.morton``, ``fvgp.ggmp.components``;
 * ``fvgp.to_host``: ``config.to_numpy``'s wait, copy and widening.
 
@@ -33,8 +35,10 @@ A counter is a process-wide integer, always on: ``count(name, n)`` adds,
 * ``mbcg_iterations``: trips of the mBCG solve's CG loop
   (``ops/sparse_lml._pcg_coeffs``);
 * ``cg_iterations``: trips of the fixed CG (``ops/sparse_lml._cg_fixed``);
+* ``cg_columns``: the columns its trips multiplied, summed over the trips
+  (fewer than trips × width once it drops converged columns);
 * ``host_syncs``: reads of a tensor's value on the host
-  (``config.to_numpy``, ``config.to_float`` and the two CG exit tests).
+  (``config.to_numpy``, ``config.to_float`` and the CG exit tests).
   On the card each one waits until the card has computed the value; the
   CPU counts the same points, so a call's count is the same on both.
 """

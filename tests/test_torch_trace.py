@@ -129,6 +129,34 @@ def test_posterior_spans_and_syncs():
     assert _syncs(call) == 3
 
 
+def test_gp2scale_mean_sweep_has_its_own_span():
+    """Above its batch size a gp2Scale model's ``posterior_mean`` fuses
+    kᵀ(K+V)⁻¹(y − m) into the chunked kernel sweep, marked
+    ``fvgp.posterior.cross_sweep`` inside ``fvgp.posterior.cross_cov``;
+    the variance's build of k(X, x*) is a ``cross_cov`` of its own and
+    holds no sweep."""
+    rng = np.random.default_rng(4)
+    x = rng.uniform(0, 16, (2000, 3))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        gp = GP(x, np.sin(x[:, 0]), init_hyperparameters=H_SPARSE,
+                gp2Scale=True, gp2Scale_batch_size=1000,
+                noise_variances=np.full(2000, 1e-2),
+                linalg_mode="sparseCGpre", compute_device="cpu",
+                args={"gp2Scale_block_size": 64,
+                      "gp2Scale_structure_cache_dir": False})
+    xp = rng.uniform(0, 16, (20, 3))
+    gp.posterior_mean(xp + 1.0)        # the commit's solve, off the trace
+    mean = _spans(lambda: gp.posterior_mean(xp))
+    assert _names(mean).count("fvgp.posterior.cross_sweep") == 1
+    assert _inside(mean, "fvgp.posterior.cross_sweep",
+                   "fvgp.posterior.cross_cov")
+    var = _spans(lambda: gp.posterior_covariance(xp, variance_only=True))
+    assert "fvgp.posterior.cross_cov" in _names(var)
+    assert "fvgp.posterior.cross_sweep" not in _names(var)
+    assert gp.kv.last_solve_info["method"] == "committed_pcg"
+
+
 def test_gp2scale_lml_spans_nesting_and_counters():
     """A gp2Scale LML + gradient at N = 2,000: the structure pass (its
     cache-miss phases inside it on the first call only), the probe draw,
