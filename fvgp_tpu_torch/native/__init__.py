@@ -1,11 +1,13 @@
 """On-demand-built C++ host runtime (ctypes bindings).
 
-Builds the port's own ``native/structure.cpp`` (a copy of the JAX
-package's host source; the port reads nothing of that package) into
+Builds the port's own ``native/structure.cpp`` (the structure functions
+copied from the JAX package's host source, the port reading nothing of
+that package, and the Rademacher probe draw of ``ops.slq``) into
 ``fvgp_tpu_torch/_build/`` on first use (g++ -O3 -fopenmp) and exposes it
-through ctypes; every entry point has a numpy fallback, so the framework
-works without a toolchain.  :func:`backend` says which of the two runs.
-Disable with ``FVGP_TPU_NATIVE=0``.
+through ctypes; every entry point has a fallback (numpy; ``torch.randint``
+for the probes), so the framework works without a toolchain.
+:func:`backend` says which of the two runs.  Disable with
+``FVGP_TPU_NATIVE=0``.
 """
 
 import ctypes
@@ -75,6 +77,11 @@ def get_lib():
             ctypes.c_int64, ctypes.POINTER(ctypes.c_int32),
             ctypes.POINTER(ctypes.c_int32), ctypes.c_int64, ctypes.c_double,
             ctypes.POINTER(ctypes.c_uint8)]
+        lib.rademacher_mt19937.argtypes = [
+            ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_int64), ctypes.c_int64, ctypes.c_int32,
+            ctypes.c_void_p]
+        lib.rademacher_mt19937.restype = None
         _LIB = lib
     except Exception as exc:
         warnings.warn(f"fvgp_tpu_torch native runtime unavailable ({exc}); "
@@ -186,3 +193,28 @@ def tile_live(x_whitened, rows, cols, block_size, radius):
         d2 = np.sum((a[:, None, :] - b[None, :, :]) ** 2, axis=-1)
         out[t] = bool(np.any(d2 < r2))
     return out.astype(bool)
+
+
+_PROBE_KINDS = {np.dtype(np.int8): 0, np.dtype(np.float32): 1,
+                np.dtype(np.float64): 2}
+
+
+def rademacher_mt19937(state, left, next_, out):
+    """Fill ``out`` (contiguous int8, float32 or float64) with the ±1 that
+    ``torch.randint(0, 2, ...)`` would draw from a CPU generator whose
+    MT19937 state is ``state`` (624 uint32 words, advanced in place),
+    ``left`` and ``next_``; returns the advanced ``(left, next_)``.  Needs
+    the native library (:func:`get_lib`)."""
+    if state.dtype != np.uint32 or state.shape != (624,) \
+            or not state.flags.c_contiguous or not out.flags.c_contiguous \
+            or out.dtype not in _PROBE_KINDS:
+        raise ValueError("rademacher_mt19937 takes 624 contiguous uint32 "
+                         "words and a contiguous int8, float32 or float64 "
+                         "output")
+    left = ctypes.c_int32(left)
+    next_ = ctypes.c_int64(next_)
+    get_lib().rademacher_mt19937(
+        state.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+        ctypes.byref(left), ctypes.byref(next_), out.size,
+        _PROBE_KINDS[out.dtype], out.ctypes.data_as(ctypes.c_void_p))
+    return left.value, next_.value

@@ -1,17 +1,23 @@
-// Native host runtime for block-sparse structure discovery.
+// Native host runtime: block-sparse structure discovery and the
+// Rademacher probe draw.
 //
-// The port's own copy of the JAX package's fvgp_tpu/native/structure.cpp
-// (same functions, same results).  Role: upstream fvGP delegates its
-// host-side neighbor search to compiled code (scipy's cKDTree); here the
-// host-side hot path at 10M-point scale is (1) Morton codes + argsort for
-// spatial data ordering, (2) bounding-box candidate-pair enumeration over
-// the block grid and (3) exact tile liveness.  These are O(N·D) / O(nb²·D)
-// scans that numpy does single-threaded with temporaries; this module does
-// them multi-threaded in one pass.
+// The structure functions are the port's own copy of the JAX package's
+// fvgp_tpu/native/structure.cpp (same functions, same results).  Role:
+// upstream fvGP delegates its host-side neighbor search to compiled code
+// (scipy's cKDTree); here the host-side hot path at 10M-point scale is
+// (1) Morton codes + argsort for spatial data ordering, (2) bounding-box
+// candidate-pair enumeration over the block grid and (3) exact tile
+// liveness.  These are O(N·D) / O(nb²·D) scans that numpy does
+// single-threaded with temporaries; this module does them multi-threaded
+// in one pass.
+//
+// The port alone has (4) rademacher_mt19937: the ±1 probes that
+// torch.randint(0, 2, ...) draws from a CPU torch.Generator, bit for bit,
+// from that generator's MT19937 state, a whole state block at a time.
 //
 // Exposed through ctypes; built on demand by fvgp_tpu_torch.native
 // (g++ -O3 -fopenmp -shared -fPIC).  The Python layer falls back to numpy
-// when the toolchain is unavailable.
+// (to torch.randint for the probes) when the toolchain is unavailable.
 
 #include <cstdint>
 #include <cmath>
@@ -211,3 +217,70 @@ void tile_live(const double* x, int64_t n, int64_t d, int64_t block_size,
 }
 
 }  // extern "C"
+
+// Rademacher probes as torch.randint(0, 2, (count,), dtype=int8,
+// generator=g) - 1 draws them from a CPU torch.Generator g: each draw is
+// the low bit of one tempered 32-bit MT19937 output (torch's
+// at::mt19937: decrement `left`, twist the state when it reaches 0 and
+// restart at word 0, temper state[next++]).  Here the state is twisted
+// 624 words at a time in three plain loops, then the block's words are
+// tempered into ±1.  `state` (624 words), `left` and `next` are torch's
+// own, and are advanced in place exactly as count draws would leave them;
+// the caller has checked them (1 <= left, next + left - 1 <= 624).  `kind`
+// is the type of `out`: 0 int8, 1 float32, 2 float64.
+namespace {
+
+const int MT_N = 624, MT_M = 397;
+
+inline uint32_t mt_twist(uint32_t u, uint32_t v) {
+    return (((u & 0x80000000U) | (v & 0x7fffffffU)) >> 1)
+           ^ ((v & 1U) ? 0x9908b0dfU : 0U);
+}
+
+void mt_next_state(uint32_t* s) {
+    for (int i = 0; i < MT_N - MT_M; ++i)
+        s[i] = s[i + MT_M] ^ mt_twist(s[i], s[i + 1]);
+    for (int i = MT_N - MT_M; i < MT_N - 1; ++i)
+        s[i] = s[i + MT_M - MT_N] ^ mt_twist(s[i], s[i + 1]);
+    s[MT_N - 1] = s[MT_M - 1] ^ mt_twist(s[MT_N - 1], s[0]);
+}
+
+template <typename T>
+void mt_signs(const uint32_t* s, int64_t count, T* out) {
+    for (int64_t i = 0; i < count; ++i) {
+        uint32_t y = s[i];
+        y ^= y >> 11;
+        y ^= (y << 7) & 0x9d2c5680U;
+        y ^= (y << 15) & 0xefc60000U;
+        y ^= y >> 18;
+        out[i] = (y & 1U) ? T(1) : T(-1);
+    }
+}
+
+template <typename T>
+void mt_draw(uint32_t* state, int32_t* left, int64_t* next, int64_t count,
+             T* out) {
+    // the draws left before the next twist come from the current block
+    int64_t take = std::min<int64_t>(*left - 1, count);
+    mt_signs(state + *next, take, out);
+    *left -= (int32_t)take;
+    *next += take;
+    for (int64_t done = take; done < count; done += take) {
+        mt_next_state(state);
+        take = std::min<int64_t>(MT_N, count - done);
+        mt_signs(state, take, out + done);
+        // the draw that twisted leaves left = 624, each later one - 1
+        *left = (int32_t)(MT_N + 1 - take);
+        *next = take;
+    }
+}
+
+}  // namespace
+
+extern "C" void rademacher_mt19937(uint32_t* state, int32_t* left,
+                                   int64_t* next, int64_t count, int32_t kind,
+                                   void* out) {
+    if (kind == 0) mt_draw(state, left, next, count, (int8_t*)out);
+    else if (kind == 1) mt_draw(state, left, next, count, (float*)out);
+    else mt_draw(state, left, next, count, (double*)out);
+}

@@ -8,23 +8,96 @@ goes through one batched ``eigh`` of the k m×m tridiagonals.  The
 estimator's variance is reported through ``info_out``; the marginal
 likelihood scales it into ``log_likelihood_variance``.
 
-Probes are drawn on the CPU from a seeded ``torch.Generator``, so a CPU and
-a CUDA run of the same model see the same probes.
+Probes are the bits ``torch.randint(0, 2, ...)`` draws from a seeded CPU
+``torch.Generator``, so a CPU and a CUDA run of the same model see the same
+probes.  The port's native host library (``native/structure.cpp``,
+``rademacher_mt19937``) produces those bits from the generator's MT19937
+state a block at a time and leaves the generator as ``torch.randint``
+would; only the ±1 cross to the card, as int8.  ``torch.randint`` itself
+draws them where the library is unavailable or the generator's state is
+not the layout read here.
 """
+
+import functools
 
 import numpy as np
 import torch
 
+from .. import native
 from ..config import resolve_device
+from ..utils import trace
 
 __all__ = ["slq_logdet", "lanczos_tridiag", "rademacher_probes"]
 
 
+# torch's CPUGeneratorImplState: the_initial_seed u64, left i32, seeded
+# i32, next u64, the 624 MT19937 words each as u64, then normal-sample
+# caches that torch.randint leaves alone
+_STATE_BYTES = 5056
+_MT_N = 624
+
+
 def rademacher_probes(n, p, dtype, device, generator):
-    """(n, p) Rademacher probes (±1), drawn on the CPU from ``generator`` so
-    a CPU and a CUDA run of the same model see the same probes."""
+    """(n, p) Rademacher probes (±1) in ``dtype`` on ``device``: the bits
+    ``torch.randint(0, 2, (n, p), generator=generator)`` draws, so a CPU
+    and a CUDA run of the same model see the same probes, with
+    ``generator`` advanced as that call advances it.  Counted as
+    ``probe_draws_native`` or ``probe_draws_fallback``."""
+    device = torch.device(device)
+    Z = None
+    if native.get_lib() is not None and _native_agrees():
+        Z = _native_probes(n, p, dtype, device, generator)
+    if Z is not None:
+        trace.count("probe_draws_native")
+        return Z
+    trace.count("probe_draws_fallback")
     bits = torch.randint(0, 2, (n, p), generator=generator, dtype=torch.int8)
     return (2.0 * bits.to(dtype) - 1.0).to(device)
+
+
+def _native_probes(n, p, dtype, device, generator):
+    """The probes by the native draw, or None where ``generator`` is not a
+    CPU ``torch.Generator`` whose state has the layout above.  For the
+    card they are written as int8 into pinned memory, copied, and widened
+    to ``dtype`` there; for the CPU straight in float32 or float64."""
+    if not (isinstance(generator, torch.Generator)
+            and generator.device.type == "cpu"):
+        return None
+    raw = generator.get_state().numpy().copy()
+    if raw.size != _STATE_BYTES:
+        return None
+    left = int(raw[8:12].view(np.int32)[0])
+    nxt = int(raw[16:24].view(np.uint64)[0])
+    words = raw[24:24 + 8 * _MT_N].view(np.uint64)
+    if not (1 <= left <= _MT_N and nxt + left <= _MT_N + 1) \
+            or int(words.max()) >> 32:
+        return None
+    state = words.astype(np.uint32)
+    if device.type == "cuda":
+        out = torch.empty((n, p), dtype=torch.int8, pin_memory=True)
+    else:
+        out = torch.empty((n, p), dtype=dtype if dtype in (
+            torch.float32, torch.float64) else torch.int8)
+    left, nxt = native.rademacher_mt19937(state, left, nxt, out.numpy())
+    raw[8:12].view(np.int32)[0] = left
+    raw[16:24].view(np.uint64)[0] = nxt
+    words[:] = state
+    generator.set_state(torch.from_numpy(raw))
+    return out.to(device, non_blocking=True).to(dtype)
+
+
+@functools.cache
+def _native_agrees():
+    """Whether this torch's ``randint`` is the draw the native library
+    reproduces: the same bits and the same state after, on a generator
+    taken past a twist, checked once a process."""
+    a, b = (torch.Generator().manual_seed(20240611) for _ in range(2))
+    for g in (a, b):
+        torch.randint(0, 2, (700,), generator=g)
+    got = _native_probes(1300, 1, torch.float64, torch.device("cpu"), a)
+    want = torch.randint(0, 2, (1300, 1), generator=b, dtype=torch.int8)
+    return (got is not None and torch.equal(got, 2.0 * want.double() - 1.0)
+            and torch.equal(a.get_state(), b.get_state()))
 
 
 def _as_closure(matvec, operator):

@@ -16,10 +16,10 @@ The spans, by area:
 * ``fvgp.sparse_lml``: ``structure`` (support geometry, the candidate and
   liveness caches, the schedule's check), ``candidates``,
   ``padded_inputs`` and ``liveness`` inside it on a cache miss, ``probes``
-  (the CPU Rademacher draw and its copy to the device), ``assemble``,
-  ``precond``, ``mbcg``, and ``backward`` (the gradient) with
-  ``mbcg_bwd`` and ``assemble_bwd`` inside it (on autograd's thread on
-  the card);
+  (the Rademacher draw on the host and its copy to the device),
+  ``assemble``, ``precond``, ``mbcg``, and ``backward`` (the gradient)
+  with ``mbcg_bwd`` and ``assemble_bwd`` inside it (on autograd's thread
+  on the card);
 * ``fvgp.committed``: ``structure``, ``assemble``, ``solve`` (the gp2Scale
   committed-state solver);
 * ``fvgp.dense_lml``: ``forward``, ``backward``;
@@ -37,6 +37,9 @@ A counter is a process-wide integer, always on: ``count(name, n)`` adds,
 * ``cg_iterations``: trips of the fixed CG (``ops/sparse_lml._cg_fixed``);
 * ``cg_columns``: the columns its trips multiplied, summed over the trips
   (fewer than trips × width once it drops converged columns);
+* ``probe_draws_native`` / ``probe_draws_fallback``: Rademacher probe
+  draws (``ops/slq.rademacher_probes``, one a call) made by the native
+  library's MT19937 or by ``torch.randint`` (the same bits either way);
 * ``host_syncs``: reads of a tensor's value on the host
   (``config.to_numpy``, ``config.to_float`` and the CG exit tests).
   On the card each one waits until the card has computed the value; the
