@@ -11,6 +11,7 @@ blocked rank-n factor updates.
 import numpy as np
 
 from ..config import resolve_device
+from ..parallel.tile_structure import TileStructure
 
 
 class GPdata:
@@ -90,11 +91,9 @@ class GPdata:
         # keyed on dataset content (e.g. the gp2Scale tile-liveness mask)
         # can tell "same N, different points" apart from "unchanged data"
         self.generation = 0
-        # shared host-structure cache (gp2Scale tile structure etc.) — the
-        # training and prediction paths compute the same filtered block
-        # structure from (x, B, lengthscales, radius); keys carry the
-        # generation token, entries are host numpy arrays
-        self.structure_cache = {}
+        # the gp2Scale tile structure's host caches, shared by the training
+        # pass and the committed posterior solver (parallel/tile_structure)
+        self.tile_structure = TileStructure(self)
         self.ram_economy = ram_economy
         self.gp2Scale = gp2Scale
         self.gp2Scale_batch_size = gp2Scale_batch_size
@@ -206,7 +205,7 @@ class GPdata:
     # ------------------------------------------------------------------
     def __getstate__(self):
         state = dict(self.__dict__)
-        state["structure_cache"] = {}       # host cache: rebuilt on demand
+        state.pop("tile_structure")         # host caches: rebuilt on demand
         state["device"] = str(self.device)  # loads back onto this device
         return state
 
@@ -215,5 +214,4 @@ class GPdata:
         self.device = resolve_device(state["device"])
         if "generation" not in state:  # pickles from before the token existed
             self.generation = 0
-        if "structure_cache" not in state:
-            self.structure_cache = {}
+        self.tile_structure = TileStructure(self)

@@ -708,19 +708,21 @@ class GPkv:
         not apply (untraceable kernel, unpruned structure, or a mode it
         does not serve).
 
-        Under a mesh of more than one rank the solver is built like the
-        training step: the schedule is partitioned by row ownership
-        (``partition.partition_schedule``), each rank assembles its own
-        tiles and preconditioner blocks, and the CG matvec gathers the
-        iterate (all-gather, or the halo plan ``choose_halo`` picks, as in
-        training).  Every rank returns the whole solution."""
+        The structure is ``data.tile_structure.exact`` at the committed
+        lengthscales.  Under a mesh of more than one rank the solver is
+        built like the training step: the schedule is partitioned by row
+        ownership (``tile_structure.rank_partition``), each rank assembles
+        its own tiles and preconditioner blocks, and the CG matvec gathers
+        the iterate (all-gather, or the halo plan, as in training).  Every
+        rank returns the whole solution."""
         if not (self.data.gp2Scale and self.data.Euclidean
                 and self.prior.kernel_traceable) \
                 or self._is_custom(self.linalg_mode):
             return None
         from ..parallel.mesh import current_mesh, tile_device_count
-        from ..parallel.sharded_cov import (_bucket, _stable_kernel_closure,
-                                            support_geometry)
+        from ..parallel.sharded_cov import _stable_kernel_closure
+        from ..parallel.tile_structure import (halo_settings, padded_schedule,
+                                               rank_partition, row_sorted)
         mesh = current_mesh()
         n_dev = tile_device_count(mesh) if mesh is not None else 1
         if n_dev <= 1:
@@ -750,8 +752,7 @@ class GPkv:
                bool(args.get("gp2Scale_tile_filter", True)),
                args.get("gp2Scale_posterior_budget"),
                args.get("gp2Scale_posterior_col_budget"), args.get("dtype"),
-               mesh, args.get("gp2Scale_halo_exchange", "auto"),
-               args.get("gp2Scale_dcn_ici_ratio"))
+               mesh) + halo_settings(args)
         ctx = self._fast_solver_ctx
         if ctx is not None and ctx["key"] == key:
             return ctx if ctx.get("fn") is not None else None
@@ -770,26 +771,12 @@ class GPkv:
                 return None
         x = np.asarray(self.x_data, np.float64)
         n = len(x)
-        ls, radius = support_geometry(self.prior, hps, args)
+        ls, radius = self.data.tile_structure.support(self.prior, hps)
         if not np.isfinite(radius) and n > 4 * B:
             # unpruned structure: nb² candidate tiles — not a fast path
             self._fast_solver_ctx = {"key": key, "fn": None}
             return None
-        if ls is None:
-            ls = np.ones(x.shape[1], dtype=np.float64)
-        ls = np.asarray(ls, np.float64)
-        # the training pass computes the identical filtered structure —
-        # share it through the per-data cache
-        skey = ("tile_structure", self.data.generation,
-                self.data.point_number, B, float(radius), ls.tobytes(),
-                bool(args.get("gp2Scale_tile_filter", True)))
-        shared = self.data.structure_cache
-        if skey in shared:
-            rows_f, cols_f = shared[skey]
-        else:
-            rows_f, cols_f = self._tile_structure(x, ls, radius, B, args)
-            shared.clear()          # one live structure per dataset
-            shared[skey] = (rows_f, cols_f)
+        rows_f, cols_f = self.data.tile_structure.exact(ls, radius, B)
 
         mode = self._auto_mode(n, len(rows_f) * B * B)
         supported = mode in ("sparseCG", "sparseCGpre", "sparseMINRES",
@@ -810,11 +797,6 @@ class GPkv:
             x, np.zeros(n), V, B, dtype=dtype, device=device,
             row_multiple=pwidth * n_dev)
         nb = int(xb.shape[0])
-        # row-sort the schedule (stable, host-side, once): the SpMMs own
-        # one output row block at a time (the mirrored upper-triangle
-        # entries are not row-ordered as produced)
-        order = np.argsort(rows_f, kind="stable")
-        rows_f, cols_f = rows_f[order], cols_f[order]
         # fused K2 path for float32/bfloat16 solves: row-aligned C-tile
         # chunks — the (T, B, c) product never exists.  float64 keeps the
         # plain scan (the kernel accumulates float32).
@@ -822,51 +804,25 @@ class GPkv:
         use_fused = (mesh is None and dtype != torch.float64
                      and bool(args.get("gp2Scale_posterior_fused_spmm",
                                        True)))
-        # a rank's rows of every vector (all of them on one device)
-        halo_S, halo_args, cols_solve, rsl = None, (), None, slice(None)
+        # a rank's share (on one device: all rows, no halo)
+        part = {"halo_S": None, "plan": (), "cols_remap": None,
+                "rsl": slice(None)}
+        solver_rows = None
         if use_fused:
             from ..ops.hopper_kernels import row_aligned_schedule
             rows_p, cols_p, rowsc, _ = row_aligned_schedule(
-                rows_f, cols_f, nb, C=C_fused)
+                *row_sorted(rows_f, cols_f), nb, C=C_fused)
             solver_rows = torch.as_tensor(rowsc).to(device)
         elif mesh is not None:
-            # row-partitioned schedule (the training step's ownership
-            # model); the exchange is chosen by the same cost model.  The
+            # the training step's ownership model and exchange; the
             # assembly keeps the global columns, the solve's gather reads
             # the remapped ones of a halo plan
-            from ..parallel.partition import choose_halo, partition_schedule
-            W = nb // n_dev
-            cnt = np.bincount(np.minimum(rows_f // W, n_dev - 1),
-                              minlength=n_dev) if len(rows_f) \
-                else np.ones(1)
-            rows_p, cols_p, _, per = partition_schedule(
-                rows_f, cols_f, nb, n_dev, pad_to=_bucket(int(cnt.max())))
-            choice = choose_halo(
-                rows_p, cols_p, nb, mesh,
-                halo_mode=args.get("gp2Scale_halo_exchange", "auto"),
-                dcn_ratio=float(args.get("gp2Scale_dcn_ici_ratio", 8.0)),
-                bucket=max(8, W // 8))
-            r = mesh.rank
-            seg = slice(r * per, (r + 1) * per)
-            rsl = slice(r * W * B, (r + 1) * W * B)
-            if choice is not None and choice["engaged"] is not None:
-                halo_S = choice["halo_S"]
-                cols_solve = torch.as_tensor(
-                    choice["cols_remap"][seg]).to(device)
-                halo_args = tuple(
-                    torch.as_tensor(p[r]).to(device) if p.dtype.kind == "i"
-                    else torch.as_tensor(p[r], dtype=dtype).to(device)
-                    for p in choice["plan"])
-            rows_p, cols_p = rows_p[seg], cols_p[seg]
-            noise_pad = noise_pad[rsl]
-            solver_rows = None
+            part = rank_partition(rows_f, cols_f, nb, B, mesh, args, dtype,
+                                  device)
+            rows_p, cols_p = part["rows"], part["cols"]
+            noise_pad = noise_pad[part["rsl"]]
         else:
-            T_pad = _bucket(max(len(rows_f), 1))
-            rows_p = np.full(T_pad, nb, np.int32)
-            cols_p = np.full(T_pad, nb, np.int32)
-            rows_p[:len(rows_f)] = rows_f
-            cols_p[:len(cols_f)] = cols_f
-            solver_rows = None
+            rows_p, cols_p = padded_schedule(rows_f, cols_f, nb)
         T_pad = len(rows_p)
 
         if mode in ("sparseLU", "sparseSolve"):
@@ -899,7 +855,7 @@ class GPkv:
             solver_dtype=sdt, precond_width=pwidth, cg_tol=tol,
             row_chunk=C_fused if use_fused else None,
             precond_type=ptype, coarse_width=coarse_w, mesh=mesh,
-            halo_S=halo_S)
+            halo_S=part["halo_S"])
         # Column budget: the fixed residents (tiles + preconditioner) come
         # off the memory budget first; the rest divides by the per-column
         # cost (5 live CG buffers + the matvec's cast copy + the SpMM
@@ -944,45 +900,15 @@ class GPkv:
                "arows": arows,              # per-tile rows (assembly)
                "rows": solver_rows if solver_rows is not None else arows,
                "cols": acols,               # global columns (assembly)
-               "scols": cols_solve if cols_solve is not None else acols,
-               "halo_args": halo_args, "mesh": mesh, "rsl": rsl,
+               "scols": (acols if part["cols_remap"] is None
+                         else part["cols_remap"]),  # the gather's columns
+               "halo_args": part["plan"], "mesh": mesh, "rsl": part["rsl"],
                "bytes_per_col": int(bytes_per_col),
                "xb": xb, "mask": mask, "noise_pad": noise_pad,
                "hps": torch.as_tensor(hps, dtype=dtype).to(device),
                "n": n, "n_pad": n_pad, "col_budget": int(col_budget)}
         self._fast_solver_ctx = ctx
         return ctx
-
-    def _tile_structure(self, x, ls, radius, B, args):
-        """Filtered (rows, cols) block structure at exact lengthscales:
-        bounding-box candidate prune + exact tile liveness (native host
-        runtime), content-addressed on disk (utils/structure_cache)."""
-        from ..parallel.sharded_cov import _candidate_pairs
-        from ..utils import structure_cache as sc
-        from ..utils.logging import phase_timer
-        filt = bool(args.get("gp2Scale_tile_filter", True))
-        cdir = sc.cache_dir(args)
-        token = self.data.content_token if cdir else None
-        dkey = None
-        if token is not None:
-            dkey = sc.content_key("tile_structure", token, B, float(radius),
-                                  ls, filt)
-            hit = sc.load(cdir, "tile_structure", dkey)
-            if hit is not None:
-                return hit["rows"], hit["cols"]
-        with phase_timer("fvgp.committed.structure"):
-            rows, cols = _candidate_pairs(x, None, ls, radius, B,
-                                          symmetric=True)
-            off = rows < cols
-            rows_f = np.concatenate([rows, cols[off]]).astype(np.int32)
-            cols_f = np.concatenate([cols, rows[off]]).astype(np.int32)
-            if filt and np.isfinite(radius) and len(rows_f):
-                from ..native import tile_live
-                keep = tile_live(x / ls, rows_f, cols_f, B, radius)
-                rows_f, cols_f = rows_f[keep], cols_f[keep]
-        if dkey is not None:
-            sc.store(cdir, "tile_structure", dkey, rows=rows_f, cols=cols_f)
-        return rows_f, cols_f
 
     def fast_solve_col_budget(self):
         """Columns per committed-state fast solve, or None (no fast path)."""

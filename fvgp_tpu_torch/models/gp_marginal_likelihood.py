@@ -31,10 +31,10 @@ averaged over the columns of a multi-column y.
   (``args["gp2Scale_solver"]``: ``"mbcg"``, the default, or ``"slq"`` with
   ``args["random_logdet_lanczos_degree"]``); its estimator variance is
   ``log_likelihood_variance``, its Hessian central differences of the
-  gradient.  The host-side structure pass
-  (bounding-box candidates at inflated lengthscales, exact tile liveness) is
-  cached under the JAX package's drift policy, and the tile schedule is
-  row-sorted once per structure for the K1 kernel.
+  gradient.  The host-side structure pass is ``parallel/tile_structure``'s
+  (candidates at inflated lengthscales, exact tile liveness, the JAX
+  package's drift policy); the program's schedule is rebuilt once per
+  structure.
 * gp2Scale off the traced path (``args["gp2Scale_traced_lml"] = False``, a
   multi-column y, a prior mean function, a noise callable, a kernel that
   does not run on tensors, non-Euclidean inputs): the stored-K LML — a
@@ -69,8 +69,6 @@ class GPMarginalLikelihood:
         self.trainer = trainer
         self.kv = kv
         self._sparse_cache = {}
-        self._candidate_cache = None
-        self._filter_mask_cache = None
         self._warm_start_KVinvY = None
 
     @property
@@ -99,12 +97,11 @@ class GPMarginalLikelihood:
 
     def invalidate_traced(self):
         """Drop what the traced gp2Scale LML caches for the dataset: the
-        program's entry, the candidate tile pairs and the tile filter's
-        keep mask (every entry is also keyed by the data's generation, so
-        ``update_gp_data`` does the same)."""
+        program's entry and the tile structure's caches (every entry is
+        also keyed by the data's generation, so ``update_gp_data`` does the
+        same)."""
         self._sparse_cache = {}
-        self._candidate_cache = None
-        self._filter_mask_cache = None
+        self.data.tile_structure.clear()
 
     # ------------------------------------------------------------------
     def _sparse_traced_ready(self):
@@ -126,6 +123,7 @@ class GPMarginalLikelihood:
         blocks and each rank's block count divides by the preconditioner
         width."""
         from ..parallel.mesh import current_mesh, tile_device_count
+        from ..parallel.tile_structure import halo_settings
         args = self.args
         n = len(self.x_data)
         B = int(args.get("gp2Scale_block_size",
@@ -159,9 +157,7 @@ class GPMarginalLikelihood:
         st["key"] = (n, B, st["nb"], st["cg_iters"], st["ctol"],
                      st["probes"], st["degree"], str(st["dtype"]),
                      str(st["sdt"]), st["solver"], pwidth,
-                     self.data.point_number, mesh,
-                     args.get("gp2Scale_halo_exchange", "auto"),
-                     args.get("gp2Scale_dcn_ici_ratio", 8.0))
+                     self.data.point_number, mesh) + halo_settings(args)
         return st
 
     def _sparse_lml_eval(self, hyperparameters, want_grad=False):
@@ -195,75 +191,30 @@ class GPMarginalLikelihood:
 
     def _sparse_structure(self, hyperparameters, st):
         """(entry, run) of the sparse LML at ``hyperparameters``: the cached
-        program and padded inputs, and the schedule of the structure at
-        these lengthscales, revalidated on the host (support geometry, the
-        candidate and liveness caches under the drift policy, the
-        schedule's comparison) and rebuilt where it moved."""
+        program and padded inputs, and the schedule of the training
+        structure at these lengthscales (``data.tile_structure``), rebuilt
+        where the structure moved."""
         from ..ops.sparse_lml import make_padded_inputs, make_sparse_lml
-        from ..parallel.sharded_cov import (_candidate_pairs,
-                                            _stable_kernel_closure,
-                                            support_geometry)
-        from ..utils import structure_cache as sc
-        prior = self.prior
-        args = self.args
+        from ..parallel.sharded_cov import _stable_kernel_closure
+        tiles = self.data.tile_structure
         device = self.data.device
-        x = np.asarray(self.x_data, dtype=np.float64)
-        n, B, nb, pwidth, dtype = (st[k] for k in ("n", "B", "nb", "pwidth",
-                                                   "dtype"))
-        row_mult = st["n_dev"] * max(pwidth, 1)
-
-        ls, radius = support_geometry(prior, hyperparameters, args)
-        if ls is None:
-            ls = np.ones(x.shape[1], dtype=np.float64)
-        # candidates at INFLATED lengthscales ls·(1+tol): a superset for
-        # every ls within the drift band; the exact liveness filter below
-        # prunes it exactly
-        tol_c = float(args.get("gp2Scale_filter_drift", 0.05))
-        data_token = (self.data.point_number, self.data.generation)
-        ls_now = np.asarray(ls, dtype=np.float64)
-        ccache = self._candidate_cache
-        if (ccache is not None
-                and ccache[0] == (data_token, B, float(radius))
-                and np.all(np.abs(ls_now / ccache[1] - 1.0) <= tol_c)):
-            rows_f, cols_f = ccache[2], ccache[3]
-        else:
-            cdir = sc.cache_dir(args)
-            token = self.data.content_token if cdir else None
-            dkey = hit = None
-            if token is not None:
-                dkey = sc.content_key("candidates", token, B, float(radius),
-                                      ls_now * (1.0 + tol_c))
-                hit = sc.load(cdir, "candidates", dkey)
-            if hit is not None:
-                rows_f, cols_f = hit["rows"], hit["cols"]
-            else:
-                with phase_timer("fvgp.sparse_lml.candidates"):
-                    rows, cols = _candidate_pairs(x, None,
-                                                  ls_now * (1.0 + tol_c),
-                                                  radius, B, symmetric=True)
-                off = rows < cols
-                rows_f = np.concatenate([rows, cols[off]]).astype(np.int32)
-                cols_f = np.concatenate([cols, rows[off]]).astype(np.int32)
-                if dkey is not None:
-                    sc.store(cdir, "candidates", dkey,
-                             rows=rows_f, cols=cols_f)
-            self._candidate_cache = ((data_token, B, float(radius)), ls_now,
-                                     rows_f, cols_f)
-
+        B, nb, pwidth, dtype = (st[k] for k in ("B", "nb", "pwidth", "dtype"))
         cg_iters, ctol, sdt, probes, degree, solver, key = (
             st[k] for k in ("cg_iters", "ctol", "sdt", "probes", "degree",
                             "solver", "key"))
+        ls, radius = tiles.support(self.prior, hyperparameters)
         entry = self._sparse_cache.get(key)
         if entry is None:
             with phase_timer("fvgp.sparse_lml.padded_inputs"):
                 noise_h = self.likelihood.calculate_V_host(self.x_data,
                                                            hyperparameters)
                 xb, mask, y_pad, ypad_mask, noise_pad = make_padded_inputs(
-                    x, np.asarray(self.y_data)[:, 0], noise_h, B,
-                    dtype=dtype, device=device, row_multiple=row_mult)
+                    np.asarray(self.x_data, dtype=np.float64),
+                    np.asarray(self.y_data)[:, 0], noise_h, B, dtype=dtype,
+                    device=device, row_multiple=st["n_dev"] * max(pwidth, 1))
             if xb.shape[0] != nb:
                 raise AssertionError((tuple(xb.shape), nb))
-            kern = _stable_kernel_closure(prior)
+            kern = _stable_kernel_closure(self.prior)
 
             def lml_for(nb_eff, halo_S=None):
                 return make_sparse_lml(kern, nb_eff, B, cg_iters=cg_iters,
@@ -277,53 +228,11 @@ class GPMarginalLikelihood:
                      "noise_pad": noise_pad, "probes": probes, "counter": 0,
                      "schedule": None}
             self._sparse_cache = {key: entry}
-
-        # exact-sparsity pass, cached under the drift policy: while the
-        # candidate set is unchanged and the support lengthscales moved
-        # < gp2Scale_filter_drift, known-dead pairs stay dropped
-        if (bool(args.get("gp2Scale_tile_filter", True))
-                and np.isfinite(radius) and len(rows_f)):
-            pair_key = rows_f.astype(np.int64) * (nb + 1) + cols_f
-            tol = float(args.get("gp2Scale_filter_drift", 0.05))
-            cache = self._filter_mask_cache
-            if (cache is not None and cache[2] == data_token
-                    and cache[3] == (nb, B, float(radius))
-                    and np.all(np.abs(ls_now / cache[0] - 1.0) <= tol)):
-                keep = ~np.isin(pair_key, cache[1])
-            else:
-                from ..native import tile_live
-                cdir = sc.cache_dir(args)
-                token = self.data.content_token if cdir else None
-                lkey = keep = None
-                if token is not None:
-                    lkey = sc.content_key("liveness", token, B, float(radius),
-                                          ls_now, rows_f, cols_f)
-                    hit = sc.load(cdir, "liveness", lkey)
-                    if hit is not None:
-                        keep = hit["keep"].astype(bool)
-                if keep is None:
-                    with phase_timer("fvgp.sparse_lml.liveness"):
-                        keep = tile_live(x / ls_now, rows_f, cols_f, B,
-                                         radius)
-                    if lkey is not None:
-                        sc.store(cdir, "liveness", lkey,
-                                 keep=np.asarray(keep, dtype=bool))
-                self._filter_mask_cache = (ls_now, np.sort(pair_key[~keep]),
-                                           data_token, (nb, B, float(radius)))
-                # the committed posterior solver needs the identical
-                # filtered structure at these lengthscales: share it
-                skey = ("tile_structure", self.data.generation,
-                        self.data.point_number, B, float(radius),
-                        ls_now.tobytes(), True)
-                self.data.structure_cache.clear()
-                self.data.structure_cache[skey] = (rows_f[keep], cols_f[keep])
-            rows_f = rows_f[keep]
-            cols_f = cols_f[keep]
+        rows_f, cols_f = tiles.training(ls, radius, B, nb)
 
         # the program's schedule and bound inputs, built once per structure
         # and reused while the filtered structure is unchanged: meshless, the
-        # row-sorted, bucket-padded schedule (sentinels at the tail); under
-        # a mesh, the rank's segment of the partitioned schedule
+        # padded schedule; under a mesh, the rank's segment of it
         sched = entry["schedule"]
         if (sched is None or len(sched[0]) != len(rows_f)
                 or not np.array_equal(sched[0], rows_f)
@@ -335,19 +244,13 @@ class GPMarginalLikelihood:
             entry["schedule"] = sched
         # what the Adam chain revalidates on entry: the support lengthscales
         # and the data this structure was built for
-        entry["chain_ctx"] = {"ls_ref": ls_now, "data_token": data_token}
+        entry["chain_ctx"] = {"ls_ref": ls, "data_token": tiles.token()}
         return entry, sched[2]
 
     def _single_run(self, entry, rows_f, cols_f, nb, device):
-        """One device: the row-sorted, bucket-padded schedule (sentinels at
-        the tail) and the padded inputs."""
-        from ..parallel.sharded_cov import _bucket
-        order = np.argsort(rows_f, kind="stable")
-        T_pad = _bucket(max(len(rows_f), 1))
-        rows_p = np.full(T_pad, nb, np.int32)
-        cols_p = np.full(T_pad, nb, np.int32)
-        rows_p[:len(rows_f)] = rows_f[order]
-        cols_p[:len(cols_f)] = cols_f[order]
+        """One device: the padded schedule and the padded inputs."""
+        from ..parallel.tile_structure import padded_schedule
+        rows_p, cols_p = padded_schedule(rows_f, cols_f, nb)
         ypad_mask = entry["ypad_mask"]
         return {"lml": entry["lml_for"](nb),
                 "static": (torch.as_tensor(rows_p).to(device),
@@ -366,18 +269,14 @@ class GPMarginalLikelihood:
         (``partition.tile_balanced_layout``; the per-rank width is pinned
         to a bucket at the first structure of these settings) and mapped
         onto equal-width ranks by a permuted padded block layout; the
-        schedule is row-sorted and partitioned so that rank r's segment
-        holds exactly the tiles of its rows; ``choose_halo`` picks the
-        exchange (``args["gp2Scale_halo_exchange"]``,
-        ``args["gp2Scale_dcn_ici_ratio"]``).  The rank keeps its segment,
-        its rows of the permuted y / mask / noise and of the plan; points
-        and mask stay whole.  Probes are drawn per logical point and
-        gathered through the layout, so a mesh run and a meshless one see
-        the same ``Z``."""
-        from ..parallel.partition import (apply_block_layout, choose_halo,
-                                          partition_schedule, permute_blocked,
+        schedule is then partitioned by ``tile_structure.rank_partition``.
+        The rank keeps its segment, its rows of the permuted y / mask /
+        noise and of the plan; points and mask stay whole.  Probes are
+        drawn per logical point and gathered through the layout, so a mesh
+        run and a meshless one see the same ``Z``."""
+        from ..parallel.partition import (apply_block_layout, permute_blocked,
                                           tile_balanced_layout)
-        from ..parallel.sharded_cov import _bucket
+        from ..parallel.tile_structure import rank_partition
         mesh, n_dev, nb, B = st["mesh"], st["n_dev"], st["nb"], st["B"]
         dtype, device = st["dtype"], self.data.device
         layout, W = tile_balanced_layout(rows_f, nb, n_dev,
@@ -413,28 +312,11 @@ class GPMarginalLikelihood:
                     "y_pad": perm("y_pad"), "ypad_mask": perm("ypad_mask"),
                     "noise_pad": perm("noise_pad", 1.0)}
             layout_idx = torch.as_tensor(np.where(layout >= 0, layout, 0))
-        W_eff = nb_eff // n_dev
-        order = np.argsort(rows_u, kind="stable")    # K1 takes sorted rows
-        rows_u, cols_u = rows_u[order], cols_u[order]
-        cnt = np.bincount(np.minimum(rows_u // W_eff, n_dev - 1),
-                          minlength=n_dev) if len(rows_u) else np.ones(1)
-        rows_p, cols_p, _, per = partition_schedule(
-            rows_u, cols_u, nb_eff, n_dev, pad_to=_bucket(int(cnt.max())))
-        choice = choose_halo(
-            rows_p, cols_p, nb_eff, mesh,
-            halo_mode=self.args.get("gp2Scale_halo_exchange", "auto"),
-            dcn_ratio=float(self.args.get("gp2Scale_dcn_ici_ratio", 8.0)),
-            bucket=max(8, W_eff // 8))
-        r = mesh.rank
-        seg = slice(r * per, (r + 1) * per)
-        rsl = slice(r * W_eff * B, (r + 1) * W_eff * B)
-        halo_S, halo, exchange = None, (), "allgather"
-        if choice is not None and choice["engaged"] is not None:
-            halo_S, exchange = choice["halo_S"], choice["engaged"]
-            halo = tuple(torch.as_tensor(p[r]).to(device) if p.dtype.kind
-                         == "i" else torch.as_tensor(p[r], dtype=dtype)
-                         .to(device) for p in choice["plan"]) + (
-                torch.as_tensor(choice["cols_remap"][seg]).to(device),)
+        part = rank_partition(rows_u, cols_u, nb_eff, B, mesh, self.args,
+                              dtype, device)
+        rsl = part["rsl"]
+        halo = part["plan"] + ((part["cols_remap"],)
+                               if part["halo_S"] is not None else ())
         ypad_mask, ym_m = entry["ypad_mask"], vecs["ypad_mask"]
 
         def probe(Z):
@@ -444,33 +326,27 @@ class GPMarginalLikelihood:
                 Z = Z.reshape(nb_eff * B, -1) * ym_m[:, None]
             return Z[rsl]
 
-        return {"lml": entry["lml_for"](nb_eff, halo_S),
-                "static": (torch.as_tensor(rows_p[seg]).to(device),
-                           torch.as_tensor(cols_p[seg]).to(device),
+        return {"lml": entry["lml_for"](nb_eff, part["halo_S"]),
+                "static": (torch.as_tensor(part["rows"]).to(device),
+                           torch.as_tensor(part["cols"]).to(device),
                            vecs["xb"], vecs["mask"], vecs["y_pad"][rsl],
                            vecs["ypad_mask"][rsl], vecs["noise_pad"][rsl]),
-                "halo": halo, "probe": probe, "exchange": exchange,
-                "schedule": (rows_p, cols_p, nb_eff, n_dev)}
+                "halo": halo, "probe": probe, "exchange": part["exchange"],
+                "schedule": part["schedule"]}
 
     def _chain_entry(self, theta):
         """The cached sparse program for an Adam chunk at ``theta``: reused
         while ``args`` still build it, the data is unchanged and the support
-        lengthscales stay within ``gp2Scale_filter_drift`` of the ones its
-        structure was built at, else refreshed by one value-and-gradient
-        evaluation at ``theta``."""
-        from ..parallel.sharded_cov import support_geometry
+        lengthscales stay inside the drift band of the ones its structure
+        was built at, else refreshed by one value-and-gradient evaluation
+        at ``theta``."""
+        tiles = self.data.tile_structure
         entry = self._sparse_cache.get(self._sparse_settings()["key"])
         ctx = entry.get("chain_ctx") if entry is not None else None
-        if ctx is not None:
-            ls, _ = support_geometry(self.prior, theta, self.args)
-            if ls is None:                 # unknown support: never drifts
-                ls = np.ones_like(ctx["ls_ref"])
-            tol = float(self.args.get("gp2Scale_filter_drift", 0.05))
-            if (ctx["data_token"] == (self.data.point_number,
-                                      self.data.generation)
-                    and np.all(np.abs(np.asarray(ls, np.float64)
-                                      / ctx["ls_ref"] - 1.0) <= tol)):
-                return entry
+        if (ctx is not None and ctx["data_token"] == tiles.token()
+                and tiles.within_drift(tiles.support(self.prior, theta)[0],
+                                       ctx["ls_ref"])):
+            return entry
         self._sparse_lml_eval(theta, want_grad=True)
         return self._sparse_cache[self._sparse_settings()["key"]]
 
@@ -952,10 +828,8 @@ class GPMarginalLikelihood:
 
     def __getstate__(self):
         state = dict(self.__dict__)
-        # the traced program's closures and the structure caches: rebuilt
-        # by the next evaluation
-        state.update(_sparse_cache={}, _candidate_cache=None,
-                     _filter_mask_cache=None)
+        # the traced program's closures: rebuilt by the next evaluation
+        state.update(_sparse_cache={})
         return config.host_state(state)
 
     def __setstate__(self, state):

@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from fvgp_tpu_torch import GP
-from fvgp_tpu_torch.models.gp_kv import GPkv
+from fvgp_tpu_torch.parallel.tile_structure import TileStructure
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
@@ -115,11 +115,11 @@ def _errors(a, b, ybar):
 def _drop_heaviest_tile_pair(monkeypatch):
     """Plant a fault: the committed solver's structure loses the live
     off-diagonal tile pair holding the most covariance."""
-    inner = GPkv._tile_structure
+    inner = TileStructure.exact
 
-    def dropped(self, x, ls, radius, B_, args):
-        rows, cols = inner(self, x, ls, radius, B_, args)
-        xw = np.asarray(x, np.float64) / ls
+    def dropped(self, ls, radius, B_):
+        rows, cols = inner(self, ls, radius, B_)
+        xw = np.asarray(self.data.x_data, np.float64) / ls
         off = np.flatnonzero(rows < cols)
 
         def mass(t):
@@ -133,7 +133,7 @@ def _drop_heaviest_tile_pair(monkeypatch):
                  | ((rows == cols[t]) & (cols == rows[t])))
         return rows[keep], cols[keep]
 
-    monkeypatch.setattr(GPkv, "_tile_structure", dropped)
+    monkeypatch.setattr(TileStructure, "exact", dropped)
 
 
 @pytest.mark.parametrize("N,n,fault", [(2048, 1, False), (2048, 37, False),

@@ -402,10 +402,11 @@ def test_invalidate_traced_drops_the_traced_caches(monkeypatch):
     ml, jml = tgp.marginal_likelihood, jgp.marginal_likelihood
     hps = np.array([1.0, 2.2, 1.9])
     before = ml.log_likelihood(hps)
-    assert ml._sparse_cache and ml._candidate_cache is not None
+    tiles = tgp.data.tile_structure
+    assert ml._sparse_cache and tiles._candidates is not None
     ml.invalidate_traced()
-    assert ml._sparse_cache == {} and ml._candidate_cache is None \
-        and ml._filter_mask_cache is None
+    assert ml._sparse_cache == {} and tiles._candidates is None \
+        and tiles._dead is None and tiles._exact is None
     jbefore = jml.log_likelihood(hps)
     jml.invalidate_traced()
     _close(ml.log_likelihood(hps), before)
