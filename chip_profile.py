@@ -46,7 +46,8 @@ the device totals are the comparable numbers.
 cell: one cell of the benchmark (``BENCHMARK.json``; the seed defaults to
 1): its data, system and warm-up as ``gpbench/run.py`` makes them, then the
 cell's traced requests in one such window, the program's counters per
-request (``fvgp_tpu_torch.utils.trace.counters()`` and K1's launches), the
+request (``fvgp_tpu_torch.utils.trace.counters()`` and K1's and K2's
+launches, with the share of K2's on the float32 wgmma body), the
 benchmark's ``assembly_ms`` and ``dense_linalg_ms`` kernels of the same
 window by the span that launched them, and one more request
 under ``torch.cuda.set_sync_debug_mode("warn")``: the synchronising calls
@@ -192,15 +193,24 @@ def cell(name, seed):
     reqs = [next(stream) for _ in range(int(settings["traced"]))]
     counts = []
 
+    def launch_counts():
+        return dict(program.counters(), k1=hk.chunked_spmm.launches,
+                    k2=hk.row_chunk_sums.launches)
+
     def counted(req):
-        before = dict(program.counters(), k1=hk.chunked_spmm.launches)
+        before = launch_counts()
         system.run(req)
-        after = dict(program.counters(), k1=hk.chunked_spmm.launches)
+        after = launch_counts()
         counts.append({k: v - before.get(k, 0) for k, v in after.items()})
 
     sp, launches, device = window(f"{name} (seed {seed})",
                                   [lambda r=r: counted(r) for r in reqs])
     print(f"  program counters per request: {counts}", flush=True)
+    k2 = sum(c.get("k2", 0) for c in counts)
+    if k2:
+        print(f"  K2 launches on the float32 wgmma body: "
+              f"{sum(c.get('k2_wgmma_launches', 0) for c in counts)} of {k2}",
+              flush=True)
     # the benchmark's outside measures of the same window, per request and
     # by the span that launched their kernels
     for label, pick in (("assembly_ms", is_assembly),

@@ -224,6 +224,11 @@ KERNEL_RTOL = 1e-4
 # K4 writes bfloat16: the two float32 sums may round to neighbouring
 # bfloat16 values (one ulp is 2^-8 relative) — 1e-2 of the output scale
 K4_BF16_RTOL = 1e-2
+# float32 K2 (3xTF32) against float64 sums of the same products: within
+# twice the plain float32 version's own error, or 1e-6 (about eight float32
+# ulps) of the output's scale where that error is smaller — the bound that
+# tests/test_torch_k2_body.py holds the body to
+K2_F64_RTOL = 1e-6
 # K3: the same exact differences in the same order; expf/exp and sqrt
 # differ from torch's by a few ulp — of the output scale (the signal
 # variance), 1e-5 in float32 and 1e-12 in float64
@@ -344,9 +349,10 @@ def ptxas_summary(build_log):
     import re
     out, name = [], None
     for line in build_log.splitlines():
-        m = re.search(r"Compiling entry function '\w*?((?:segment_mma|"
-                      r"chunk_sums_wgmma|dense_cov|tile_cov|tile_cov_vjp)"
-                      r"_kernelI\w*?E)Ev", line)
+        m = re.search(r"Compiling entry function '\w*?((?:segment_mma_"
+                      r"kernel_wgmma_tf32|(?:segment_mma|chunk_sums_wgmma|"
+                      r"dense_cov|tile_cov|tile_cov_vjp)_kernel)I\w*?E)Ev",
+                      line)
         if m:
             name = m.group(1)
         elif name and "spill" in line:
@@ -678,7 +684,9 @@ def k2_case(label, tiles, cc, Xb, B, C, n_chunks, nb):
     the library yardstick: one ``torch.einsum('ncij,ncjk->nik')`` over the
     tiles and the X blocks gathered through cols beforehand (the gather
     excluded, as the BSR build is for K1; cuBLAS writes the input dtype).
-    Bound: live tiles, cols, X and the float32 output, each once."""
+    Bound: live tiles, cols, X and the float32 output, each once.  Float32
+    also gives the kernel's and the plain version's errors against float64
+    (:func:`k2_float64_check`)."""
     import torch
 
     from fvgp_tpu_torch.ops import hopper_kernels as hk
@@ -688,6 +696,9 @@ def k2_case(label, tiles, cc, Xb, B, C, n_chunks, nb):
     err = float((got - ref).abs().max())
     scale = float(ref.abs().max())
     tol = KERNEL_RTOL * scale
+    err64 = (k2_float64_check(f"{label}, c={c_w}", got, ref,
+                              k2_float64(tiles, cc, Xb, B, C))
+             if tiles.dtype == torch.float32 else None)
     del got
     ms = cuda_ms(lambda: hk.row_chunk_sums(tiles, cc, Xb, B, C=C))
     plain_ms = cuda_ms(lambda: hk.row_chunk_sums_reference(tiles, cc, Xb, B,
@@ -705,10 +716,14 @@ def k2_case(label, tiles, cc, Xb, B, C, n_chunks, nb):
                       live * B * B * item + 4 * len(cc) + nb * B * c_w * item
                       + n_chunks * B * c_w * 4, 2 * live * B * B * c_w,
                       str(tiles.dtype)[6:], lib_ms)
+    if err64 is not None:
+        rec["float64_err"] = err64
+    f64_line = (f"; against float64 {json.dumps(err64)}" if err64 else "")
     log(f"K2 row_chunk_sums [{label}, B={B}, C={C}, c={c_w}, n_chunks="
         f"{n_chunks}]: max_abs_err {err:.3e} (tol {tol:.3e}); kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms "
-        f"(einsum over gathered X, max_abs_err {lib_err:.3e}); {share(rec)}")
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+        f"{lib_ms:.4f} ms (einsum over gathered X, max_abs_err "
+        f"{lib_err:.3e}); {share(rec)}{f64_line}")
     if not (err <= tol):
         raise AssertionError(f"K2 ({label}) disagrees with its plain "
                              f"version: {err} > {tol}")
@@ -716,6 +731,31 @@ def k2_case(label, tiles, cc, Xb, B, C, n_chunks, nb):
         raise AssertionError(f"the K2 library yardstick ({label}) computes "
                              f"another function: {lib_err}")
     return rec
+
+
+def k2_float64_check(label, got, plain, f64):
+    """Float32 K2's max error against float64, and the plain version's;
+    raises past the limit of :data:`K2_F64_RTOL`."""
+    err = {"kernel": float((got.double() - f64).abs().max()),
+           "plain": float((plain.double() - f64).abs().max()),
+           "scale": float(f64.abs().max())}
+    lim = max(2.0 * err["plain"], K2_F64_RTOL * err["scale"])
+    if not err["kernel"] <= lim:
+        raise AssertionError(f"float32 K2 ({label}) is less accurate than "
+                             f"float32 against float64: {err}, limit {lim}")
+    return err
+
+
+def k2_float64(tiles, cc, Xb, B, C):
+    """K2's function in float64, a chunk at a time."""
+    import torch
+    nb = Xb.shape[0]
+    out = []
+    for s in range(0, tiles.shape[0], 512 * C):
+        t = tiles[s:s + 512 * C].double()
+        xg = Xb[cc[s:s + 512 * C].long().clamp(max=nb - 1)].double()
+        out.append(torch.bmm(t, xg).view(-1, C, B, Xb.shape[2]).sum(1))
+    return torch.cat(out)
 
 
 def kernel_phase(device):
@@ -1806,12 +1846,78 @@ def committed_posterior_phase(N):
                              f"{launches}")
     if not counts.get("cg_columns", 0) < 512 * counts["cg_iterations"]:
         raise AssertionError(f"the committed CG dropped no column: {counts}")
+    # every K2 launch of the float32 request counted on the wgmma body
+    if counts.get("k2_wgmma_launches", 0) != launches["row_chunk_sums"]:
+        raise AssertionError(f"the committed posterior's K2 launches are not "
+                             f"all on its wgmma body: {counts}, {launches}")
     # the cell's variance limit is 1.5e-4: a misplaced or dropped column
     # reads O(1)
     if not err8 <= 1e-4:
         raise AssertionError(f"the compacted variance solve disagrees with "
                              f"a narrow one: {err8}")
+    log("K2 at the committed N=1M shape (float32, C = 8, c = 512, sliced "
+        "as the solver slices it): " + json.dumps(committed_k2_record(gp)))
     return launches
+
+
+def committed_k2_record(gp, c=512):
+    """One product of the committed solver's operator at the variance
+    solve's first width, on its own tiles and schedule, in the slices that
+    ``_spmv_scan_fused`` launches: float32 K2's time, the bound and share,
+    the plain version's time, the kernel's max error against the plain
+    version (and, on the first four slices, against float64, beside the
+    plain version's).  The padding tiles (column nb), which the kernel
+    skips, must be exactly zero."""
+    import torch
+
+    from fvgp_tpu_torch.ops import hopper_kernels as hk
+    from fvgp_tpu_torch.ops.sparse_lml import _assembly_chunk
+    ctx = gp.kv._fast_solver_ctx
+    tiles, cols = ctx["tiles"], ctx["scols"]
+    B, C = tiles.shape[1], 8
+    nb = ctx["n_pad"] // B
+    n_chunks = tiles.shape[0] // C
+    M = _assembly_chunk(n_chunks, target=min(max(32, (256 << 20)
+                                                 // (B * c * 4)), 4096))
+    gen = torch.Generator().manual_seed(7)
+    Xb = torch.randn((nb, B, c), generator=gen).cuda()
+    slices = [(tiles[s * C:(s + M) * C], cols[s * C:(s + M) * C])
+              for s in range(0, n_chunks, M)]
+    err, scale, pad_tiles, pad_nonzero, err64 = 0.0, 0.0, 0, 0, []
+    for i, (t, cc) in enumerate(slices):
+        pad = cc >= nb
+        pad_tiles += int(pad.sum())
+        pad_nonzero += int(torch.count_nonzero(t[pad]))
+        got = hk.row_chunk_sums(t, cc, Xb, B, C=C)
+        ref = hk.row_chunk_sums_reference(t, cc, Xb, B, C)
+        err = max(err, float((got - ref).abs().max()))
+        scale = max(scale, float(ref.abs().max()))
+        if i < 4:
+            err64.append(k2_float64_check(f"N=1M slice {i}", got, ref,
+                                          k2_float64(t, cc, Xb, B, C)))
+        del got, ref
+    if pad_nonzero:
+        raise AssertionError(f"the committed solver's padding tiles are not "
+                             f"zero: {pad_nonzero} nonzero entries in "
+                             f"{pad_tiles} tiles")
+    if not err <= KERNEL_RTOL * scale:
+        raise AssertionError(f"K2 at the committed shape disagrees with its "
+                             f"plain version: {err} > {KERNEL_RTOL * scale}")
+    ms = cuda_ms(lambda: [hk.row_chunk_sums(t, cc, Xb, B, C=C)
+                          for t, cc in slices], reps=3, warmup=1)
+    plain_ms = cuda_ms(lambda: [hk.row_chunk_sums_reference(
+        t, cc, Xb, B, C) for t, cc in slices], reps=1, warmup=1)
+    live = int((cols < nb).sum())
+    bound_ms, bound_by = bound(live * B * B * 4 + 4 * len(cols)
+                               + nb * B * c * 4 + n_chunks * B * c * 4,
+                               3 * 2 * live * B * B * c, "tf32")
+    return {"slices": len(slices), "chunks_per_slice": M, "live_tiles": live,
+            "padding_tiles": pad_tiles, "padding_nonzero": pad_nonzero,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "share": 100.0 * bound_ms / ms,
+            "max_abs_err": err, "tol": KERNEL_RTOL * scale,
+            "float64_err": {k: max(e[k] for e in err64)
+                            for k in ("kernel", "plain", "scale")}}
 
 
 def counted(fn):

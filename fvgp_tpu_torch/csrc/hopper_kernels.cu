@@ -30,8 +30,8 @@
 //   row-aligned schedule; out[s] is the chunk's float32 partial sum.  Replaces
 //   the Pallas row_chunk_sums (_chunk_sums_call).
 //
-// K1, K4 and float32 K2: segment_mma_kernel.  k = 1 + probes is narrow (17 on
-// the training path), so K1 is bound by the tile stream: T * B * B elements
+// K1 and K4: segment_mma_kernel.  k = 1 + probes is narrow (17 on the
+// training path), so K1 is bound by the tile stream: T * B * B elements
 // read once against ~2 k operations each, far below the tensor cores' ridge.
 // One thread block owns a 64-row slice of one segment and a column tile of
 // 8 * NF columns (k = 17 is one tile of 3 n8 fragments), writes it once (no
@@ -43,10 +43,43 @@
 // 16 rows: bfloat16 on mma.sync m16n8k16 (operands by ldmatrix), float32 on
 // mma.sync m16n8k8 with a 3xTF32 split (a = hi + lo, both rounded to TF32;
 // lo*hi + hi*lo + hi*hi summed in float32, a fresh partial per stage), which
-// keeps float32 accuracy where one TF32 pass keeps ~3 digits.
-// wgmma's TF32 form wants both operands K-major and X blocks are N-major, so
-// float32 stays on mma.sync, whose fragments are read from shared memory in
-// any layout.
+// keeps float32 accuracy where one TF32 pass keeps ~3 digits.  At these
+// widths mma.sync is the right tool: its fragments are read from shared
+// memory in any layout, so X needs no split copy, and the bytes, not the
+// products, set the time.
+//
+// Float32 K2: segment_mma_kernel_wgmma_tf32.  The committed posterior's
+// products are wide (c = 512 columns narrowing to 8), so the 3xTF32
+// operations set its bound: 3 * 2 * B * B * c a tile against 4 * B * B
+// bytes.  On mma.sync every warp split its X fragments again, every column
+// tile split the tile again, and a block of 64 rows x 64 columns streamed
+// each tile slice to c / 64 blocks: 15.5% of the bound at c = 128-512.
+// This body issues wgmma m64nNk8 (N <= 128, the fewest column tiles that
+// cover c) with the same arithmetic: a = hi + lo rounded as split_tf32
+// rounds, lo*hi + hi*lo + hi*hi into a fresh float32 partial each 32-deep
+// stage (scale-d 0 on its first product), added to the sum with
+// round-to-nearest adds.  wgmma's TF32 form reads shared-memory operands
+// K-major only: the tile slice is K-major as stored and X's slice is
+// N-major.  So the tile is the register operand A (each consumer thread
+// loads its two rows' 8 values as two 16-byte reads and splits them), and
+// each stage's X slice is split once, into hi and lo buffers written
+// K-major and 128-byte swizzled, which both consumer warpgroups (the
+// block's 128 rows) read as operand B.  A persistent block of two consumer
+// warpgroups and a producer warp walks over (chunk, row group, column tile)
+// items; the producer reads the chunk's cols, skips its padding tiles (cols
+// >= nb, zero by the committed solver's construction) and issues TMA copies
+// of the tile slice and of the X slice at its column block into a 4-stage
+// mbarrier ring.  While the tensor cores work on stage g, the consumers
+// split stage g + 1's X slice into the other split buffer and load its A
+// fragments; the producer's warpgroup gives its registers to them
+// (setmaxnreg 40 / 232), which hold the sum, the partial and two stages' A
+// fragments.  What bounds it on this card is shared memory: per stage the
+// copies land 32 KB, the split reads 16 and writes 32, the A loads read 16
+// and the products read B 96 KB (2 warpgroups x 12 x 4 KB), and the time
+// follows those bytes (measured at c = 512 on the N = 50k structure: 1.59
+// ms as it is, 0.82 ms without the products, 1.09 ms with one product of
+// three, as bytes of 192, 96 and 128 KB a stage predict; PERF.md, section
+// 6).
 //
 // Bfloat16 K2: chunk_sums_wgmma_kernel.  A chunk is a GEMM of B x (C * B) @
 // (C * B) x c (128 x 1024 @ 1024 x 128 on the posterior path), far above the
@@ -275,7 +308,7 @@ __device__ __forceinline__ void mma_stage(const float* sA, const float* sX, int 
 template <typename T, typename OutT, int NF>
 __global__ void __launch_bounds__(kMmaThreads, 4)
 segment_mma_kernel(const T* __restrict__ tiles, const T* __restrict__ X,
-                   const int* __restrict__ seg_ptr, const int* __restrict__ order, int chunk,
+                   const int* __restrict__ seg_ptr, const int* __restrict__ order,
                    const int* __restrict__ cols, OutT* __restrict__ out, int B, int k,
                    int ldx, int nb, long long x_rows, long long out_rows, int n_row_tiles,
                    int n_col_tiles) {
@@ -299,14 +332,7 @@ segment_mma_kernel(const T* __restrict__ tiles, const T* __restrict__ X,
   const int row0 = rt * kMmaRows;
   const int col0 = ct * NT;
   if (seg * B + row0 >= out_rows) return;   // a slice wholly past the ragged end
-  long long t_begin, t_end;
-  if (seg_ptr != nullptr) {
-    t_begin = seg_ptr[seg];
-    t_end = seg_ptr[seg + 1];
-  } else {
-    t_begin = seg * chunk;
-    t_end = t_begin + chunk;
-  }
+  const long long t_begin = seg_ptr[seg], t_end = seg_ptr[seg + 1];
   // slices past B (bfloat16 with B % 64 == 32) are zero-filled
   const int kslices = (B + KD - 1) / KD;
   const long long n_steps = (t_end - t_begin) * kslices;
@@ -410,7 +436,7 @@ cudaError_t resident_blocks(Kernel kern, int threads, int smem, long long* cap) 
 
 template <typename T, typename OutT, int NF>
 int launch_mma_nf(const void* tiles, const void* X, const int* seg_ptr, const int* order,
-                  int chunk, const int* cols, void* out, long long n_seg, int B, int k,
+                  const int* cols, void* out, long long n_seg, int B, int k,
                   int ldx, int nb, long long x_rows, long long out_rows,
                   cudaStream_t stream) {
   auto kern = segment_mma_kernel<T, OutT, NF>;
@@ -433,7 +459,7 @@ int launch_mma_nf(const void* tiles, const void* X, const int* seg_ptr, const in
     if (blocks > 2 * cap) order = nullptr;
   }
   kern<<<static_cast<unsigned>(blocks), kMmaThreads, smem, stream>>>(
-      static_cast<const T*>(tiles), static_cast<const T*>(X), seg_ptr, order, chunk, cols,
+      static_cast<const T*>(tiles), static_cast<const T*>(X), seg_ptr, order, cols,
       static_cast<OutT*>(out), B, k, ldx, nb, x_rows, out_rows, n_row_tiles, n_col_tiles);
   return static_cast<int>(cudaGetLastError());
 }
@@ -443,7 +469,7 @@ int launch_mma_nf(const void* tiles, const void* X, const int* seg_ptr, const in
 // them is read as zero and not written.
 template <typename T, typename OutT>
 int launch_mma(const void* tiles, const void* X, const int* seg_ptr, const int* order,
-               int chunk, const int* cols, void* out, long long n_seg, int B, int k, int ldx,
+               const int* cols, void* out, long long n_seg, int B, int k, int ldx,
                int nb, long long x_rows, long long out_rows, cudaStream_t s) {
   if (B < 32 || B % 32 != 0 || k < 1 || ldx < k || ldx % 8 != 0 || nb < 1 || n_seg < 0 ||
       x_rows < 0 || x_rows > static_cast<long long>(nb) * B || out_rows < 0 ||
@@ -451,8 +477,8 @@ int launch_mma(const void* tiles, const void* X, const int* seg_ptr, const int* 
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_seg == 0 || out_rows == 0) return static_cast<int>(cudaSuccess);
 #define FVGP_LAUNCH_MMA(NF)                                                                  \
-  launch_mma_nf<T, OutT, NF>(tiles, X, seg_ptr, order, chunk, cols, out, n_seg, B, k, ldx, nb, \
-                             x_rows, out_rows, s)
+  launch_mma_nf<T, OutT, NF>(tiles, X, seg_ptr, order, cols, out, n_seg, B, k, ldx, nb, x_rows, \
+                             out_rows, s)
   switch ((k + 7) / 8) {
     case 1: return FVGP_LAUNCH_MMA(1);
     case 2: return FVGP_LAUNCH_MMA(2);
@@ -762,20 +788,21 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// 3-D bfloat16 map over a row-major (d2, d1, d0) array; box (1, box1, 64),
-// 128-byte swizzle, zeros past the bounds.  Built per call: pointers change.
-int encode_3d(CUtensorMap* map, const void* ptr, uint64_t d0, uint64_t d1, uint64_t d2,
-              uint32_t box1) {
+// 3-D map over a row-major (d2, d1, d0) array of bfloat16 or float32; box
+// (1, box1, box0), zeros past the bounds.  Built per call: pointers change.
+int encode_3d(CUtensorMap* map, const void* ptr, bool f32, uint64_t d0, uint64_t d1,
+              uint64_t d2, uint32_t box0, uint32_t box1, CUtensorMapSwizzle swizzle) {
   const EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const uint64_t item = f32 ? 4 : 2;
   const cuuint64_t dims[3] = {d0, d1, d2};
-  const cuuint64_t strides[2] = {d0 * 2, d0 * d1 * 2};
-  const cuuint32_t box[3] = {64, box1, 1};
+  const cuuint64_t strides[2] = {d0 * item, d0 * d1 * item};
+  const cuuint32_t box[3] = {box0, box1, 1};
   const cuuint32_t estr[3] = {1, 1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-                         strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = enc(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                         3, const_cast<void*>(ptr), dims, strides, box, estr,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -815,11 +842,502 @@ int launch_chunk_sums_bf16(const void* tiles, const void* X, const int* cols, fl
                            cudaStream_t s) {
   const int WG = B > 64 ? 2 : 1;
   CUtensorMap ta, tx;
-  int err = encode_3d(&ta, tiles, B, B, static_cast<uint64_t>(n_chunks) * C, 64 * WG);
-  if (err == 0) err = encode_3d(&tx, X, ldx, B, nb, 64);
+  int err = encode_3d(&ta, tiles, false, B, B, static_cast<uint64_t>(n_chunks) * C, 64,
+                      64 * WG, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == 0) err = encode_3d(&tx, X, false, ldx, B, nb, 64, 64, CU_TENSOR_MAP_SWIZZLE_128B);
   if (err != 0) return err;
   if (WG == 2) return launch_wgmma_n<2>(ta, tx, cols, out, n_chunks, C, nb, B, c, ldx, s);
   return launch_wgmma_n<1>(ta, tx, cols, out, n_chunks, C, nb, B, c, ldx, s);
+}
+
+// ---------------------------------------------------------------------------
+// Float32 K2: segment_mma_kernel_wgmma_tf32 (TMA + mbarrier ring, 3xTF32 on wgmma)
+// ---------------------------------------------------------------------------
+
+constexpr int kTfStages = 4;      // ring stages
+constexpr int kTfDepth = 32;      // contraction depth of a stage: 128 bytes of float32
+constexpr int kTfRows = 128;      // output rows of a work item: two consumer warpgroups
+constexpr int kTfThreads = 384;   // two consumer warpgroups and the producer's
+constexpr int kTfMaxN = 128;      // widest column tile (the partial and the sum in registers)
+
+// Shared memory of the body for a column tile of N: a ring of kTfStages
+// (tile slice: up to 128 rows x 32 deep, 128-byte swizzled; X slice: 32 x N
+// as stored), two split buffers, each an X slice's hi and lo parts K-major
+// (N rows of 128 bytes, 128-byte swizzled, wgmma's B operand), the barriers.
+template <int N>
+struct TfLayout {
+  static constexpr int TILE = kTfRows * kTfDepth * 4;
+  static constexpr int X = kTfDepth * N * 4;
+  static constexpr int STAGE = TILE + X;
+  static constexpr int SPLIT = N * 128;
+  static constexpr int BARS = 8 * (2 * kTfStages + 4);
+  static constexpr int SMEM = kTfStages * STAGE + 4 * SPLIT + BARS + 1024;
+};
+
+// D (64 x N, float32, registers) (+)= A (64 x 8, tf32 registers) @ B (8 x N,
+// K-major in shared memory); scale_d 0 overwrites D.
+__device__ __forceinline__ void wgmma_tf32_m64n8(float (&d)[4], const uint32_t (&a)[4],
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {"
+      " %0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_m64n16(float (&d)[8], const uint32_t (&a)[4],
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_m64n24(float (&d)[12], const uint32_t (&a)[4],
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k8.f32.tf32.tf32 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11}, "
+      "{%12, %13, %14, %15}, %16, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_m64n32(float (&d)[16], const uint32_t (&a)[4],
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_m64n48(float (&d)[24], const uint32_t (&a)[4],
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_m64n64(float (&d)[32], const uint32_t (&a)[4],
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_m64n96(float (&d)[48], const uint32_t (&a)[4],
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_m64n128(float (&d)[64], const uint32_t (&a)[4],
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], const uint32_t (&a)[4],
+                                           uint64_t db, int scale_d) {
+  if constexpr (N == 8) wgmma_tf32_m64n8(d, a, db, scale_d);
+  else if constexpr (N == 16) wgmma_tf32_m64n16(d, a, db, scale_d);
+  else if constexpr (N == 24) wgmma_tf32_m64n24(d, a, db, scale_d);
+  else if constexpr (N == 32) wgmma_tf32_m64n32(d, a, db, scale_d);
+  else if constexpr (N == 48) wgmma_tf32_m64n48(d, a, db, scale_d);
+  else if constexpr (N == 64) wgmma_tf32_m64n64(d, a, db, scale_d);
+  else if constexpr (N == 96) wgmma_tf32_m64n96(d, a, db, scale_d);
+  else wgmma_tf32_m64n128(d, a, db, scale_d);
+}
+
+// Keeps a register's value where the compiler put it until this point: the
+// asynchronous wgmma reads its A fragments and writes its partial after the
+// instruction that issued it, which the compiler does not see.
+__device__ __forceinline__ void reg_fence(float& r) { asm volatile("" : "+f"(r) :: "memory"); }
+__device__ __forceinline__ void reg_fence(uint32_t& r) { asm volatile("" : "+r"(r) :: "memory"); }
+
+// Split one stage's X slice (32 deep x N, as copied) into the hi and lo
+// buffers, K-major for wgmma.  The A fragments hold, at step kk, the
+// contraction indices 8 t + 2 kk (columns t) and 8 t + 2 kk + 1 (columns
+// t + 4) of thread t in its quad (t = lane % 4): the sum runs over the same
+// products in another order, and each thread reads its 8 values of a tile
+// row as two 16-byte loads.  So row n of a split buffer holds X[8 q + r][n]
+// at 16-byte chunk r, element q, the chunk swizzled by n % 8.  Warpgroup wg
+// splits the rows r = 4 wg .. 4 wg + 3 of every chunk: a warp reads 32
+// neighbouring floats and writes 16-byte chunks that fall in distinct banks.
+template <int N>
+__device__ __forceinline__ void split_x_slice(const float* xs, unsigned char* hi,
+                                              unsigned char* lo, int wg, int tid) {
+#pragma unroll
+  for (int p0 = 0; p0 < 4 * N; p0 += 128) {
+    const int p = wg * 4 * N + p0 + tid;
+    if (4 * N % 128 != 0 && p >= (wg + 1) * 4 * N) break;
+    const int n = p % N, r = p / N;
+    uint32_t h[4], l[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) split_tf32(xs[(r + 8 * q) * N + n], h[q], l[q]);
+    const int off = n * 128 + ((r ^ (n & 7)) << 4);
+    *reinterpret_cast<uint4*>(hi + off) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(lo + off) = make_uint4(l[0], l[1], l[2], l[3]);
+  }
+}
+
+// Work item w = ((chunk * n_rg) + row group) * n_ct + column tile: the column
+// tiles of one chunk are neighbours, so their tile slices come from L2.  A
+// tile whose column block is nb or past it is padding (zero by the caller's
+// contract) and is skipped by the producer and the consumers alike.  Warps
+// 0-7 are the consumer warpgroups, warp 8 the producer; its warpgroup gives
+// its registers to the consumers (setmaxnreg), which hold the sum, the
+// stage's partial and two stages' A fragments.
+template <int N>
+__global__ void __launch_bounds__(kTfThreads, 1)
+segment_mma_kernel_wgmma_tf32(const __grid_constant__ CUtensorMap tm_tiles,
+                              const __grid_constant__ CUtensorMap tm_x,
+                              const int* __restrict__ cols, float* __restrict__ out,
+                              long long n_chunks, int C, int nb, int B, int c, int box_rows,
+                              int n_rg, int n_ct) {
+  using L = TfLayout<N>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // 128-byte swizzle repeats every 1024 bytes: align the ring to it
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);
+  const uint32_t split = base + kTfStages * L::STAGE;   // [buffer][hi, lo]
+  const uint32_t full = split + 4 * L::SPLIT;
+  const uint32_t empty = full + 8 * kTfStages;
+  const uint32_t sfull = empty + 8 * kTfStages;        // split buffer written
+  const uint32_t sempty = sfull + 16;                   // split buffer read
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kTfStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);   // one arrival per consumer warp
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(sfull + 8 * b, 8);
+      mbar_init(sempty + 8 * b, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int nks = B / kTfDepth;
+  const long long n_work = n_chunks * n_rg * n_ct;
+
+  if (warp >= 8) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp > 8) return;
+    // producer warp: lane 0 issues the copies, the warp reads cols
+    const uint32_t tx_bytes = box_rows * kTfDepth * 4 + L::X;
+    long long it = 0;
+    for (long long w = blockIdx.x; w < n_work; w += gridDim.x) {
+      const int ct = static_cast<int>(w % n_ct);
+      const int rg = static_cast<int>((w / n_ct) % n_rg);
+      const long long chunk = w / n_ct / n_rg;
+      for (int j0 = 0; j0 < C; j0 += 32) {
+        const long long t0 = chunk * C + j0;
+        const int cj = j0 + lane < C ? cols[t0 + lane] : nb;
+        const int jn = min(32, C - j0);
+        for (int jj = 0; jj < jn; ++jj) {
+          const int col = __shfl_sync(0xffffffffu, cj, jj);
+          if (col >= nb) continue;
+          for (int ks = 0; ks < nks; ++ks, ++it) {
+            if (lane == 0) {
+              const int s = static_cast<int>(it % kTfStages);
+              const uint32_t ph = static_cast<uint32_t>(it / kTfStages) & 1u;
+              mbar_wait(empty + 8 * s, ph ^ 1u);
+              mbar_expect_tx(full + 8 * s, tx_bytes);
+              const uint32_t sa = base + s * L::STAGE;
+              tma_load_3d(sa, &tm_tiles, ks * kTfDepth, rg * kTfRows, static_cast<int>(t0 + jj),
+                          full + 8 * s);
+              tma_load_3d(sa + L::TILE, &tm_x, ct * N, ks * kTfDepth, col, full + 8 * s);
+            }
+            __syncwarp();
+          }
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+
+  // consumer warpgroup wg: rows wg * 64 .. + 63 of the item's 128; this
+  // thread's A rows r0 and r0 + 8
+  const int wg = warp / 4, tid = threadIdx.x % 128;
+  const int r0 = wg * 64 + (warp % 4) * 16 + lane / 4;
+  const int q4 = lane % 4;
+  float acc[N / 2], part[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) part[i] = 0.f;
+  uint32_t ah0[4][4], al0[4][4], ah1[4][4], al1[4][4];
+
+  // stage g's X slice split into split buffer g % 2, and its tile slice's
+  // A fragments into (ah, al): rows r0 and r0 + 8, contraction indices
+  // 8 q4 .. 8 q4 + 7 (two 16-byte chunks of the 128-byte swizzled row);
+  // then the ring slot is free
+  auto load_stage = [&](long long g, uint32_t (&ah)[4][4], uint32_t (&al)[4][4]) {
+    const int s = static_cast<int>(g % kTfStages), b = static_cast<int>(g & 1);
+    mbar_wait(full + 8 * s, static_cast<uint32_t>(g / kTfStages) & 1u);
+    // the buffer's last readers (stage g - 2's products) are done
+    mbar_wait(sempty + 8 * b, (static_cast<uint32_t>(g >> 1) & 1u) ^ 1u);
+    const unsigned char* slot = gbase + s * L::STAGE;
+    unsigned char* hi = gbase + (split - base) + 2 * b * L::SPLIT;
+    split_x_slice<N>(reinterpret_cast<const float*>(slot + L::TILE), hi, hi + L::SPLIT, wg,
+                     tid);
+    // generic-proxy stores, read next by wgmma through the async proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    float v[2][8];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + 8 * h;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float4 f = *reinterpret_cast<const float4*>(
+            slot + row * 128 + (((2 * q4 + e) ^ (row & 7)) << 4));
+        v[h][4 * e] = f.x;
+        v[h][4 * e + 1] = f.y;
+        v[h][4 * e + 2] = f.z;
+        v[h][4 * e + 3] = f.w;
+      }
+    }
+    __syncwarp();
+    if (lane == 0) {
+      mbar_arrive(sfull + 8 * b);
+      mbar_arrive(empty + 8 * s);   // this warp is done with the slot
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      split_tf32(v[0][2 * kk], ah[kk][0], al[kk][0]);
+      split_tf32(v[1][2 * kk], ah[kk][1], al[kk][1]);
+      split_tf32(v[0][2 * kk + 1], ah[kk][2], al[kk][2]);
+      split_tf32(v[1][2 * kk + 1], ah[kk][3], al[kk][3]);
+    }
+  };
+
+  // stage g's products on (ah, al) and the split buffer; stage g + 1's
+  // loads (into (nh, nl)) while the tensor cores work
+  auto run_stage = [&](long long g, bool more, uint32_t (&ah)[4][4], uint32_t (&al)[4][4],
+                       uint32_t (&nh)[4][4], uint32_t (&nl)[4][4]) {
+    const int b = static_cast<int>(g & 1);
+    mbar_wait(sfull + 8 * b, static_cast<uint32_t>(g >> 1) & 1u);
+    const uint32_t bh = split + 2 * b * L::SPLIT;
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    // a fresh partial each stage (scale-d 0 on its first product): the
+    // stage's lo.hi and hi.lo products first, then its hi.hi products.  The
+    // tensor cores truncate each sum into the partial to its float32 ulp,
+    // so the eight small products cost ulps of a small partial and only
+    // the four large ones ulps of the stage's whole
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_tf32<N>(part, al[kk], sw128_desc(bh + 32 * kk, 16, 1024), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_tf32<N>(part, ah[kk], sw128_desc(bh + L::SPLIT + 32 * kk, 16, 1024), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_tf32<N>(part, ah[kk], sw128_desc(bh + 32 * kk, 16, 1024), 1);
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    if (more) load_stage(g + 1, nh, nl);
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        reg_fence(ah[kk][i]);
+        reg_fence(al[kk][i]);
+      }
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) reg_fence(part[i]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(sempty + 8 * b);
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) acc[i] += part[i];
+  };
+
+  long long it = 0;
+  for (long long w = blockIdx.x; w < n_work; w += gridDim.x) {
+    const int ct = static_cast<int>(w % n_ct);
+    const int rg = static_cast<int>((w / n_ct) % n_rg);
+    const long long chunk = w / n_ct / n_rg;
+    // the producer's sequence: the chunk's live tiles, nks slices each
+    int n_live = 0;
+    for (int j0 = 0; j0 < C; j0 += 32) {
+      const bool live = j0 + lane < C && cols[chunk * C + j0 + lane] < nb;
+      n_live += __popc(__ballot_sync(0xffffffffu, live));
+    }
+    const int steps = n_live * nks;
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+    if (steps > 0) load_stage(it, ah0, al0);
+    // two stages a trip, so the A fragments alternate without moves
+    for (int st = 0; st < steps; st += 2) {
+      run_stage(it, st + 1 < steps, ah0, al0, ah1, al1);
+      ++it;
+      if (st + 1 < steps) {
+        run_stage(it, st + 2 < steps, ah1, al1, ah0, al0);
+        ++it;
+      }
+    }
+    // accumulator fragment: acc[i] sits at row 16 * (warp % 4) + lane / 4 + 8 *
+    // ((i / 2) % 2) of the warpgroup's 64, column 8 * (i / 4) + 2 * (lane % 4) + i % 2
+    float* o = out + chunk * static_cast<long long>(B) * c;
+    const bool pairs = c % 2 == 0;
+#pragma unroll
+    for (int i = 0; i < N / 2; i += 2) {
+      const int col = ct * N + (i / 4) * 8 + 2 * q4;
+      const int row = rg * kTfRows + r0 + 8 * ((i / 2) % 2);
+      if (row < B && col < c) {
+        float* p = o + static_cast<long long>(row) * c + col;
+        if (pairs) {
+          *reinterpret_cast<float2*>(p) = make_float2(acc[i], acc[i + 1]);
+        } else {
+          p[0] = acc[i];
+          if (col + 1 < c) p[1] = acc[i + 1];
+        }
+      }
+    }
+  }
+}
+
+template <int N>
+int launch_tf32(const CUtensorMap& ta, const void* X, const int* cols, float* out,
+                long long n_chunks, int C, int nb, int B, int c, int ldx, int box_rows,
+                int n_ct, cudaStream_t stream) {
+  CUtensorMap tx;
+  int e = encode_3d(&tx, X, true, ldx, B, nb, N, kTfDepth, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (e != 0) return e;
+  auto kern = segment_mma_kernel_wgmma_tf32<N>;
+  const int smem = TfLayout<N>::SMEM;
+  const int threads = kTfThreads;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  long long cap = 0;
+  if ((err = resident_blocks(kern, threads, smem, &cap)) != cudaSuccess)
+    return static_cast<int>(err);
+  const int n_rg = (B + kTfRows - 1) / kTfRows;
+  const long long n_work = n_chunks * n_rg * n_ct;
+  const long long grid = n_work < cap ? n_work : cap;
+  kern<<<static_cast<unsigned>(grid), threads, smem, stream>>>(
+      ta, tx, cols, out, n_chunks, C, nb, B, c, box_rows, n_rg, n_ct);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The fewest column tiles of at most 128 that cover c, each of the narrowest
+// instantiated width that holds its share.
+int launch_chunk_sums_tf32(const void* tiles, const void* X, const int* cols, float* out,
+                           long long n_chunks, int C, int nb, int B, int c, int ldx,
+                           cudaStream_t s) {
+  const int n_ct = (c + kTfMaxN - 1) / kTfMaxN;
+  const int w = (c + n_ct - 1) / n_ct;
+  const int box_rows = B < kTfRows ? B : kTfRows;
+  CUtensorMap ta;
+  const int err = encode_3d(&ta, tiles, true, B, B, static_cast<uint64_t>(n_chunks) * C,
+                            kTfDepth, box_rows, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != 0) return err;
+#define FVGP_TF32(NN)                                                                 \
+  if (w <= NN)                                                                        \
+    return launch_tf32<NN>(ta, X, cols, out, n_chunks, C, nb, B, c, ldx, box_rows, n_ct, s);
+  FVGP_TF32(8)
+  FVGP_TF32(16)
+  FVGP_TF32(24)
+  FVGP_TF32(32)
+  FVGP_TF32(48)
+  FVGP_TF32(64)
+  FVGP_TF32(96)
+  FVGP_TF32(128)
+#undef FVGP_TF32
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // ---------------------------------------------------------------------------
@@ -1475,16 +1993,18 @@ extern "C" int fvgp_chunked_spmm(const void* tiles, const void* X, const int* ro
   const long long n = static_cast<long long>(nb) * B;
   const long long n_out = static_cast<long long>(nb_out) * B;
   if (dtype == 0)
-    return launch_mma<float, float>(tiles, X, row_ptr, order, 0, cols, out, nb_out, B, k, ldx,
+    return launch_mma<float, float>(tiles, X, row_ptr, order, cols, out, nb_out, B, k, ldx,
                                     nb, n, n_out, s);
   if (dtype == 1)
-    return launch_mma<bf16, float>(tiles, X, row_ptr, order, 0, cols, out, nb_out, B, k, ldx,
+    return launch_mma<bf16, float>(tiles, X, row_ptr, order, cols, out, nb_out, B, k, ldx,
                                    nb, n, n_out, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // K2: X is (nb, B, ldx), out (n_chunks, B, c) float32.  The dtype picks the
-// body: bfloat16 the wgmma kernel, float32 the 3xTF32 segment kernel.
+// wgmma body: float32 segment_mma_kernel_wgmma_tf32, bfloat16
+// chunk_sums_wgmma_kernel.  Padding tiles (cols >= nb) must be zero: the
+// float32 body skips them, the bfloat16 body multiplies them by X's last block.
 extern "C" int fvgp_row_chunk_sums(const void* tiles, const void* X, const int* cols,
                                    float* out, long long n_chunks, int C, int nb, int B,
                                    int c, int ldx, int dtype, void* stream) {
@@ -1494,8 +2014,7 @@ extern "C" int fvgp_row_chunk_sums(const void* tiles, const void* X, const int* 
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_chunks == 0) return static_cast<int>(cudaSuccess);
   if (dtype == 0)
-    return launch_mma<float, float>(tiles, X, nullptr, nullptr, C, cols, out, n_chunks, B, c,
-                                    ldx, nb, static_cast<long long>(nb) * B, n_chunks * B, s);
+    return launch_chunk_sums_tf32(tiles, X, cols, out, n_chunks, C, nb, B, c, ldx, s);
   if (dtype == 1)
     return launch_chunk_sums_bf16(tiles, X, cols, out, n_chunks, C, nb, B, c, ldx, s);
   return static_cast<int>(cudaErrorInvalidValue);
@@ -1511,10 +2030,10 @@ extern "C" int fvgp_block_spmv(const void* tiles, const void* X, const int* row_
                                int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_mma<float, float>(tiles, X, row_ptr, order, 0, cols, out, nb, B, k, ldx,
+    return launch_mma<float, float>(tiles, X, row_ptr, order, cols, out, nb, B, k, ldx,
                                     nb, x_rows, out_rows, s);
   if (dtype == 1)
-    return launch_mma<bf16, bf16>(tiles, X, row_ptr, order, 0, cols, out, nb, B, k, ldx, nb,
+    return launch_mma<bf16, bf16>(tiles, X, row_ptr, order, cols, out, nb, B, k, ldx, nb,
                                   x_rows, out_rows, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

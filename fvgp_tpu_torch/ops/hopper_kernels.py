@@ -19,10 +19,14 @@ with ``ctypes`` through a plain C interface):
 * ``row_chunk_sums`` (K2) replaces the Pallas ``row_chunk_sums`` — the
   wide-RHS SpMM of the committed posterior CG.  Per C-tile chunk of a
   row-aligned schedule it returns one (B, c) float32 partial sum, reading the
-  X blocks through ``cols`` itself (no pre-gathered X).  Bfloat16 runs on
-  ``wgmma`` fed by TMA copies (the gather folded into the copy) through an
-  mbarrier ring, bound by the bytes of the tiles; float32 takes K1's 3×TF32
-  body with chunks as segments.
+  X blocks through ``cols`` itself (no pre-gathered X).  Both dtypes run
+  on ``wgmma`` fed by TMA copies (the gather folded into the copy) through
+  an mbarrier ring: bfloat16 bound by the bytes of the tiles; float32 as
+  3×TF32 products (``segment_mma_kernel_wgmma_tf32``: the tile split in
+  registers, each X slice split once into K-major hi and lo operands,
+  padding tiles skipped), bound by the products and, on the card, by the
+  shared-memory traffic they take.  Each float32 launch adds one to the
+  counter ``k2_wgmma_launches`` (``utils/trace.py``).
 * ``dense_covariance`` (K3) replaces the Pallas ``dense_covariance`` —
   ``K = σ²·poly(‖(x1−x2)/ℓ‖)`` (Matérn-3/2 or Wendland) from exact
   per-dimension differences, float32 or float64.  A write-only stream,
@@ -417,7 +421,10 @@ def row_aligned_schedule(rows, cols, nb, C=8, chunk_bucket=256):
 
 def row_chunk_sums_reference(tiles, cols, Xb, B, C=8):
     """Plain PyTorch per-chunk sums ``out[s] = Σ_{j<C} tiles[sC+j] @
-    Xb[min(cols[sC+j], nb-1)]`` in float32 — ``Xb`` is (nb, B, c)."""
+    Xb[min(cols[sC+j], nb-1)]`` in float32 — ``Xb`` is (nb, B, c).  A
+    tile whose column index is ``nb`` or past it is padding and must be
+    zero: the kernel's float32 body skips it, so it agrees with this sum
+    only then."""
     nb, _, c = Xb.shape
     xg = Xb[cols.long().clamp(max=nb - 1)].to(torch.float32)
     prod = torch.bmm(tiles.to(torch.float32), xg)
@@ -426,8 +433,10 @@ def row_chunk_sums_reference(tiles, cols, Xb, B, C=8):
 
 def row_chunk_sums(tiles, cols, Xb, B, C=8):
     """Per-chunk partial products of a row-aligned schedule slice (see
-    :func:`row_chunk_sums_reference`).  CPU tensors take the plain version;
-    float32/bfloat16 CUDA tensors launch the K2 kernel."""
+    :func:`row_chunk_sums_reference`, and its zero padding tiles).  CPU
+    tensors take the plain version; float32/bfloat16 CUDA tensors launch
+    the K2 kernel on wgmma, and each float32 launch adds one to the
+    counter ``k2_wgmma_launches``."""
     if Xb.device.type == "cpu":
         return row_chunk_sums_reference(tiles, cols, Xb, B, C)
     _check_kernel_inputs("row_chunk_sums", tiles, Xb, B)
@@ -449,6 +458,8 @@ def row_chunk_sums(tiles, cols, Xb, B, C=8):
         raise RuntimeError(f"row_chunk_sums: kernel launch failed with CUDA "
                            f"error {err}")
     row_chunk_sums.launches += 1
+    if tiles.dtype == torch.float32:
+        trace.count("k2_wgmma_launches")
     return out
 
 

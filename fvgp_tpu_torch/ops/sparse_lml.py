@@ -273,8 +273,10 @@ def _spmv_scan_fused(rowsc, cols_p, tiles, X, nb, B, C=8, mv_dtype=None):
 
     ``rowsc`` (n_chunks,) per-chunk output rows (sentinel == nb, dropped
     through a dummy row block); ``cols_p`` (n_chunks*C,) per-tile column
-    blocks (sentinel == nb — their tiles are zero, the clamp is harmless).
-    float32/bfloat16 only (the kernel accumulates float32)."""
+    blocks (sentinel == nb — their tiles must be zero: the float32 kernel
+    skips them, the bfloat16 one and the plain version multiply them by
+    the clamped last block).  float32/bfloat16 only (the kernel
+    accumulates float32)."""
     Xc = X.to(mv_dtype) if mv_dtype is not None else X
     c = X.shape[1]
     Xb = Xc.reshape(nb, B, c)

@@ -40,6 +40,9 @@ A counter is a process-wide integer, always on: ``count(name, n)`` adds,
 * ``probe_draws_native`` / ``probe_draws_fallback``: Rademacher probe
   draws (``ops/slq.rademacher_probes``, one a call) made by the native
   library's MT19937 or by ``torch.randint`` (the same bits either way);
+* ``k2_wgmma_launches``: float32 K2 launches on its wgmma body
+  (``ops/hopper_kernels.row_chunk_sums``; beside the launch count
+  ``row_chunk_sums.launches``, which counts every K2 launch);
 * ``host_syncs``: reads of a tensor's value on the host
   (``config.to_numpy``, ``config.to_float`` and the CG exit tests).
   On the card each one waits until the card has computed the value; the
