@@ -11,6 +11,8 @@ Run from the root of the repository:
     python3 chip_profile.py k3              # K3's launch and store variants
     python3 chip_profile.py k4              # K4's wrapper, launch by launch
     python3 chip_profile.py cell <workload> [seed]   # a benchmark cell
+    python3 chip_profile.py floor [seeds]   # the bf16 mBCG exit floor sweep
+    python3 chip_profile.py far [seed]      # gp2scale-train-far's cold pass
 
 Dense: builds the bench's dense cell (``chip_smoke.dense_cell_data``,
 N = 10,000 by default, D = 3, linalg_mode="Chol", float32), warms it up,
@@ -54,6 +56,27 @@ under ``torch.cuda.set_sync_debug_mode("warn")``: the synchronising calls
 it reports, by the line of the program that made them, beside the
 request's ``host_syncs``.
 
+floor: the bfloat16 mBCG exit floor, swept at the cell gp2scale-bf16-train's
+shape (its data, model and warm-up as ``gpbench/run.py`` makes them; seeds
+``11,12,13`` by default, comma-separated).  At each squared floor of
+``FLOORS`` (``sparse_cg_tol`` its square root; 0 runs every solve to the
+32-trip cap) the same requests — the cell's first ``FLOOR_STEPS``, and
+``FLOOR_WORST`` with the signal variance just short of a bfloat16 rounding
+midpoint, where its rounding error is largest — each at the same model
+evaluation index, so on the same probes, against the exact float64
+reference (``gpbench/reference/gp2scale_bf16_lml_grad.py``): trips per
+step, ``lml_rel`` and ``grad_rel`` (worst and median), the part the exit
+adds (the floor's answer against the cap's, over the reference), the
+share of solves that stopped at the floor, and the median step time; and
+the E4M3 control's readings at the default floor.
+
+far: the cell gp2scale-train-far (seed 1 by default): the live tiles of
+the exact structure (the benchmark reference's) at h0 and at each of the
+six lengthscale permutations, then, after the warm-up, ``FAR_STEPS``
+timed steps, each with its peak device memory
+(``torch.cuda.max_memory_allocated`` after a reset) and its structure
+counters, and three more in one traced window (the cold pass by span).
+
 slq: on the gp2Scale journey's model (N = 1,000,000, bfloat16), the LML
 value by mBCG (the journey's settings, and with ``sparse_cg_tol`` 1e-3 and
 200 trips), by SLQ at degree 20 and 40 and by SLQ with float32 streaming,
@@ -87,6 +110,7 @@ means of the call and of the bare launch on operands prepared once.
 Exits non-zero without a card.
 """
 
+import json
 import sys
 import time
 import traceback
@@ -147,6 +171,11 @@ def main():
         return k4_wrapper()
     if args and args[0] == "cell":
         return cell(args[1], int(args[2]) if len(args) > 2 else 1)
+    if args and args[0] == "floor":
+        return floor_sweep([int(s) for s in (args[1] if len(args) > 1
+                                             else "11,12,13").split(",")])
+    if args and args[0] == "far":
+        return far(int(args[1]) if len(args) > 1 else 1)
     N = int(args[0]) if args else 10_000
     print(f"card: {cs.smi_line()}; N={N}", flush=True)
     x, y, xp = cs.dense_cell_data(N)
@@ -171,26 +200,11 @@ def cell(name, seed):
     from fvgp_tpu_torch.ops import hopper_kernels as hk
     from fvgp_tpu_torch.utils import trace as program
     from gpbench.harness import spans
-    from gpbench.harness.inputs import Traffic, make_data
-    from gpbench.harness.spec import Spec
-    from gpbench.harness.system import System
     from gpbench.metrics.assembly_ms import is_assembly
     from gpbench.metrics.dense_linalg_ms import is_library
-    spec = Spec()
-    w = spec.workload(name)
-    config = spec.config(w["config"])
-    mix = spec.traffic(w["traffic"])
-    op = spec.op(mix["op"])
-    settings = spec.cell(name)
-    if "host_threads" in settings:
-        torch.set_num_threads(int(settings["host_threads"]))
-    data = make_data(spec, config, seed)
-    system = System(spec, config, data, "cuda", op)
-    traffic = Traffic(mix, config, seed, op)
-    for req in traffic.warmup():
-        system.run(req)
+    spec, config, mix, op, data, system, traffic = _bench_cell(name, seed)
     stream = iter(traffic)
-    reqs = [next(stream) for _ in range(int(settings["traced"]))]
+    reqs = [next(stream) for _ in range(int(spec.cell(name)["traced"]))]
     counts = []
 
     def launch_counts():
@@ -255,6 +269,162 @@ def cell(name, seed):
           flush=True)
     for key, n in sorted(where.items(), key=lambda kv: -kv[1]):
         print(f"    {n:4d}  {key}", flush=True)
+    return 0
+
+
+# squared relative exit floors of the bf16 sweep; 0 runs to the trip cap
+FLOORS = (2.5e-3, 1e-3, 1e-4, 1e-5, 0.0)
+FLOOR_STEPS = 6
+# signal variances just short of a bfloat16 rounding midpoint (the
+# largest rounding error within the cell's 3% walk)
+FLOOR_WORST = (1.0 + 2 ** -8 * 0.999, 1.0 - 2 ** -9 * 0.999)
+FAR_STEPS = 24
+
+
+def _bench_cell(name, seed):
+    """(spec, config, mix, op, data, system, traffic) of a benchmark cell
+    after its warm-up, as ``gpbench/run.py`` builds it (with the cell's
+    host threads)."""
+    import torch
+
+    from gpbench.harness.inputs import Traffic, make_data
+    from gpbench.harness.spec import Spec
+    from gpbench.harness.system import System
+    spec = Spec()
+    w = spec.workload(name)
+    config = spec.config(w["config"])
+    mix = spec.traffic(w["traffic"])
+    op = spec.op(mix["op"])
+    settings = spec.cell(name)
+    if "host_threads" in settings:
+        torch.set_num_threads(int(settings["host_threads"]))
+    data = make_data(spec, config, seed)
+    system = System(spec, config, data, "cuda", op)
+    traffic = Traffic(mix, config, seed, op)
+    for req in traffic.warmup():
+        system.run(req)
+    return spec, config, mix, op, data, system, traffic
+
+
+def _rel(answer, ref):
+    v, g = answer
+    rv, rg = ref
+    return (abs(v - rv) / abs(rv),
+            float(np.max(np.abs(g - rg)) / np.max(np.abs(rg))))
+
+
+def floor_sweep(seeds):
+    import itertools
+    import statistics
+
+    import torch
+
+    import chip_smoke as cs
+    from fvgp_tpu_torch.utils import trace as program
+    print(f"card: {cs.smi_line()}; bf16 exit floor sweep, seeds {seeds}",
+          flush=True)
+    rows = []
+    for seed in seeds:
+        spec, config, mix, op, data, system, traffic = _bench_cell(
+            "gp2scale-bf16-train", seed)
+        h0 = np.asarray(config["gp"]["init_hyperparameters"], float)
+        hs = [r["h"] for r in itertools.islice(iter(traffic), FLOOR_STEPS)]
+        hs += [np.r_[v, h0[1:]] for v in FLOOR_WORST]
+        t = time.perf_counter()
+        make = spec.reference(config["family"], "lml_grad").make
+        exact = make(config, data, "cuda", "exact").lml_grads(
+            hs, list(range(len(hs))))
+        print(f"seed {seed}: exact reference of {len(hs)} steps "
+              f"{time.perf_counter() - t:.1f} s", flush=True)
+        ml = system.model.marginal_likelihood
+        answers = {}
+        for fl in FLOORS:
+            ml.args["sparse_cg_tol"] = fl ** 0.5
+            ml.log_likelihood_value_and_gradient(h0)   # the new entry
+            # the entry's evaluations from here are 0, 1, ...: the
+            # reference's probes
+            ml._sparse_cache[next(iter(ml._sparse_cache))]["counter"] = 0
+            got, times = [], []
+            c0 = program.counters()
+            for h in hs:
+                torch.cuda.synchronize()
+                a = time.perf_counter()
+                val, grad = ml.log_likelihood_value_and_gradient(h)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - a)
+                got.append((val, np.asarray(grad, np.float64)))
+            c1 = program.counters()
+            answers[fl] = got
+            rels = [_rel(a, e) for a, e in zip(got, exact)]
+            row = {"seed": seed, "floor_sq": fl,
+                   "trips": (c1.get("mbcg_iterations", 0)
+                             - c0.get("mbcg_iterations", 0)) / len(hs),
+                   "floor_exits": (c1.get("mbcg_floor_exits", 0)
+                                   - c0.get("mbcg_floor_exits", 0)) / len(hs),
+                   "lml_rel_max": max(r[0] for r in rels),
+                   "lml_rel_med": statistics.median(r[0] for r in rels),
+                   "grad_rel_max": max(r[1] for r in rels),
+                   "grad_rel_med": statistics.median(r[1] for r in rels),
+                   "worst_rel": rels[-len(FLOOR_WORST):],
+                   "step_s_med": statistics.median(times)}
+            rows.append(row)
+        for row in rows[-len(FLOORS):]:
+            # what the exit adds: the floor's answer against the cap's,
+            # over the reference's scale
+            cap = answers[0.0]
+            row["exit_added_lml_max"] = max(
+                abs(a[0] - c[0]) / abs(e[0]) for a, c, e in
+                zip(answers[row["floor_sq"]], cap, exact))
+            row["exit_added_grad_max"] = max(
+                float(np.max(np.abs(a[1] - c[1])) / np.max(np.abs(e[1])))
+                for a, c, e in zip(answers[row["floor_sq"]], cap, exact))
+            print(json.dumps(row), flush=True)
+        ctl = make(config, data, "cuda", "tf32").lml_grads(
+            hs, list(range(len(hs))))
+        print(json.dumps({"seed": seed, "e4m3_control": [
+            _rel(c, e) for c, e in zip(ctl, exact)]}), flush=True)
+        del system, ml
+        torch.cuda.empty_cache()
+    return 0
+
+
+def far(seed):
+    import itertools
+
+    import torch
+
+    import chip_smoke as cs
+    from fvgp_tpu_torch.utils import trace as program
+    name = "gp2scale-train-far"
+    print(f"card: {cs.smi_line()}; {name}, seed {seed}", flush=True)
+    spec, config, mix, op, data, system, traffic = _bench_cell(name, seed)
+    h0 = np.asarray(config["gp"]["init_hyperparameters"], float)
+    ref = spec.reference(config["family"], mix["op"]).make(
+        config, data, "cuda", "exact")
+    tiles = {"h0": ref.live_tiles(h0)}
+    for p in op.permutations(mix):
+        tiles[str([float(v) for v in p])] = ref.live_tiles(h0 * np.exp(np.r_[0.0, p]))
+    live = list(tiles.values())[1:]
+    print(json.dumps({"live_tiles": tiles, "spread_of_six": (
+        max(live) - min(live)) / min(live)}), flush=True)
+    del ref
+    torch.cuda.empty_cache()
+    stream = iter(traffic)
+    steps = []
+    for req in itertools.islice(stream, FAR_STEPS):
+        torch.cuda.reset_peak_memory_stats()
+        c0 = program.counters()
+        a = time.perf_counter()
+        system.run(req)
+        s = time.perf_counter() - a
+        c1 = program.counters()
+        steps.append({"s": s, "peak": torch.cuda.max_memory_allocated(),
+                      **{k: c1.get(k, 0) - c0.get(k, 0) for k in (
+                          "structure_passes", "schedule_rebuilds",
+                          "mbcg_iterations", "mbcg_floor_exits")}})
+    print(json.dumps({"steps": steps}), flush=True)
+    window(f"{name} (seed {seed}), 3 far steps",
+           [lambda r=r: system.run(r) for r in itertools.islice(stream, 3)])
     return 0
 
 

@@ -54,7 +54,7 @@ from .. import config
 from ..ops import dense as dops
 from ..ops.slq import rademacher_probes as _rademacher_probes
 from ..utils.logging import phase_timer
-from ..utils.trace import span
+from ..utils.trace import count, span
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -228,20 +228,28 @@ class GPMarginalLikelihood:
                      "noise_pad": noise_pad, "probes": probes, "counter": 0,
                      "schedule": None}
             self._sparse_cache = {key: entry}
-        rows_f, cols_f = tiles.training(ls, radius, B, nb)
-
         # the program's schedule and bound inputs, built once per structure
         # and reused while the filtered structure is unchanged: meshless, the
-        # padded schedule; under a mesh, the rank's segment of it
+        # padded schedule; under a mesh, the rank's segment of it.  Where
+        # neither structure cache moved since the schedule was built, the
+        # structure is its own, unfiltered and uncompared (the stamp)
         sched = entry["schedule"]
-        if (sched is None or len(sched[0]) != len(rows_f)
+        rows_f, cols_f, stamp = tiles.training(
+            ls, radius, B, nb, since=None if sched is None else sched[3])
+        if rows_f is not None and (
+                sched is None or len(sched[0]) != len(rows_f)
                 or not np.array_equal(sched[0], rows_f)
                 or not np.array_equal(sched[1], cols_f)):
-            run = (self._mesh_run(entry, rows_f, cols_f, st)
-                   if st["mesh"] is not None
-                   else self._single_run(entry, rows_f, cols_f, nb, device))
-            sched = (rows_f.copy(), cols_f.copy(), run)
-            entry["schedule"] = sched
+            with span("fvgp.sparse_lml.schedule"):
+                run = (self._mesh_run(entry, rows_f, cols_f, st)
+                       if st["mesh"] is not None
+                       else self._single_run(entry, rows_f, cols_f, nb,
+                                             device))
+            count("schedule_rebuilds")
+            sched = (rows_f.copy(), cols_f.copy(), run, stamp)
+        else:
+            sched = sched[:3] + (stamp,)
+        entry["schedule"] = sched
         # what the Adam chain revalidates on entry: the support lengthscales
         # and the data this structure was built for
         entry["chain_ctx"] = {"ls_ref": ls, "data_token": tiles.token()}

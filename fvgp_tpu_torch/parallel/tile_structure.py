@@ -11,11 +11,18 @@ native runtime's lexicographic ``(i, j)`` order, mirrors appended, and
 liveness only filters them: the training pass's structure and the exact
 pass's at the same lengthscales are the same sequence."""
 
+import itertools
+
 import numpy as np
 import torch
 
 from ..utils import structure_cache as sc
+from ..utils import trace
 from ..utils.logging import phase_timer
+
+# one stamp per (candidates, dead set) pair in the process: see
+# ``TileStructure.training``
+_STAMPS = itertools.count(1)
 
 
 def _candidates(x, ls, radius, B):
@@ -47,6 +54,7 @@ class TileStructure:
         self._candidates = None     # (key, ls_ref, rows, cols)
         self._dead = None           # (key, ls_ref, sorted dead pair keys)
         self._exact = None          # (key, rows, cols)
+        self._stamp = next(_STAMPS)  # new whenever either of the two moves
 
     def token(self):
         """The dataset's identity in this process."""
@@ -89,11 +97,15 @@ class TileStructure:
             sc.store(cdir, kind, key, **out)
         return out
 
-    def training(self, ls, radius, B, nb):
-        """(rows, cols) of the training pass at lengthscales ``ls``: the
-        candidates at ``ls·(1+drift)``, reused inside the drift band, less
-        the dead pairs of the last liveness pass inside the band (pairs
-        keyed by ``nb``, the program's block count)."""
+    def training(self, ls, radius, B, nb, since=None):
+        """(rows, cols, stamp) of the training pass at lengthscales
+        ``ls``: the candidates at ``ls·(1+drift)``, reused inside the drift
+        band, less the dead pairs of the last liveness pass inside the band
+        (pairs keyed by ``nb``, the program's block count).  ``stamp`` names
+        the candidates and dead set a filtered structure comes from (None
+        unfiltered); where ``since`` is that stamp, neither has moved, so
+        the caller's structure stands: ``rows`` and ``cols`` are None and
+        the dead-pair filter does not run."""
         args = self.data.args
         x = np.asarray(self.data.x_data, dtype=np.float64)
         tok, radius = self.token(), float(radius)
@@ -102,6 +114,7 @@ class TileStructure:
                 and self.within_drift(ls, c[1])):
             rows, cols = c[2], c[3]
         else:
+            trace.count("structure_passes")
             wide = ls * (1.0 + self._drift())
 
             def compute():
@@ -111,15 +124,19 @@ class TileStructure:
             hit = self._disk("candidates", (B, radius, wide), compute)
             rows, cols = hit["rows"], hit["cols"]
             self._candidates = ((tok, B, radius), ls, rows, cols)
+            self._stamp = next(_STAMPS)
         if not (bool(args.get("gp2Scale_tile_filter", True))
                 and np.isfinite(radius) and len(rows)):
-            return rows, cols
-        pair_key = rows.astype(np.int64) * (nb + 1) + cols
+            return rows, cols, None
         d = self._dead
         if (d is not None and d[0] == (tok, nb, B, radius)
                 and self.within_drift(ls, d[1])):
-            keep = ~np.isin(pair_key, d[2])
+            if since == self._stamp:
+                return None, None, since
+            keep = ~np.isin(rows.astype(np.int64) * (nb + 1) + cols, d[2])
         else:
+            pair_key = rows.astype(np.int64) * (nb + 1) + cols
+
             def compute():
                 with phase_timer("fvgp.sparse_lml.liveness"):
                     return {"keep": np.asarray(
@@ -127,11 +144,12 @@ class TileStructure:
             keep = self._disk("liveness", (B, radius, ls, rows, cols),
                               compute)["keep"].astype(bool)
             self._dead = ((tok, nb, B, radius), ls, np.sort(pair_key[~keep]))
+            self._stamp = next(_STAMPS)
             # the structure at exactly these lengthscales: the committed
             # solver's, when it runs at them
             self._exact = (self._exact_key(ls, radius, B, True), rows[keep],
                            cols[keep])
-        return rows[keep], cols[keep]
+        return rows[keep], cols[keep], self._stamp
 
     def exact(self, ls, radius, B):
         """(rows, cols) at exactly the lengthscales ``ls``: the candidates

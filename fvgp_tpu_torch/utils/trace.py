@@ -15,7 +15,9 @@ The spans, by area:
 
 * ``fvgp.sparse_lml``: ``structure`` (support geometry, the candidate and
   liveness caches, the schedule's check), ``candidates``,
-  ``padded_inputs`` and ``liveness`` inside it on a cache miss, ``probes``
+  ``padded_inputs`` and ``liveness`` inside it on a cache miss,
+  ``schedule`` inside it where the structure moved (the padded schedule
+  built and uploaded), ``probes``
   (the Rademacher draw on the host and its copy to the device),
   ``assemble``, ``precond``, ``mbcg``, and ``backward`` (the gradient)
   with ``mbcg_bwd`` and ``assemble_bwd`` inside it (on autograd's thread
@@ -46,7 +48,15 @@ A counter is a process-wide integer, always on: ``count(name, n)`` adds,
 * ``host_syncs``: reads of a tensor's value on the host
   (``config.to_numpy``, ``config.to_float`` and the CG exit tests).
   On the card each one waits until the card has computed the value; the
-  CPU counts the same points, so a call's count is the same on both.
+  CPU counts the same points, so a call's count is the same on both;
+* ``mbcg_floor_exits``: mBCG solves that stopped at the exit floor
+  before the trip cap (``ops/sparse_lml._pcg_coeffs``);
+* ``structure_passes``: cold candidate passes of the gp2Scale training
+  structure, one each time the lengthscales leave the drift band of the
+  cached candidates (``parallel/tile_structure.TileStructure.training``);
+* ``schedule_rebuilds``: new padded schedules that the gp2Scale LML
+  builds and uploads where the filtered structure moved
+  (``GPMarginalLikelihood._sparse_structure``).
 """
 
 import threading

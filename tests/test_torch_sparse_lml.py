@@ -122,3 +122,61 @@ def test_spmv_scan_matches_jax():
     got = TSL._spmv_scan(torch.as_tensor(rows), torch.as_tensor(cols),
                          torch.as_tensor(tiles), torch.as_tensor(X), nb, B)
     np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-10)
+
+
+# bfloat16 tile streaming, as the benchmark's gp2scale-wendland-1m-bf16
+# runs it: tiles and SpMM operands in bfloat16, vectors in float32, the
+# 32-trip cap and the per-dtype exit floor.  The signal variance sits just
+# short of a bfloat16 rounding midpoint, where rounding moves the answer
+# most (~5e-3 of the LML), so the float32 port lands outside the bound.
+BF16_ULP = 2.0 ** -8      # bfloat16's relative spacing at 1
+
+
+@pytest.mark.parametrize("seed", [1, 3])
+def test_sparse_lml_bf16_matches_jax(seed):
+    """The port's bfloat16 LML and gradient against the JAX package's at
+    the same points, hyperparameters and probes: the value and each
+    gradient entry within half a bfloat16 ulp of the JAX answer."""
+    N, B = 1500, 64
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0, (N * 4.19 * 8 / 40) ** (1 / 3), (N, 3))
+    x = x[morton_order(x)]
+    y = np.sin(0.2 * x[:, 0]) + 0.05 * rng.standard_normal(N)
+    hps = np.array([1.0 + BF16_ULP * 0.999, 2.0, 2.0, 2.0])
+    rows, cols = _candidate_pairs(x, None, hps[1:], 1.0, B, symmetric=True)
+    off = rows < cols
+    rows, cols = (np.concatenate([rows, cols[off]]).astype(np.int32),
+                  np.concatenate([cols, rows[off]]).astype(np.int32))
+    nb = -(-N // B)
+    Z = rng.choice([-1.0, 1.0], size=(nb * B, 16))
+    Z[N:] = 0.0
+    noise = np.full(N, 1e-2)
+    jx = SL.make_padded_inputs(x, y, noise, B, dtype=jnp.float32)
+    tx = TSL.make_padded_inputs(x, y, noise, B, dtype=torch.float32,
+                                device="cpu")
+    lml = SL.make_sparse_lml(wendland_anisotropic, nb, B, cg_iters=32,
+                             slq_degree=1, solver="mbcg", with_variance=True,
+                             solver_dtype=jnp.bfloat16)
+    (jv, _), jg = jax.jit(jax.value_and_grad(lml, has_aux=True))(
+        jnp.asarray(hps, jnp.float32), jnp.asarray(rows), jnp.asarray(cols),
+        *jx, jnp.asarray(Z, jnp.float32))
+    jv, jg = float(jv), np.asarray(jg, np.float64)
+
+    def port(solver_dtype):
+        tlml = TSL.make_sparse_lml(t_wendland, nb, B, cg_iters=32,
+                                   with_variance=True,
+                                   solver_dtype=solver_dtype)
+        h = torch.tensor(hps, dtype=torch.float32, requires_grad=True)
+        tv, _ = tlml(h, torch.as_tensor(rows), torch.as_tensor(cols), *tx,
+                     torch.as_tensor(Z, dtype=torch.float32))
+        tg, = torch.autograd.grad(tv, h)
+        return float(tv.detach()), tg.numpy().astype(np.float64)
+
+    def within(answer):
+        v, g = answer
+        return (abs(v - jv) <= BF16_ULP / 2 * abs(jv)
+                and bool(np.all(np.abs(g - jg) <= BF16_ULP / 2 * np.abs(jg))))
+
+    bf16 = port(torch.bfloat16)
+    assert within(bf16), (bf16, (jv, jg))
+    assert not within(port(None))
